@@ -1,0 +1,153 @@
+"""Per-step span recording: where a training step's wall time actually goes.
+
+Copy of `tpu_dp.obs.spans` for the PyTorch port (the port never imports
+the JAX package); the serving path records its per-request spans here.
+
+The trainer's host loop has four distinct places a step can lose time, and
+a single throughput number cannot tell them apart ("Scalable Training of
+Language Models using JAX pjit and TPUv4", arXiv:2204.06514 — step-time
+*breakdowns* are how pod-scale runs stay debuggable):
+
+- ``data_wait`` — blocked in the pipeline's ``next()``: host gather +
+  a prefetch that fell behind;
+- ``h2d``      — waiting for the batch's host→device transfer to land
+  (zero when prefetch overlapped it);
+- ``dispatch`` — the host's own cost of launching the compiled step;
+- ``device``   — fence-to-fence device execution: from dispatch return to
+  a device→host scalar fetch, the same honest-fence discipline as
+  `ThroughputMeter.mark()` (`tpu_dp/utils/meter.py`) — on relay
+  transports `block_until_ready` can return early, a value transfer
+  cannot.
+
+`SpanRecorder` is the low-overhead sink: a ring buffer (`deque(maxlen=)`)
+of per-step records, each ``{"step", "ts", "spans": {name: ms}}``, with
+percentile rollups computed only when asked (log boundaries, epoch ends,
+export) — the hot-loop cost is one dict construction and one append per
+step. Windowed dispatch (`train.steps_per_call > 1`) measures per *window*
+and attributes the totals evenly across the window's steps (documented in
+docs/OBSERVABILITY.md — per-step attribution inside one device-side scan
+is not observable from the host).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Iterable, Mapping
+
+#: The trainer's canonical span set, in loop order.
+STEP_SPANS = ("data_wait", "h2d", "dispatch", "device")
+
+
+def percentile(sorted_values: list[float], q: float) -> float:
+    """Linear-interpolated percentile of an ascending list (q in [0, 100]).
+
+    Pure Python on sorted input: rollups run at log boundaries over ring
+    buffers of a few thousand floats — numpy would be an import and an
+    array copy for no measurable win.
+    """
+    if not sorted_values:
+        raise ValueError("percentile of an empty sequence")
+    if len(sorted_values) == 1:
+        return sorted_values[0]
+    rank = (q / 100.0) * (len(sorted_values) - 1)
+    lo = int(rank)
+    hi = min(lo + 1, len(sorted_values) - 1)
+    frac = rank - lo
+    return sorted_values[lo] * (1.0 - frac) + sorted_values[hi] * frac
+
+
+class SpanRecorder:
+    """Ring-buffered per-step span records with percentile rollups.
+
+    ``capacity`` bounds memory (and the Perfetto export window): a
+    multi-day run keeps the most recent ``capacity`` steps, which is what
+    a "why is it slow *now*" investigation needs.
+    """
+
+    def __init__(self, capacity: int = 4096):
+        if capacity <= 0:
+            raise ValueError(f"capacity must be positive, got {capacity}")
+        self.capacity = int(capacity)
+        self._records: deque[dict] = deque(maxlen=self.capacity)
+        self.total_recorded = 0  # lifetime count, beyond the ring
+
+    def record(self, step: int, spans: Mapping[str, float],
+               ts: float | None = None, gen: int = 0) -> dict:
+        """Append one per-step record; ``spans`` maps name → milliseconds.
+
+        ``ts`` is the step's wall-clock start (``time.time()`` seconds);
+        stamped now when omitted. ``gen`` is the rollback generation the
+        step ran under (stamped only when nonzero): the Perfetto export
+        renders each generation as its own track group, so a replayed
+        step never overdraws the attempt it rewound
+        (docs/OBSERVABILITY.md "Rollback rewind guard"). Returns the
+        stored record.
+        """
+        rec = {
+            "step": int(step),
+            "ts": time.time() if ts is None else float(ts),
+            "spans": {k: float(v) for k, v in spans.items()},
+        }
+        if gen:
+            rec["gen"] = int(gen)
+        self._records.append(rec)
+        self.total_recorded += 1
+        return rec
+
+    def record_window(self, first_step: int, n_steps: int,
+                      spans: Mapping[str, float],
+                      ts: float | None = None, gen: int = 0) -> list[dict]:
+        """Attribute one window's span totals evenly across its steps.
+
+        A window of ``n_steps`` compiled into one dispatch is observable
+        from the host only as totals; each of its steps gets total/n and a
+        start time spaced by the window's per-step share. Returns the
+        ``n_steps`` records appended (the trainer forwards them to the
+        per-step `metrics.jsonl` sink at ``obs=full``).
+        """
+        n = max(1, int(n_steps))
+        ts0 = time.time() if ts is None else float(ts)
+        per = {k: float(v) / n for k, v in spans.items()}
+        stride_s = sum(per.values()) / 1e3
+        return [
+            self.record(first_step + j, per, ts=ts0 + j * stride_s, gen=gen)
+            for j in range(n)
+        ]
+
+    def records(self) -> list[dict]:
+        """The ring's contents, oldest first."""
+        return list(self._records)
+
+    def __len__(self) -> int:
+        return len(self._records)
+
+    def rollup(self, spans: Iterable[str] | None = None) -> dict[str, dict]:
+        """Per-span percentiles over the ring: p50/p95/p99, mean, max, n.
+
+        ``spans`` restricts the rollup; default is every span name seen.
+        Milliseconds, rounded to 3 decimals (µs resolution — below that is
+        clock noise).
+        """
+        by_name: dict[str, list[float]] = {}
+        for rec in self._records:
+            for name, v in rec["spans"].items():
+                by_name.setdefault(name, []).append(v)
+        names = list(by_name) if spans is None else [
+            s for s in spans if s in by_name
+        ]
+        out: dict[str, dict] = {}
+        for name in names:
+            vals = sorted(by_name[name])
+            out[name] = {
+                "p50": round(percentile(vals, 50), 3),
+                "p95": round(percentile(vals, 95), 3),
+                "p99": round(percentile(vals, 99), 3),
+                "mean": round(sum(vals) / len(vals), 3),
+                "max": round(vals[-1], 3),
+                "n": len(vals),
+            }
+        return out
+
+    def reset(self) -> None:
+        self._records.clear()
