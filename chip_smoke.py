@@ -6,21 +6,43 @@ repository root on a machine with one NVIDIA H100.
 Phases, in order; any failure exits non-zero before the last line:
 
 1. header: the card (torch and ``nvidia-smi``); no CUDA → exit 1;
-2. build: every kernel of the serving path, one nvcc per source;
-3. kernel vs plain: the conv kernel's public wrappers against its plain
-   PyTorch version on the card, at B=32 for the four ResNet-18 shapes x
-   the three eval variants x f32/bf16 inputs (tolerance: one bf16 ulp at
+2. build: every kernel of the port (conv_block.cu, xent.cu), one nvcc per
+   source, started together;
+3. kernel vs plain, eval: the conv kernel's public wrappers against its
+   plain PyTorch version on the card, at B=32 for the four ResNet-18 shapes
+   x the three eval variants x f32/bf16 inputs (tolerance: one bf16 ulp at
    the output's magnitude), with CUDA-event medians of the kernel, the
    plain version and one cuDNN conv of the same size (``library_ms``)
    beside the bound; then the same checks, untimed, at the serve ladder's
    other buckets (1, 2, 4, 8, 16), where tiles are only partly filled;
-4. serve: the full-width fused CIFAR ResNet-18 (f32, random weights and
+4. kernel vs plain, train, at the training batch B=128 for the four
+   stages: the ``emit_stats`` conv (emit_z and residual on or off, f32; y
+   within one ulp, stats within 1e-5 * sum|y| of the plain sums of the
+   kernel's own y, and bit-identical across two launches), its stats
+   reduce, the input-grad reuse (bf16 ct, flipped weight, no activation;
+   one ulp), the autograd rule's five gradients against the plain
+   version's autograd (max|g - g_plain| <= 2e-2 * max|g_plain|), and the
+   xent kernels forward and backward at C = 10 and 100 (f32 within 1e-6);
+   each timed beside its bound, its plain version and one library call
+   (cuDNN bf16 conv2d / conv2d_input, torch.sum, F.cross_entropy) — the
+   convs by CUDA events over back-to-back launches, the microsecond stats
+   reduce and xent kernels by their device time under the profiler (an
+   event loop would time the host's launch rate, which is also recorded);
+5. serve: the full-width fused CIFAR ResNet-18 (f32, random weights and
    random BN statistics from a seed) behind `InferenceEngine` with
    buckets 1..32, 200 Poisson requests of 1-4 images: audited books, the
    device class histogram equal to the handles' predictions, exactly 10
    kernel launches per forward, and bucket-32 logits equal to the same
    weights run unfused (cuDNN) within 1e-2 of their magnitude;
-5. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+6. train: `Trainer` on ``--preset=resnet18_cifar10 --model.fused_stages=all
+   --model.fused_bwd=true --train.pallas_xent=true`` at full width (f32,
+   batch 128, synthetic data), 30 steps and one eval: finite losses that
+   fall, exactly 20 conv-kernel launches (+10 stats reduces) and 2 xent
+   launches per step and 10 per eval forward, the first 5 losses within
+   0.05 of the same init and batches run unfused without kernels, a
+   number for the accuracy; step time, device-busy share, top kernels and
+   peak memory;
+7. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): f32 means f32 in the plain
@@ -41,8 +63,10 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
+#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
+#: outside the tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 B = 32
 #: the serve ladder's other buckets, checked against the plain version.
@@ -54,6 +78,20 @@ FORWARD_CALLS = ((0, "emit_z"), (0, "plain"), (0, "emit_z+res"),
                  (0, "plain"), (1, "emit_z"), (1, "plain"),
                  (2, "emit_z"), (2, "plain"), (3, "emit_z"), (3, "plain"))
 KERNEL = "conv_block.fused_affine_relu_conv"
+#: the training batch, and the variants of one train forward's 10
+#: emit_stats launches (the same pattern as FORWARD_CALLS).
+TRAIN_B = 128
+TRAIN_VARIANTS = ("plain", "emit_z", "res", "emit_z+res")
+#: one train step's 10 input-grad launches, by stage.
+INPUT_GRAD_STAGES = (0, 0, 0, 0, 1, 1, 2, 2, 3, 3)
+XENT_CLASSES = (10, 100)
+TRAIN_STEPS = 30
+TRAIN_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
+              "--model.fused_bwd=true", "--train.pallas_xent=true",
+              "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
+              f"--data.synthetic_train_size={TRAIN_STEPS * TRAIN_B}",
+              f"--data.synthetic_test_size={2 * TRAIN_B}",
+              "--train.epochs=1", "--train.log_every=10"]
 
 
 def bf16_ulp(mag: float) -> float:
@@ -76,6 +114,42 @@ def cuda_median_ms(fn, reps: int = 30, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_loop_ms(fn, n: int = 20, reps: int = 7, warm: int = 3) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``n`` back-to-back
+    calls, per call: for kernels short enough that one call per event
+    pair would time the host."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn``: the time of every device kernel its
+    ``n`` calls launch, from the profiler, over ``n``. For microsecond
+    kernels, where a CUDA-event loop times the host's launch rate."""
+    return profile_forward(fn, n)["device_busy_us_per_call"] / 1e3
+
+
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """``(bound_ms, bound_by)``: the larger of bytes over HBM rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_header(out):
@@ -229,6 +303,232 @@ def phase_kernels(out):
           f"small-bucket cases within one bf16 ulp")
 
 
+def _direct_conv(cb, x, wk, scale, shift, res, emit_z, stats, act=True):
+    """One launch of the conv kernel alone through its C entry, on buffers
+    allocated once (no wrapper, no stats reduce): for timing."""
+    import torch
+
+    b, h, w, c = x.shape
+    y = torch.empty_like(x)
+    z = torch.empty_like(x) if emit_z else None
+    nb = -(-b * h * w // 64)
+    partials = torch.empty((nb, 2, c), device=x.device) if stats else None
+    conv, _ = cb._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (cb._DTYPES[x.dtype], res is not None, emit_z, act, stats,
+            x.data_ptr(), wk.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            None if res is None else res.data_ptr(), y.data_ptr(),
+            None if z is None else z.data_ptr(),
+            None if partials is None else partials.data_ptr(), b, h, w, c,
+            stream)
+
+    def launch():
+        if conv(*args) != 0:
+            raise RuntimeError("conv_block launch failed")
+    return launch, partials
+
+
+def _grad_check(cb, x, w, scale, shift, res, gen):
+    """The autograd rule's five gradients (fused_conv_bn, emit_z, residual,
+    pallas_bwd) against autograd through the plain version."""
+    import torch
+
+    b, h, _, c = x.shape
+    probes = [torch.randn(x.shape, generator=gen, device="cuda"),
+              torch.randn(x.shape, generator=gen, device="cuda"),
+              torch.randn(2, c, generator=gen, device="cuda") / (b * h * h)]
+    grads = []
+    for fn in ("kernel", "plain"):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, w, scale, shift, res)]
+        if fn == "kernel":
+            out = cb.fused_conv_bn(*leaves, pallas_bwd=True, emit_z=True)
+        else:
+            out = cb.reference_affine_relu_conv(*leaves, emit_z=True,
+                                                emit_stats=True)
+        sum((o * p).sum() for o, p in zip(out, probes)).backward()
+        grads.append([t.grad for t in leaves])
+    errs = {}
+    for name, g, r in zip(("x", "w", "scale", "shift", "res"), *grads):
+        errs[name] = ((g - r).abs().max() / r.abs().max()).item()
+    return errs
+
+
+def phase_train_kernels(out):
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases, ok = [], True
+    for stage, (h, c) in enumerate(STAGES):
+        n = TRAIN_B * h * h * c
+        flops = 2.0 * TRAIN_B * h * h * 9 * c * c
+        for variant in TRAIN_VARIANTS:
+            emit, with_res = "emit_z" in variant, "res" in variant
+            x, w, scale, shift, res = _case_inputs(
+                gen, TRAIN_B, h, c, torch.float32, with_res)
+            wk = cb.pack_weight(w)
+            got = cb.fused_conv_bn(x, wk, scale, shift, res, emit_z=emit)
+            again = cb.fused_conv_bn(x, wk, scale, shift, res, emit_z=emit)
+            ref = cb.reference_affine_relu_conv(x, w, scale, shift, res,
+                                                emit_z=emit, emit_stats=True)
+            torch.cuda.synchronize()
+            y, st = got[0], got[-1]
+            tol = bf16_ulp(ref[0].abs().max().item())
+            own = cb._stats_of(y)
+            yabs = torch.stack([y.abs().sum((0, 1, 2)),
+                                (y * y).sum((0, 1, 2))])
+            rec = {
+                "kind": "emit_stats", "stage": stage,
+                "shape": [TRAIN_B, h, h, c], "variant": variant,
+                "max_abs_err": (y - ref[0]).abs().max().item(), "tol": tol,
+                "stats_rel_err": ((st - own).abs() / yabs).max().item(),
+                "stats_bit_identical": bool(torch.equal(st, again[-1])),
+                "y_bit_identical": bool(torch.equal(y, again[0])),
+            }
+            if emit:
+                rec["z_equal"] = bool(torch.equal(got[1], ref[1]))
+            rec["ok"] = (rec["max_abs_err"] <= tol
+                         and rec["stats_rel_err"] <= 1e-5
+                         and rec["stats_bit_identical"]
+                         and rec["y_bit_identical"]
+                         and rec.get("z_equal", True))
+            launch, partials = _direct_conv(cb, x, wk, scale, shift, res,
+                                            emit, True)
+            zl = ref[1] if emit else cb._reference_z(x, scale, shift, res)
+            zl = zl.to(torch.bfloat16).permute(0, 3, 1, 2)
+            wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            rec["ms"] = cuda_loop_ms(launch)
+            rec["plain_ms"] = cuda_median_ms(
+                lambda: cb.reference_affine_relu_conv(
+                    x, w, scale, shift, res, emit_z=emit, emit_stats=True),
+                reps=10)
+            rec["library_ms"] = cuda_loop_ms(
+                lambda: F.conv2d(zl, wl, padding=1))
+            nbytes = (n * 4 * (2 + emit + with_res) + wk.numel() * 2
+                      + 2 * c * 4 + 2 * c * 4)
+            rec["bytes"], rec["flops"] = nbytes, flops
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+            ok &= rec["ok"]
+            print("[train-kernel] " + json.dumps(rec))
+            cases.append(rec)
+        # The stats reduce of this stage's partials.
+        _, red = cb._kernel()
+        nb = partials.shape[0]
+        stats = torch.empty((2, c), device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def reduce():
+            if red(partials.data_ptr(), stats.data_ptr(), nb, c, stream):
+                raise RuntimeError("stats reduce launch failed")
+        reduce()
+        torch.cuda.synchronize()
+        rerr = (stats - partials.sum(0)).abs().max().item()
+        rbytes = partials.numel() * 4 + stats.numel() * 4
+        rec = {"kind": "stats_reduce", "stage": stage, "partials": [nb, 2, c],
+               "max_abs_err": rerr,
+               "ok": rerr <= 1e-5 * partials.abs().sum(0).max().item(),
+               "ms": device_ms(reduce),
+               "launch_loop_ms": cuda_loop_ms(reduce),
+               "plain_ms": device_ms(lambda: partials.sum(dim=0)),
+               "library_ms": device_ms(lambda: torch.sum(partials, 0)),
+               "bytes": rbytes, "flops": partials.numel()}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            rbytes, partials.numel(), PEAK_F32_FLOPS)
+        ok &= rec["ok"]
+        print("[train-kernel] " + json.dumps(rec))
+        cases.append(rec)
+        # The input-grad reuse: bf16 ct, flipped weight, no activation.
+        ct = torch.randn(TRAIN_B, h, h, c, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        w = torch.randn(3, 3, c, c, generator=gen, device="cuda") * 0.05
+        wf = cb.flip_packed(w)
+        one = torch.ones(c, device="cuda")
+        zero = torch.zeros(c, device="cuda")
+        dz = cb._run(ct, wf, one, zero, None, False, False,
+                     role="input_grad")
+        ref = cb.reference_affine_relu_conv(ct, wf, one, zero,
+                                            activate=False)
+        torch.cuda.synchronize()
+        tol = bf16_ulp(ref.float().abs().max().item())
+        err = (dz.float() - ref.float()).abs().max().item()
+        launch, _ = _direct_conv(cb, ct, wf, one, zero, None, False, False,
+                                 act=False)
+        ctl = ct.permute(0, 3, 1, 2)
+        wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+        nbytes = n * 2 * 2 + wf.numel() * 2
+        rec = {"kind": "input_grad", "stage": stage,
+               "shape": [TRAIN_B, h, h, c], "max_abs_err": err, "tol": tol,
+               "ok": err <= tol, "ms": cuda_loop_ms(launch),
+               "plain_ms": cuda_median_ms(
+                   lambda: cb.reference_affine_relu_conv(
+                       ct, wf, one, zero, activate=False), reps=10),
+               "library_ms": cuda_loop_ms(
+                   lambda: torch.nn.grad.conv2d_input(
+                       ctl.shape, wl, ctl, padding=1)),
+               "bytes": nbytes, "flops": flops}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        ok &= rec["ok"]
+        print("[train-kernel] " + json.dumps(rec))
+        cases.append(rec)
+        # The autograd rule against the plain version's autograd.
+        x, w, scale, shift, res = _case_inputs(
+            gen, TRAIN_B, h, c, torch.float32, True)
+        errs = _grad_check(cb, x, w, scale, shift, res, gen)
+        rec = {"kind": "grads", "stage": stage, "shape": [TRAIN_B, h, h, c],
+               "normalized_err": errs, "tol": 2e-2,
+               "ok": max(errs.values()) <= 2e-2}
+        ok &= rec["ok"]
+        print("[train-kernel] " + json.dumps(rec))
+        cases.append(rec)
+    for c in XENT_CLASSES:
+        logits = 3.0 * torch.randn(TRAIN_B, c, generator=gen, device="cuda")
+        labels = torch.randint(0, c, (TRAIN_B,), generator=gen,
+                               device="cuda")
+        ct = torch.rand(TRAIN_B, generator=gen, device="cuda") + 0.5
+        loss, d = tx._fwd(logits, labels), tx._bwd(logits, labels, ct)
+        rl, rd = tx._plain_fwd(logits, labels), tx._plain_bwd(logits, labels,
+                                                             ct)
+        torch.cuda.synchronize()
+        lref = logits.clone().requires_grad_()
+        nbytes = TRAIN_B * c * 4 + TRAIN_B * 8
+        for kind, got, ref, kern, plain, lib, nb in (
+                ("xent_fwd", loss, rl, lambda: tx._fwd(logits, labels),
+                 lambda: tx._plain_fwd(logits, labels),
+                 lambda: F.cross_entropy(logits, labels, reduction="none"),
+                 nbytes + TRAIN_B * 4),
+                ("xent_bwd", d, rd, lambda: tx._bwd(logits, labels, ct),
+                 lambda: tx._plain_bwd(logits, labels, ct),
+                 lambda: torch.autograd.grad(
+                     F.cross_entropy(lref, labels, reduction="none"), lref,
+                     ct), nbytes + TRAIN_B * 4 + TRAIN_B * c * 4)):
+            err = ((got - ref).abs() / ref.abs().clamp(min=1e-30)).max()
+            rec = {"kind": kind, "shape": [TRAIN_B, c],
+                   "max_abs_err": (got - ref).abs().max().item(),
+                   "max_rel_err": err.item(),
+                   "ok": bool(torch.allclose(got, ref, rtol=1e-6,
+                                             atol=1e-6)),
+                   "ms": device_ms(kern), "launch_loop_ms": cuda_loop_ms(kern),
+                   "plain_ms": device_ms(plain), "library_ms": device_ms(lib),
+                   "bytes": nb}
+            # ~10 operations per element (exp, max, add, divide), f32.
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nb, 10.0 * TRAIN_B * c, PEAK_F32_FLOPS)
+            ok &= rec["ok"]
+            print("[train-kernel] " + json.dumps(rec))
+            cases.append(rec)
+    out["train_kernel_cases"] = cases
+    if not ok:
+        raise AssertionError("a train kernel disagrees with its plain "
+                             "version")
+    print(f"[train-kernel] all {len(cases)} cases within tolerance; stats "
+          f"bit-identical across launches")
+
+
 def profile_forward(fn, n: int = 5) -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
     and the device's busy share of the wall time they took."""
@@ -259,11 +559,16 @@ def profile_forward(fn, n: int = 5) -> dict:
     busy_us = sum(k["us_per_call"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us_per_call"])
                [:12])
+    # The port's own kernels, by name: their device time per launch, which
+    # for microsecond kernels a host-side loop cannot see.
+    ours = {k: v for k, v in kernels.items()
+            if any(s in k for s in ("conv_block_kernel",
+                                    "stats_reduce_kernel", "xent_"))}
     return {"wall_us_per_call": wall_us / n, "device_busy_us_per_call":
             busy_us, "device_busy_share": busy_us * n / wall_us,
             "kernel_launches_per_call": sum(
                 k["count_per_call"] for k in kernels.values()),
-            "top": top}
+            "top": top, "ours": ours}
 
 
 def _randomize_bn(model, gen):
@@ -394,29 +699,154 @@ def phase_serve(out):
         raise AssertionError(f"serve checks failed: {failed}")
 
 
+def phase_train(out):
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+    from tpu_dp_torch.train.trainer import Trainer
+
+    trainer = Trainer(parse_cli(TRAIN_ARGS), device="cuda")
+    steps, evals = len(trainer.train_pipe), len(trainer.test_pipe)
+    torch.cuda.reset_peak_memory_stats()
+    cb.reset_launches()
+    tx.reset_launches()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    counts = {"conv": dict(cb.launches_by_role), "conv_total": cb.launches,
+              "stats_reduce": cb.reduce_launches, "xent": dict(tx.launches)}
+    peak = torch.cuda.max_memory_allocated()
+    losses = trainer.step_losses
+    acc = result["eval"]["accuracy"]
+    checks = {
+        "steps": steps == TRAIN_STEPS and len(losses) == steps,
+        "losses_finite": all(math.isfinite(v) for v in losses),
+        "loss_falls": statistics.mean(losses[-5:])
+        < statistics.mean(losses[:5]),
+        "conv_stats_10_per_step": counts["conv"]["stats"] == 10 * steps,
+        "conv_input_grad_10_per_step":
+            counts["conv"]["input_grad"] == 10 * steps,
+        "conv_eval_10_per_eval_forward":
+            counts["conv"]["eval"] == 10 * evals,
+        "stats_reduce_10_per_step": counts["stats_reduce"] == 10 * steps,
+        "xent_1_and_1_per_step":
+            counts["xent"] == {"forward": steps, "backward": steps},
+        "accuracy_is_number": isinstance(acc, float) and math.isfinite(acc),
+    }
+    # The same init, batches, augmentation and schedule, unfused and
+    # without kernels (cuDNN convs, cross_entropy_loss, TF32 off).
+    ref = Trainer(parse_cli(TRAIN_ARGS + [
+        "--model.fused_stages=", "--model.fused_bwd=false",
+        "--train.pallas_xent=false"]), device="cuda")
+    before = (cb.launches, dict(tx.launches))
+    ref.train_pipe.set_epoch(0)
+    ref_losses = []
+    for batch in ref.train_pipe:
+        ref_losses.append(ref.train_step(ref.state, batch)["loss"])
+        if len(ref_losses) == 5:
+            break
+    ref_losses = torch.stack(ref_losses).tolist()
+    diffs = [abs(a - b) for a, b in zip(losses[:5], ref_losses)]
+    checks["first5_track_unfused"] = max(diffs) <= 0.05
+    checks["reference_runs_no_kernel"] = before == (cb.launches,
+                                                    dict(tx.launches))
+
+    batch = next(iter(trainer.train_pipe))
+    step_ms = cuda_median_ms(lambda: trainer.train_step(trainer.state, batch),
+                             reps=20)
+    ref_step_ms = cuda_median_ms(lambda: ref.train_step(ref.state, batch),
+                                 reps=10)
+    breakdown = profile_forward(
+        lambda: trainer.train_step(trainer.state, batch))
+    out["train"] = {
+        "checks": checks, "steps": steps, "eval_forwards": evals,
+        "launches": counts, "losses": losses, "unfused_losses": ref_losses,
+        "first5_max_abs_diff": max(diffs), "eval": result["eval"],
+        "fit_wall_s": result["wall_time_s"],
+        "fit_images_per_s": result["images_per_sec"],
+        "step_ms": step_ms, "images_per_s": TRAIN_B / (step_ms / 1e3),
+        "unfused_step_ms": ref_step_ms,
+        "peak_memory_bytes": peak, "step_profile": breakdown,
+        "card": out["card"],
+    }
+    print("[train] " + json.dumps(out["train"]))
+    print(f"[train] {out['card']}: {steps} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, eval accuracy {acc:.4f}; step "
+          f"{step_ms:.3f} ms = {TRAIN_B / (step_ms / 1e3):.0f} images/s "
+          f"(unfused, no kernels: {ref_step_ms:.3f} ms); device busy "
+          f"{100 * breakdown['device_busy_share']:.1f}% of "
+          f"{breakdown['wall_us_per_call']:.1f} us under the profiler, "
+          f"{breakdown['kernel_launches_per_call']:.0f} device ops per "
+          f"step; peak memory {peak / 2**20:.1f} MiB")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+
+
+def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
+    """One kernels-line entry whose times sum ``recs`` (one per launch of
+    a step or forward)."""
+    total = {k: sum(r[k] for r in recs)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    t_bytes = sum(r["bytes"] for r in recs) / PEAK_BYTES
+    t_ops = sum(r["flops"] for r in recs) / peak
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            **total,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def kernels_line(out):
     cases = {(r["stage"], r["variant"]): r for r in out["kernel_cases"]
              if r["dtype"] == "float32"}
-    calls = [cases[c] for c in FORWARD_CALLS]
-    total = {k: sum(r[k] for r in calls)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    t_bytes = sum(r["bytes"] for r in calls) / PEAK_BYTES
-    t_ops = sum(r["flops"] for r in calls) / PEAK_BF16_FLOPS
-    return {"kernels": [{
-        "name": KERNEL,
-        "route": "cuda",
-        "source": "tpu_dp_torch/ops/csrc/conv_block.cu",
-        "replaces": "tpu_dp/ops/conv_block.py:113",
-        "launches": out["serve"]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in out["kernel_cases"]
-                           + out["kernel_small_bucket_cases"]),
-        # Times are the sum over the 10 calls of one B=32 f32 forward.
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": total["library_ms"],
-    }]}
+    train = out["train"]["launches"]
+    src = "tpu_dp_torch/ops/csrc/"
+    # Times sum the 10 calls of one B=32 f32 forward; launches are the
+    # serve path's forwards plus the train path's eval forwards.
+    eval_entry = _summed(KERNEL, src + "conv_block.cu",
+                         "tpu_dp/ops/conv_block.py:113",
+                         out["serve"]["launches"] + train["conv"]["eval"],
+                         [cases[c] for c in FORWARD_CALLS])
+    eval_entry["max_abs_err"] = max(
+        r["max_abs_err"] for r in out["kernel_cases"]
+        + out["kernel_small_bucket_cases"])
+    tk = out["train_kernel_cases"]
+    stats = {(r["stage"], r["variant"]): r for r in tk
+             if r["kind"] == "emit_stats"}
+    by_stage = {kind: {r["stage"]: r for r in tk if r["kind"] == kind}
+                for kind in ("stats_reduce", "input_grad")}
+    xent = {(r["kind"], r["shape"][1]): r for r in tk
+            if r["kind"].startswith("xent")}
+    entries = [
+        eval_entry,
+        # Sums over the 10 launches of one B=128 train forward / step.
+        _summed("conv_block.fused_conv_bn (emit_stats)", src + "conv_block.cu",
+                "tpu_dp/ops/conv_block.py:153", train["conv"]["stats"],
+                [stats[c] for c in FORWARD_CALLS]),
+        _summed("conv_block input-grad (pallas_bwd)", src + "conv_block.cu",
+                "tpu_dp/ops/conv_block.py:418", train["conv"]["input_grad"],
+                [by_stage["input_grad"][s] for s in INPUT_GRAD_STAGES]),
+        _summed("conv_block stats reduce", src + "conv_block.cu",
+                "tpu_dp/ops/conv_block.py:167", train["stats_reduce"],
+                [by_stage["stats_reduce"][s] for s in INPUT_GRAD_STAGES],
+                PEAK_F32_FLOPS),
+    ]
+    for kind, name, line, key in (
+            ("xent_fwd", "xent.softmax_xent forward", 71, "forward"),
+            ("xent_bwd", "xent.softmax_xent backward", 82, "backward")):
+        r = xent[(kind, 10)]  # CIFAR-10's head, the main path's shape
+        entries.append({
+            "name": name, "route": "cuda", "source": src + "xent.cu",
+            "replaces": f"tpu_dp/ops/xent.py:{line}",
+            "launches": train["xent"][key],
+            "max_abs_err": max(x["max_abs_err"] for (k, _), x in xent.items()
+                               if k == kind),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    return {"kernels": entries}
 
 
 def main() -> int:
@@ -428,7 +858,9 @@ def main() -> int:
         phase_header(out)
         phase_build(out)
         phase_kernels(out)
+        phase_train_kernels(out)
         phase_serve(out)
+        phase_train(out)
         line = kernels_line(out)
     except SystemExit:
         raise

@@ -160,6 +160,7 @@ def test_other_devices_are_refused():
         tcb.fused_affine_relu_conv(x, x, x, x)
 
 
+@pytest.mark.card
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")

@@ -38,8 +38,10 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_without_jax_or_tpu_dp():
     mods = _modules()
-    assert "tpu_dp_torch.ops.conv_block" in mods
-    assert "tpu_dp_torch.serve.__main__" in mods
+    for m in ("tpu_dp_torch.ops.conv_block", "tpu_dp_torch.ops.xent",
+              "tpu_dp_torch.serve.__main__", "tpu_dp_torch.train.trainer",
+              "tpu_dp_torch.train.__main__"):
+        assert m in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

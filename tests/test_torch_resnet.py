@@ -71,7 +71,8 @@ def test_full_fused_forward_runs_ten_kernel_calls(monkeypatch, images):
 
         monkeypatch.setattr("tpu_dp_torch.models.resnet." + name, spy)
     conv_block.reset_launches()
-    model = build_model("resnet18", num_filters=8, fused_stages=(0, 1, 2, 3))
+    model = build_model("resnet18", num_filters=8,
+                        fused_stages=(0, 1, 2, 3)).eval()
     with torch.inference_mode():
         model(torch.from_numpy(images))
     assert sorted(calls) == sorted(

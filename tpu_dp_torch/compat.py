@@ -14,6 +14,8 @@ Module paths are kept as they are (``BasicBlock_3/Conv_0`` becomes
 and fused and unfused JAX models share one tree. An unknown leaf name or
 collection raises; `load_jax_variables` also raises on a key the model
 lacks or a model key the variables lack, and on any shape mismatch.
+`convert_grads` applies the same map to a params-shaped gradient tree, so
+tests compare gradients leaf for leaf with ``model.named_parameters()``.
 """
 
 from __future__ import annotations
@@ -59,6 +61,13 @@ def convert_variables(variables) -> dict[str, torch.Tensor]:
         out[".".join(mod + [_STAT_LEAVES[leaf_name]])] = torch.from_numpy(
             np.array(leaf, np.float32))
     return out
+
+
+def convert_grads(jax_param_grads) -> dict[str, torch.Tensor]:
+    """Gradients w.r.t. a JAX ResNet's ``params`` (nested numpy dicts), keyed
+    and laid out like the port's parameters: ``{name: grad}`` for every
+    name of ``model.named_parameters()``."""
+    return convert_variables({"params": jax_param_grads})
 
 
 def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:

@@ -1,1 +1,2 @@
-"""Data helpers for the port: CIFAR normalize and the synthetic set."""
+"""Data of the port: CIFAR loading and the synthetic set, the sampler,
+on-device augmentation and the host-batch feed."""

@@ -33,8 +33,8 @@ def parse_fused_stages(spec: str | None) -> tuple[int, ...]:
 def build_model(name: str, num_classes: int = 10, **kwargs):
     """Construct a model by config name. ``kwargs`` go to the model:
     ``num_filters``, ``dtype`` (a torch dtype), ``fused_stages``,
-    ``generator`` (a seeded `torch.Generator` for the init) and
-    ``device``."""
+    ``fused_bwd``, ``generator`` (a seeded `torch.Generator` for the
+    init) and ``device``."""
     try:
         factory = _REGISTRY[name.lower()]
     except KeyError:

@@ -1,4 +1,4 @@
-"""CIFAR ResNet-18 for the port (of `tpu_dp.models.resnet`), NHWC, eval.
+"""CIFAR ResNet-18 for the port (of `tpu_dp.models.resnet`), NHWC.
 
 The module tree mirrors the JAX package's parameter tree name for name
 (``stem_conv``, ``stem_norm``, ``BasicBlock_i/{Conv_j, BatchNorm_j,
@@ -18,7 +18,15 @@ run as `FusedBasicBlock` chains on the hand-written kernel
 tail is deferred into the next block's first conv, so the normalized
 activation is made in the kernel's shared memory and never stored apart
 from the skip connection's copy. A full-fused ResNet-18 forward launches
-the kernel 10 times. This slice ports the eval forward only.
+the kernel 10 times.
+
+The forward follows ``module.training``: in train mode BatchNorm
+normalizes with the batch's statistics and updates its running ones
+(flax ``nn.BatchNorm(use_running_average=False, momentum=0.9)``), and the
+fused blocks run `fused_conv_bn`, whose kernel also emits each conv
+output's moments, so no pass re-reads y for them. Gradients reach every
+fused conv's weight through the autograd rule of `tpu_dp_torch.ops.
+conv_block`; ``fused_bwd`` routes its input-grad conv through the kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from tpu_dp_torch.ops.conv_block import (
     _reference_z,
     fused_affine_relu_conv,
     fused_affine_relu_conv_emit,
+    fused_conv_bn,
     pack_weight,
 )
 
@@ -75,13 +84,19 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm with Flax's parameter set (``weight`` = scale γ,
-    ``bias`` = β, running ``mean``/``var``), momentum 0.9 / eps 1e-5."""
+    """BatchNorm with Flax's parameter set (``weight`` = scale γ, ``bias`` =
+    β, running ``mean``/``var``), momentum 0.9 / eps 1e-5.
+
+    Train mode (``self.training``) mirrors flax ``nn.BatchNorm(
+    use_running_average=False)``: batch mean and *biased* variance
+    ``E[x²] - E[x]²`` in f32, clamped at 0, and running stats updated as
+    ``0.9·old + 0.1·batch`` in place. (``F.batch_norm`` would update the
+    running variance with the unbiased estimate, so it is not used.)"""
 
     def __init__(self, c: int, zero_scale: bool = False, dtype=torch.float32,
-                 device=None, eps: float = 1e-5):
+                 device=None, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.dtype, self.eps = dtype, eps
+        self.dtype, self.eps, self.momentum = dtype, eps, momentum
         self.weight = nn.Parameter(
             torch.zeros(c, device=device) if zero_scale
             else torch.ones(c, device=device))
@@ -89,25 +104,51 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c, device=device))
         self.register_buffer("running_var", torch.ones(c, device=device))
 
+    def _moments(self, x, stats=None):
+        """``(mean, var)`` per channel: running stats in eval; in train the
+        batch's, from the kernel's ``stats = [sum, sum of squares]`` when
+        given (x is then read for its shape only), updating the running
+        stats."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        if stats is not None:
+            count = x.shape[0] * x.shape[1] * x.shape[2]
+            mean, mean2 = stats[0] / count, stats[1] / count
+        else:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1, 2))
+            mean2 = xf.square().mean(dim=(0, 1, 2))
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        return mean, var
+
     def forward(self, x):
-        """Flax's `_normalize` with running stats, in f32, cast to dtype."""
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+        """Flax's `_normalize`, in f32, cast to dtype."""
+        mean, var = self._moments(x)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean) * mul + self.bias
         return y.to(self.dtype)
 
-    def coeffs(self):
-        """`BatchNormCoeffs` (eval): ``(scale, shift)`` in f32 with
-        ``bn(x) == x * scale + shift``."""
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return scale, self.bias - self.running_mean * scale
+    def coeffs(self, x=None, stats=None):
+        """`BatchNormCoeffs`: ``(scale, shift)`` in f32 with
+        ``bn(x) == x * scale + shift``. Eval reads the running stats; train
+        needs ``x`` (or its kernel-emitted ``stats``)."""
+        mean, var = self._moments(x, stats)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return scale, self.bias - mean * scale
 
 
 class BasicBlock(nn.Module):
     """Two 3x3 convs + identity/projection shortcut (ResNet-18/34)."""
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 dtype=torch.float32, generator=None, device=None):
+                 dtype=torch.float32, generator=None, device=None,
+                 fused_bwd: bool = False):
         super().__init__()
+        self.fused_bwd = fused_bwd
         kw = dict(dtype=dtype, device=device)
         self.Conv_0 = Conv(cin, filters, 3, stride, generator=generator, **kw)
         self.BatchNorm_0 = BatchNorm(filters, **kw)
@@ -129,10 +170,14 @@ class BasicBlock(nn.Module):
             residual = self.shortcut_norm(self.shortcut_conv(residual))
         return torch.relu(y + residual)
 
-    def packed(self, name: str) -> torch.Tensor:
-        """The conv's weight in the kernel's layout, repacked only when the
-        parameter changed (a new tensor, or an in-place write)."""
+    def conv_weight(self, name: str) -> torch.Tensor:
+        """The conv's weight for the kernel: the HWIO view of the parameter
+        while autograd records (so the weight gets its gradient), else the
+        kernel's packed layout, cached and repacked only when the parameter
+        changed (a new tensor, or an in-place write)."""
         wt = getattr(self, name).weight
+        if torch.is_grad_enabled() and wt.requires_grad:
+            return wt.permute(2, 3, 1, 0)
         key = (wt.data_ptr(), wt._version, wt.device)
         hit = self._packed.get(name)
         if hit is None or hit[0] != key:
@@ -141,16 +186,25 @@ class BasicBlock(nn.Module):
         return hit[1]
 
     def fused(self, x_raw, in_scale, in_shift, in_res):
-        """`FusedBasicBlock` (eval): takes the block input in deferred form,
+        """`FusedBasicBlock`: takes the block input in deferred form,
         ``a_in = relu(x_raw * in_scale + in_shift [+ in_res])``, and returns
         ``(y2_raw, out_scale, out_shift, a_in)`` in the same form."""
         if self.shortcut_conv is not None:
             raise ValueError("only stride-1 channel-preserving blocks fuse")
-        y1, a_in = fused_affine_relu_conv_emit(
-            x_raw, self.packed("Conv_0"), in_scale, in_shift, in_res)
-        s1, b1 = self.BatchNorm_0.coeffs()
-        y2 = fused_affine_relu_conv(y1, self.packed("Conv_1"), s1, b1)
-        s2, b2 = self.BatchNorm_1.coeffs()
+        w1, w2 = self.conv_weight("Conv_0"), self.conv_weight("Conv_1")
+        bwd = self.fused_bwd
+        if self.training:
+            y1, a_in, st1 = fused_conv_bn(x_raw, w1, in_scale, in_shift,
+                                          in_res, pallas_bwd=bwd, emit_z=True)
+            s1, b1 = self.BatchNorm_0.coeffs(y1, st1)
+            y2, st2 = fused_conv_bn(y1, w2, s1, b1, pallas_bwd=bwd)
+            s2, b2 = self.BatchNorm_1.coeffs(y2, st2)
+        else:
+            y1, a_in = fused_affine_relu_conv_emit(
+                x_raw, w1, in_scale, in_shift, in_res, pallas_bwd=bwd)
+            s1, b1 = self.BatchNorm_0.coeffs()
+            y2 = fused_affine_relu_conv(y1, w2, s1, b1, pallas_bwd=bwd)
+            s2, b2 = self.BatchNorm_1.coeffs()
         return y2, s2, b2, a_in.to(self.BatchNorm_1.dtype)
 
 
@@ -165,12 +219,14 @@ def _materialize(x_raw, scale, shift, res, dtype):
 class ResNet(nn.Module):
     """CIFAR-variant ResNet over NHWC inputs: 3x3 stride-1 stem, no pool,
     stages ``num_filters * [1, 2, 4, 8]`` with stride 2 from stage 1 on,
-    global average pool, f32 classifier. Eval forward only."""
+    global average pool, f32 classifier. ``fused_bwd`` sends the fused
+    convs' backward input-grad through the kernel too."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 10, num_filters: int = 64,
                  dtype=torch.float32, fused_stages: Sequence[int] = (),
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 fused_bwd: bool = False):
         super().__init__()
         self.dtype = dtype
         self.num_classes = int(num_classes)
@@ -188,7 +244,8 @@ class ResNet(nn.Module):
                 stride = 2 if i > 0 and j == 0 else 1
                 name = f"BasicBlock_{idx}"
                 self.add_module(name, BasicBlock(cin, filters, stride,
-                                                 generator=generator, **kw))
+                                                 generator=generator,
+                                                 fused_bwd=fused_bwd, **kw))
                 fusable = (i in self.fused_stages and stride == 1
                            and cin == filters)
                 self._plan.append((name, i, fusable))
@@ -205,11 +262,12 @@ class ResNet(nn.Module):
             self.classifier.bias.zero_()
 
     def forward(self, x):
-        """Eval logits ``[B, num_classes]`` (f32) of NHWC images."""
+        """Logits ``[B, num_classes]`` (f32) of NHWC images; train or eval
+        as ``self.training`` says."""
         x = self.stem_conv(x.to(self.dtype))
         chain = None  # (x_raw, scale, shift, residual) while chaining
         if 0 in self.fused_stages:
-            sc, sh = self.stem_norm.coeffs()
+            sc, sh = self.stem_norm.coeffs(x)
             chain = (x.contiguous(), sc, sh, None)
         else:
             x = torch.relu(self.stem_norm(x))

@@ -35,7 +35,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> source file under csrc/
-SOURCES = {"conv_block": "conv_block.cu"}
+SOURCES = {"conv_block": "conv_block.cu", "xent": "xent.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

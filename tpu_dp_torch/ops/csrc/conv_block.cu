@@ -4,12 +4,17 @@
 // (tpu_dp_torch/ops/conv_block.py).
 //
 // Replaces the TPU kernel `_conv_kernel` in tpu_dp/ops/conv_block.py
-// (launched through pl.pallas_call by `_run_local`), eval variants only:
+// (launched through pl.pallas_call by `_run_local`), every variant:
 //
 //   z = act(x * scale + shift [+ residual])      f32, rounded to bf16
 //   y = conv3x3_SAME(z, W)                        bf16 operands, f32 accumulator
 //   y is rounded to bf16 and stored as x's dtype; `emit_z` also stores z
-//   (the bf16-rounded value, as x's dtype).
+//   (the bf16-rounded value, as x's dtype); `emit_stats` also produces the
+//   per-channel BatchNorm moments [sum(y), sum(y^2)] of the rounded y, in f32.
+//
+// The training backward reuses the same kernel for its input-grad conv
+// (dz = conv3x3_SAME(ct, flip_hw(W).swap_io) with activate off, scale 1 and
+// shift 0): the wrapper only repacks the weight.
 //
 // What computes the same thing, not how: the TPU kernel packs the conv as one
 // [rows,3C]x[3C,3C] MXU matmul realigned with pltpu.roll to fill the MXU. Here
@@ -25,7 +30,9 @@
 // flop/byte ridge and memory-bound; the later stages move less and approach
 // the ridge. The design therefore keeps z out of device memory (it is made in
 // shared memory from x, and written out only when `emit_z` asks for it, by
-// exactly one block per pixel) and reads x, residual and y once.
+// exactly one block per pixel) and reads x, residual and y once. The moments
+// are taken from the accumulator registers in the epilogue, so no later pass
+// re-reads y.
 //
 // Block: 128 threads (4 warps, 2x2 over a 64-pixel x 64-channel output tile).
 // The 64 pixels are consecutive in flattened (b, h, w) order, so a block
@@ -38,6 +45,14 @@
 //   3. runs 9 taps x 4 k16-steps of mma.sync per warp.
 // Rows are padded to 72 bf16 (144 bytes) so the fragment loads of the eight
 // row groups of a warp land on distinct banks.
+//
+// Moments without float atomics: the TPU grid runs in order and carries the
+// sum from step to step; Hopper's blocks run in no order, and atomics would
+// make the sum's rounding change from run to run. Each block instead writes
+// its 64 channels' partial sums to partials[blockIdx.x][2][C] (a fixed
+// shuffle tree over its pixels), and `stats_reduce_kernel` sums the partials
+// over blockIdx.x in a fixed order: two launches on the same input give
+// bit-identical stats.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -111,14 +126,16 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 }
 
 // x, res, y, z: [B,H,W,C] of T, NHWC contiguous. wk: [9][C][C] bf16 as
-// [tap][c_out][c_in]. scale, shift: [C] f32.
-template <typename T, bool kRes, bool kEmitZ, bool kAct>
+// [tap][c_out][c_in]. scale, shift: [C] f32. partials (kStats only):
+// [gridDim.x][2][C] f32, the block's [sum(y), sum(y^2)] per channel.
+template <typename T, bool kRes, bool kEmitZ, bool kAct, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 conv_block_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ wk,
                   const float* __restrict__ scale,
                   const float* __restrict__ shift, const T* __restrict__ res,
-                  T* __restrict__ y, T* __restrict__ z, int B, int H, int W,
-                  int C, int rows) {
+                  T* __restrict__ y, T* __restrict__ z,
+                  float* __restrict__ partials, int B, int H, int W, int C,
+                  int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int hw = H * W;
@@ -243,7 +260,10 @@ conv_block_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ wk,
     }
   }
 
-  // Epilogue: round y to bf16, store as T.
+  // Epilogue: round y to bf16, store as T; with kStats, sum the rounded
+  // values per channel (pixels past the batch end are masked out: at 4x4 a
+  // tile holds four image slots, and the last tile's may be empty).
+  float s1[4][2] = {}, s2[4][2] = {};
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -253,24 +273,82 @@ conv_block_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ wk,
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int co = n0 + wn * 32 + nt * 8 + 2 * q;
-        store_pair(y + p * C + co,
-                   __float2bfloat16_rn(acc[mt][nt][hi * 2]),
-                   __float2bfloat16_rn(acc[mt][nt][hi * 2 + 1]));
+        const __nv_bfloat16 a = __float2bfloat16_rn(acc[mt][nt][hi * 2]);
+        const __nv_bfloat16 b = __float2bfloat16_rn(acc[mt][nt][hi * 2 + 1]);
+        store_pair(y + p * C + co, a, b);
+        if constexpr (kStats) {
+          const float fa = __bfloat162float(a), fb = __bfloat162float(b);
+          s1[nt][0] += fa;
+          s1[nt][1] += fb;
+          s2[nt][0] += fa * fa;
+          s2[nt][1] += fb * fb;
+        }
       }
     }
   }
+  if constexpr (kStats) {
+    // Lanes g = 0..7 of one q hold the same 8 channels: fold them with a
+    // fixed xor tree, then the two warps (wm) of a channel half through
+    // shared memory, always in the same order.
+    __shared__ float red[2][2][kTileN];  // [wm][moment][channel in tile]
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s1[nt][j] += __shfl_xor_sync(0xffffffffu, s1[nt][j], m);
+          s2[nt][j] += __shfl_xor_sync(0xffffffffu, s2[nt][j], m);
+        }
+        if (g == 0) {
+          const int ch = wn * 32 + nt * 8 + 2 * q + j;
+          red[wm][0][ch] = s1[nt][j];
+          red[wm][1][ch] = s2[nt][j];
+        }
+      }
+    }
+    __syncthreads();
+    const int m = tid / kTileN, ch = tid % kTileN;  // kThreads == 2 * kTileN
+    partials[((long long)blockIdx.x * 2 + m) * C + n0 + ch] =
+        red[0][m][ch] + red[1][m][ch];
+  }
 }
 
-template <typename T, bool kRes, bool kEmitZ, bool kAct>
+// stats[k][c] = sum over b of partials[b][k][c], in a fixed order: thread
+// row ty sums b = ty, ty + kRedRows, ... and row 0 then adds the kRedRows
+// partial sums in order. n = 2 * C columns, 32 per block.
+constexpr int kRedRows = 16;
+
+__global__ void __launch_bounds__(32 * kRedRows)
+stats_reduce_kernel(const float* __restrict__ partials,
+                    float* __restrict__ stats, int nb, int n) {
+  __shared__ float sh[kRedRows][32];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (col < n)
+    for (int r = threadIdx.y; r < nb; r += kRedRows)
+      acc += partials[(long long)r * n + col];
+  sh[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRedRows; ++i) t += sh[i][threadIdx.x];
+    stats[col] = t;
+  }
+}
+
+template <typename T, bool kRes, bool kEmitZ, bool kAct, bool kStats>
 int launch_one(const void* x, const void* wk, const float* scale,
-               const float* shift, const void* res, void* y, void* z, int B,
-               int H, int W, int C, cudaStream_t stream) {
+               const float* shift, const void* res, void* y, void* z,
+               float* partials, int B, int H, int W, int C,
+               cudaStream_t stream) {
   const int rows = (H * W >= kTileM) ? kTileM / W : H;
   const int n_img = kTileM / (rows * W);
   const size_t smem =
       (size_t)(n_img * (rows + 2) * (W + 2) + 9 * kTileN) * kStride *
       sizeof(__nv_bfloat16);
-  auto kern = conv_block_kernel<T, kRes, kEmitZ, kAct>;
+  auto kern = conv_block_kernel<T, kRes, kEmitZ, kAct, kStats>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -279,23 +357,27 @@ int launch_one(const void* x, const void* wk, const float* scale,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(wk), scale,
       shift, static_cast<const T*>(res), static_cast<T*>(y),
-      static_cast<T*>(z), B, H, W, C, rows);
+      static_cast<T*>(z), partials, B, H, W, C, rows);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(int has_res, int emit_z, int activate, const void* x,
+int dispatch(int has_res, int emit_z, int activate, int stats, const void* x,
              const void* wk, const float* scale, const float* shift,
-             const void* res, void* y, void* z, int B, int H, int W, int C,
-             cudaStream_t s) {
-#define TPU_DP_CONV_CASE(R, E, A)                                           \
-  if (has_res == R && emit_z == E && activate == A)                         \
-    return launch_one<T, R, E, A>(x, wk, scale, shift, res, y, z, B, H, W,  \
-                                  C, s);
-  TPU_DP_CONV_CASE(0, 0, 0) TPU_DP_CONV_CASE(0, 0, 1)
-  TPU_DP_CONV_CASE(0, 1, 0) TPU_DP_CONV_CASE(0, 1, 1)
-  TPU_DP_CONV_CASE(1, 0, 0) TPU_DP_CONV_CASE(1, 0, 1)
-  TPU_DP_CONV_CASE(1, 1, 0) TPU_DP_CONV_CASE(1, 1, 1)
+             const void* res, void* y, void* z, float* partials, int B, int H,
+             int W, int C, cudaStream_t s) {
+#define TPU_DP_CONV_CASE(R, E, A, S)                                        \
+  if (has_res == R && emit_z == E && activate == A && stats == S)           \
+    return launch_one<T, R, E, A, S>(x, wk, scale, shift, res, y, z,        \
+                                     partials, B, H, W, C, s);
+#define TPU_DP_CONV_CASES(S)                                                \
+  TPU_DP_CONV_CASE(0, 0, 0, S) TPU_DP_CONV_CASE(0, 0, 1, S)                 \
+  TPU_DP_CONV_CASE(0, 1, 0, S) TPU_DP_CONV_CASE(0, 1, 1, S)                 \
+  TPU_DP_CONV_CASE(1, 0, 0, S) TPU_DP_CONV_CASE(1, 0, 1, S)                 \
+  TPU_DP_CONV_CASE(1, 1, 0, S) TPU_DP_CONV_CASE(1, 1, 1, S)
+  TPU_DP_CONV_CASES(0)
+  TPU_DP_CONV_CASES(1)
+#undef TPU_DP_CONV_CASES
 #undef TPU_DP_CONV_CASE
   return -1;
 }
@@ -304,23 +386,40 @@ int dispatch(int has_res, int emit_z, int activate, const void* x,
 
 // Shapes the kernel takes: C % 64 == 0; W divides 64; and either H*W is a
 // multiple of 64 (then 64/W divides H) or H*W divides 64. The Python wrapper
-// checks these and raises before calling. Returns 0 or a CUDA error code
-// (-1 for a flag combination that does not exist, -2 for a refused shape).
+// checks these and raises before calling. `partials` is
+// [ceil(B*H*W/64)][2][C] f32 when `stats` is set, else null. Returns 0 or a
+// CUDA error code (-1 for a flag combination that does not exist, -2 for a
+// refused shape).
 extern "C" int tpu_dp_conv_block(int dtype, int has_res, int emit_z,
-                                 int activate, const void* x, const void* wk,
-                                 const float* scale, const float* shift,
-                                 const void* res, void* y, void* z, int B,
-                                 int H, int W, int C, void* stream) {
+                                 int activate, int stats, const void* x,
+                                 const void* wk, const float* scale,
+                                 const float* shift, const void* res, void* y,
+                                 void* z, float* partials, int B, int H,
+                                 int W, int C, void* stream) {
   if (C % kTileN != 0 || W <= 0 || kTileM % W != 0) return -2;
   const int hw = H * W;
   if (!(hw % kTileM == 0 && H % (kTileM / W) == 0) && kTileM % hw != 0)
     return -2;
+  if (stats && partials == nullptr) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(has_res, emit_z, activate, x, wk, scale, shift,
-                           res, y, z, B, H, W, C, s);
+    return dispatch<float>(has_res, emit_z, activate, stats, x, wk, scale,
+                           shift, res, y, z, partials, B, H, W, C, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(has_res, emit_z, activate, x, wk, scale,
-                                   shift, res, y, z, B, H, W, C, s);
+    return dispatch<__nv_bfloat16>(has_res, emit_z, activate, stats, x, wk,
+                                   scale, shift, res, y, z, partials, B, H,
+                                   W, C, s);
   return -1;
+}
+
+// stats[2][C] = sum of partials[nb][2][C] over its first axis, in a fixed
+// order (bit-identical from launch to launch). Returns 0 or a CUDA error.
+extern "C" int tpu_dp_conv_stats_reduce(const float* partials, float* stats,
+                                        int nb, int C, void* stream) {
+  if (nb <= 0 || C <= 0) return -2;
+  const int n = 2 * C;
+  stats_reduce_kernel<<<(n + 31) / 32, dim3(32, kRedRows), 0,
+                        static_cast<cudaStream_t>(stream)>>>(partials, stats,
+                                                             nb, n);
+  return (int)cudaGetLastError();
 }

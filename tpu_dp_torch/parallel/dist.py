@@ -1,8 +1,8 @@
 """Device resolution and the run header (port of `tpu_dp.parallel.dist`).
 
-One process drives one card in this slice, so only the two pieces the
-serving path needs are here: `resolve_device` and `describe`. Meshes and
-collectives come with the training slice.
+One process drives one card so far, so only the two pieces serving and
+single-process training need are here: `resolve_device` and `describe`.
+Process groups and collectives come with the multi-rank slice.
 """
 
 from __future__ import annotations

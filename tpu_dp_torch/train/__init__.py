@@ -1,1 +1,2 @@
-"""Step factories of the port (this slice: the inference half)."""
+"""Training and inference of the port: schedules, SGD, the steps and the
+trainer (`python -m tpu_dp_torch.train`)."""

@@ -1,17 +1,44 @@
-"""The inference half of `tpu_dp.train.step` for the port.
+"""The train, eval and serve steps of the port (of `tpu_dp.train.step`).
 
-`make_serve_step` is the serving hot path: one step per padded bucket
-size, fed a batch already on the device, returning the served-books update
-and the per-example outputs. Training steps come with the training slice.
+`make_train_step` is the training hot path: normalize → augment keyed by
+the step → forward/backward → SGD update with the schedule's learning rate
+for this update, on a batch already on the device. `make_eval_step` is the
+running-statistics forward with a masked tail; `make_serve_step` is the
+serving hot path, one step per padded bucket size. Steps return device
+tensors and never wait on the device, so the host runs ahead of the card
+until the caller fetches a value.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
 from tpu_dp_torch.data.cifar import normalize
+
+
+def cross_entropy_loss(logits, labels, weight=None):
+    """(Weighted) mean softmax cross-entropy from integer labels, in f32
+    (`nn.CrossEntropyLoss()` parity). ``weight`` masks padded examples out
+    of the mean (eval's final partial batch)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    per_example = logz - true_logit
+    if weight is None:
+        return per_example.mean()
+    return (per_example * weight).sum() / weight.sum().clamp(min=1.0)
+
+
+def _select_loss_impl(use_pallas_xent: bool):
+    """One source of truth for the loss implementation switch."""
+    if use_pallas_xent:
+        from tpu_dp_torch.ops.xent import mean_softmax_xent
+
+        return mean_softmax_xent
+    return cross_entropy_loss
 
 
 def _maybe_normalize(images: torch.Tensor) -> torch.Tensor:
@@ -22,9 +49,82 @@ def _maybe_normalize(images: torch.Tensor) -> torch.Tensor:
     return images
 
 
+@dataclasses.dataclass
+class TrainState:
+    """What a training run carries from step to step: the update counter
+    (the schedule's and the augmentation's step), the model (parameters and
+    BatchNorm statistics) and the optimizer (momentum buffers)."""
+
+    step: int
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
+                    augment_fn=None, device=None) -> Callable:
+    """Build ``step(state, batch) -> metrics`` for ``model``/``optimizer``.
+
+    ``batch`` is ``{"image": uint8 or float [B,H,W,3], "label": int [B]}``
+    on ``device``. The learning rate of update k is ``schedule(k)``, read
+    before ``state.step`` advances. Metrics: ``loss`` (f32 scalar tensor),
+    ``correct`` (int tensor), ``count`` and ``lr`` (numbers).
+    """
+    loss_impl = _select_loss_impl(use_pallas_xent)
+    device = None if device is None else torch.device(device)
+
+    def step(state: TrainState, batch):
+        images, labels = batch["image"], batch["label"]
+        if device is not None and images.device != device:
+            raise ValueError(f"train step on {device} got a batch on "
+                             f"{images.device}")
+        if not model.training:
+            model.train()
+        images = _maybe_normalize(images)
+        if augment_fn is not None:
+            images = augment_fn(state.step, images)
+        logits = model(images)
+        loss = loss_impl(logits, labels)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        lr = schedule(state.step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        state.step += 1
+        correct = (logits.detach().argmax(dim=-1) == labels).sum()
+        return {"loss": loss.detach(), "correct": correct,
+                "count": int(labels.shape[0]), "lr": lr}
+
+    return step
+
+
+def make_eval_step(model) -> Callable:
+    """Build ``step(batch) -> {loss, correct, count}`` (device tensors): the
+    running-statistics forward; an optional ``batch["weight"]`` (1.0 = real
+    example) masks a padded tail out of all three."""
+
+    @torch.no_grad()
+    def step(batch):
+        if model.training:
+            model.eval()
+        labels, weight = batch["label"], batch.get("weight")
+        logits, predictions = _infer_forward(model, batch)
+        hit = predictions == labels
+        if weight is None:
+            correct = hit.sum()
+            count = hit.new_full((), labels.shape[0], dtype=torch.int64)
+        else:
+            correct = (hit * weight).sum().to(torch.int64)
+            count = weight.sum().to(torch.int64)
+        return {"loss": cross_entropy_loss(logits, labels, weight),
+                "correct": correct, "count": count}
+
+    return step
+
+
 def _infer_forward(model, batch):
     """normalize → model (eval) → ``(logits, predictions)``; the one
-    forward the serve step and any eval share."""
+    forward the serve step and the eval step share."""
     logits = model(_maybe_normalize(batch["image"]))
     return logits, torch.argmax(logits, dim=-1)
 
