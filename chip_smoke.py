@@ -7,14 +7,18 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. header: the card (torch and ``nvidia-smi``); no CUDA → exit 1;
 2. build: every kernel of the port (conv_block.cu, xent.cu), one nvcc per
-   source, started together;
+   source, started together; each conv instance's registers, spills and
+   static shared memory from the ptxas report;
 3. kernel vs plain, eval: the conv kernel's public wrappers against its
    plain PyTorch version on the card, at B=32 for the four ResNet-18 shapes
    x the three eval variants x f32/bf16 inputs (tolerance: one bf16 ulp at
-   the output's magnitude), with CUDA-event medians of the kernel, the
-   plain version and one cuDNN conv of the same size (``library_ms``)
-   beside the bound; then the same checks, untimed, at the serve ladder's
-   other buckets (1, 2, 4, 8, 16), where tiles are only partly filled;
+   the output's magnitude), with CUDA-event times of the kernel
+   (back-to-back launches through its C entry; ``wrapper_ms`` is one
+   public-wrapper call per event pair), the plain version and one cuDNN
+   conv of the same size (``library_ms``) beside the bound and the tile
+   the kernel picked; then the same checks,
+   untimed, at the serve ladder's other buckets (1, 2, 4, 8, 16), where
+   tiles are only partly filled;
 4. kernel vs plain, train, at the training batch B=128 for the four
    stages: the ``emit_stats`` conv (emit_z and residual on or off, f32; y
    within one ulp, stats within 1e-5 * sum|y| of the plain sums of the
@@ -22,7 +26,12 @@ Phases, in order; any failure exits non-zero before the last line:
    reduce, the input-grad reuse (bf16 ct, flipped weight, no activation;
    one ulp), the autograd rule's five gradients against the plain
    version's autograd (max|g - g_plain| <= 2e-2 * max|g_plain|), and the
-   xent kernels forward and backward at C = 10 and 100 (f32 within 1e-6);
+   xent kernels forward and backward at C = 10 and 100 (f32 within 1e-6)
+   and, untimed, with labels outside [0, C) (the JAX kernels' logsumexp
+   loss and softmax * ct gradient); untimed ragged batches B = 1, 3, 127
+   at every stage (emit_stats: y one ulp, z equal, stats bit-identical
+   over two launches; input-grad one ulp); the host microseconds of one
+   wrapper call and of the C entry alone;
    each timed beside its bound, its plain version and one library call
    (cuDNN bf16 conv2d / conv2d_input, torch.sum, F.cross_entropy) — the
    convs by CUDA events over back-to-back launches, the microsecond stats
@@ -43,6 +52,9 @@ Phases, in order; any failure exits non-zero before the last line:
    number for the accuracy; step time, device-busy share, top kernels and
    peak memory;
 7. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+
+Every timed case also prints ``bound_share`` (bound_ms / ms) and
+``vs_library`` (ms / library_ms).
 
 TF32 is off for every phase (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): f32 means f32 in the plain
@@ -82,6 +94,8 @@ KERNEL = "conv_block.fused_affine_relu_conv"
 #: emit_stats launches (the same pattern as FORWARD_CALLS).
 TRAIN_B = 128
 TRAIN_VARIANTS = ("plain", "emit_z", "res", "emit_z+res")
+#: ragged batches: the new tile's partly filled edges (untimed checks).
+RAGGED_B = (1, 3, 127)
 #: one train step's 10 input-grad launches, by stage.
 INPUT_GRAD_STAGES = (0, 0, 0, 0, 1, 1, 2, 2, 3, 3)
 XENT_CLASSES = (10, 100)
@@ -152,6 +166,17 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
                                        else "operations")
 
 
+def with_ratios(rec: dict) -> dict:
+    """Adds ``bound_share`` (bound_ms / ms: the share of the card's least
+    time the kernel reaches) and ``vs_library`` (ms / library_ms: above 1
+    the kernel is slower than the one PyTorch call) where both exist."""
+    if rec.get("ms") and rec.get("bound_ms") is not None:
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if rec.get("ms") and rec.get("library_ms"):
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
+    return rec
+
+
 def phase_header(out):
     import torch
 
@@ -181,10 +206,48 @@ def phase_build(out):
     for name, rec in info.items():
         print(f"[build] {name}: {rec['seconds']} s "
               f"(cached={rec['cached']})")
-        for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
-    print(f"[build] total {out['build_s']} s")
+    out["conv_instances"] = conv_instances(info["conv_block"]["log"])
+    for inst in out["conv_instances"]:
+        print("[build] " + json.dumps(inst))
+    spills = [i for i in out["conv_instances"] if i["spill_bytes"]]
+    print(f"[build] total {out['build_s']} s; "
+          f"{len(out['conv_instances'])} conv instances, "
+          f"{len(spills)} with spills")
+
+
+def conv_instances(log: str) -> list:
+    """Registers, spills and static shared memory of each conv kernel
+    instance, from the ptxas report (``-Xptxas -v``)."""
+    import re
+
+    insts, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = None
+            if "conv_block_kernel" in m.group(1):
+                t = re.search(r"conv_block_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                              m.group(1))
+                cur = {"instance": m.group(1),
+                       "dtype": "float32" if t and t.group(1) == "f"
+                       else "bfloat16",
+                       "bm": int(t.group(2)) if t else None,
+                       "bn": int(t.group(3)) if t else None,
+                       "spill_bytes": 0}
+                insts.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return insts
 
 
 def _case_inputs(gen, b, h, c, dtype, with_res):
@@ -258,12 +321,19 @@ def phase_kernels(out):
                 zl = z.to(torch.bfloat16).permute(0, 3, 1, 2)
                 wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
-                rec["ms"] = cuda_median_ms(
+                # Kernel time: back-to-back launches through the C entry,
+                # as in phase 4. `wrapper_ms` is one public-wrapper call
+                # per event pair, which also counts the wrapper's host
+                # time whenever that exceeds the kernel's.
+                launch, _ = _direct_conv(cb, x, wk, scale, shift, res, emit,
+                                         False)
+                rec["ms"] = cuda_loop_ms(launch)
+                rec["wrapper_ms"] = cuda_median_ms(
                     lambda: wrapper(x, wk, scale, shift, res))
                 rec["plain_ms"] = cuda_median_ms(
                     lambda: cb.reference_affine_relu_conv(
                         x, w, scale, shift, res, True, emit))
-                rec["library_ms"] = cuda_median_ms(
+                rec["library_ms"] = cuda_loop_ms(
                     lambda: F.conv2d(zl, wl, padding=1))
                 esize = x.element_size()
                 n = B * h * h * c
@@ -274,7 +344,8 @@ def phase_kernels(out):
                 rec["bytes"], rec["flops"] = nbytes, flops
                 rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
                 rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-                print("[kernel] " + json.dumps(rec))
+                rec["tile"] = cb.tile_of(B, h, h, c)
+                print("[kernel] " + json.dumps(with_ratios(rec)))
                 cases.append(rec)
     # The serve ladder's smaller buckets: the same checks, untimed. At
     # stage 3 a 64-pixel tile holds four 4x4 images, so B=1 and B=2 leave
@@ -311,7 +382,7 @@ def _direct_conv(cb, x, wk, scale, shift, res, emit_z, stats, act=True):
     b, h, w, c = x.shape
     y = torch.empty_like(x)
     z = torch.empty_like(x) if emit_z else None
-    nb = -(-b * h * w // 64)
+    nb = cb.partials_rows(b, h, w, c)
     partials = torch.empty((nb, 2, c), device=x.device) if stats else None
     conv, _ = cb._kernel()
     stream = torch.cuda.current_stream().cuda_stream
@@ -354,6 +425,74 @@ def _grad_check(cb, x, w, scale, shift, res, gen):
     return errs
 
 
+def _ragged_cases(cb, gen):
+    """Untimed emit_stats (emit_z + residual, f32) and input-grad (bf16)
+    cases at the ragged batches, every stage: the tile's partly filled
+    edges. y within one ulp, z equal, stats bit-identical over two
+    launches and within 1e-5 * sum|y| of the plain sums of the kernel's
+    own y; input-grad within one ulp."""
+    import torch
+
+    recs = []
+    for b in RAGGED_B:
+        for stage, (h, c) in enumerate(STAGES):
+            x, w, scale, shift, res = _case_inputs(gen, b, h, c,
+                                                   torch.float32, True)
+            got = cb.fused_conv_bn(x, w, scale, shift, res, emit_z=True)
+            again = cb.fused_conv_bn(x, w, scale, shift, res, emit_z=True)
+            ref = cb.reference_affine_relu_conv(x, w, scale, shift, res,
+                                                emit_z=True, emit_stats=True)
+            ct = torch.randn(b, h, h, c, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            wf = cb.flip_packed(w)
+            one = torch.ones(c, device="cuda")
+            zero = torch.zeros(c, device="cuda")
+            dz = cb._run(ct, wf, one, zero, None, False, False,
+                         role="input_grad")
+            dzr = cb.reference_affine_relu_conv(ct, wf, one, zero,
+                                                activate=False)
+            torch.cuda.synchronize()
+            y, st = got[0], got[-1]
+            yabs = torch.stack([y.abs().sum((0, 1, 2)),
+                                (y * y).sum((0, 1, 2))])
+            rec = {"kind": "ragged", "stage": stage, "shape": [b, h, h, c],
+                   "tile": cb.tile_of(b, h, h, c),
+                   "max_abs_err": (y - ref[0]).abs().max().item(),
+                   "tol": bf16_ulp(ref[0].abs().max().item()),
+                   "z_equal": bool(torch.equal(got[1], ref[1])),
+                   "stats_rel_err": ((st - cb._stats_of(y)).abs()
+                                     / yabs.clamp(min=1e-30)).max().item(),
+                   "stats_bit_identical": bool(torch.equal(st, again[-1])),
+                   "input_grad_max_abs_err":
+                       (dz.float() - dzr.float()).abs().max().item(),
+                   "input_grad_tol": bf16_ulp(dzr.float().abs().max().item())}
+            rec["ok"] = (rec["max_abs_err"] <= rec["tol"] and rec["z_equal"]
+                         and rec["stats_rel_err"] <= 1e-5
+                         and rec["stats_bit_identical"]
+                         and rec["input_grad_max_abs_err"]
+                         <= rec["input_grad_tol"])
+            print("[ragged] " + json.dumps(rec))
+            recs.append(rec)
+    return recs
+
+
+def _host_us(fn, n: int = 50) -> float:
+    """Median host microseconds of one call of ``fn`` (no synchronise: the
+    time the caller's thread spends to enqueue it)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def phase_train_kernels(out):
     import torch
     import torch.nn.functional as F
@@ -388,6 +527,7 @@ def phase_train_kernels(out):
                 "stats_rel_err": ((st - own).abs() / yabs).max().item(),
                 "stats_bit_identical": bool(torch.equal(st, again[-1])),
                 "y_bit_identical": bool(torch.equal(y, again[0])),
+                "tile": cb.tile_of(TRAIN_B, h, h, c),
             }
             if emit:
                 rec["z_equal"] = bool(torch.equal(got[1], ref[1]))
@@ -414,7 +554,7 @@ def phase_train_kernels(out):
             rec["bytes"], rec["flops"] = nbytes, flops
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
             ok &= rec["ok"]
-            print("[train-kernel] " + json.dumps(rec))
+            print("[train-kernel] " + json.dumps(with_ratios(rec)))
             cases.append(rec)
         # The stats reduce of this stage's partials.
         _, red = cb._kernel()
@@ -440,7 +580,7 @@ def phase_train_kernels(out):
         rec["bound_ms"], rec["bound_by"] = bound(
             rbytes, partials.numel(), PEAK_F32_FLOPS)
         ok &= rec["ok"]
-        print("[train-kernel] " + json.dumps(rec))
+        print("[train-kernel] " + json.dumps(with_ratios(rec)))
         cases.append(rec)
         # The input-grad reuse: bf16 ct, flipped weight, no activation.
         ct = torch.randn(TRAIN_B, h, h, c, generator=gen,
@@ -463,6 +603,7 @@ def phase_train_kernels(out):
         nbytes = n * 2 * 2 + wf.numel() * 2
         rec = {"kind": "input_grad", "stage": stage,
                "shape": [TRAIN_B, h, h, c], "max_abs_err": err, "tol": tol,
+               "tile": cb.tile_of(TRAIN_B, h, h, c),
                "ok": err <= tol, "ms": cuda_loop_ms(launch),
                "plain_ms": cuda_median_ms(
                    lambda: cb.reference_affine_relu_conv(
@@ -473,7 +614,7 @@ def phase_train_kernels(out):
                "bytes": nbytes, "flops": flops}
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
         ok &= rec["ok"]
-        print("[train-kernel] " + json.dumps(rec))
+        print("[train-kernel] " + json.dumps(with_ratios(rec)))
         cases.append(rec)
         # The autograd rule against the plain version's autograd.
         x, w, scale, shift, res = _case_inputs(
@@ -483,8 +624,26 @@ def phase_train_kernels(out):
                "normalized_err": errs, "tol": 2e-2,
                "ok": max(errs.values()) <= 2e-2}
         ok &= rec["ok"]
-        print("[train-kernel] " + json.dumps(rec))
+        print("[train-kernel] " + json.dumps(with_ratios(rec)))
         cases.append(rec)
+    ragged = _ragged_cases(cb, gen)
+    ok &= all(r["ok"] for r in ragged)
+    out["ragged_cases"] = ragged
+    print(f"[ragged] {len(ragged)} cases at B={list(RAGGED_B)}: "
+          f"{'all ok' if all(r['ok'] for r in ragged) else 'FAILED'}")
+    # Host cost of one call: the public wrapper (checks, allocation, the
+    # conv and stats-reduce launches) and the C entry alone, stage 3.
+    h, c = STAGES[3]
+    x, w, scale, shift, res = _case_inputs(gen, TRAIN_B, h, c,
+                                           torch.float32, False)
+    wk = cb.pack_weight(w)
+    launch, _ = _direct_conv(cb, x, wk, scale, shift, res, False, True)
+    out["host_us"] = {
+        "fused_conv_bn_wrapper": _host_us(
+            lambda: cb.fused_conv_bn(x, wk, scale, shift)),
+        "conv_c_entry": _host_us(launch),
+        "shape": [TRAIN_B, h, h, c]}
+    print("[host] " + json.dumps(out["host_us"]))
     for c in XENT_CLASSES:
         logits = 3.0 * torch.randn(TRAIN_B, c, generator=gen, device="cuda")
         labels = torch.randint(0, c, (TRAIN_B,), generator=gen,
@@ -519,8 +678,33 @@ def phase_train_kernels(out):
             rec["bound_ms"], rec["bound_by"] = bound(
                 nb, 10.0 * TRAIN_B * c, PEAK_F32_FLOPS)
             ok &= rec["ok"]
-            print("[train-kernel] " + json.dumps(rec))
+            print("[train-kernel] " + json.dumps(with_ratios(rec)))
             cases.append(rec)
+    # Labels outside [0, C), untimed: both kernels give the JAX kernels'
+    # values (loss = the row's logsumexp, gradient = softmax * ct), as the
+    # plain versions do.
+    logits = 3.0 * torch.randn(4, 10, generator=gen, device="cuda")
+    labels = torch.tensor([0, 10, -1, 9], device="cuda")
+    ct = torch.rand(4, generator=gen, device="cuda") + 0.5
+    loss, d = tx._fwd(logits, labels), tx._bwd(logits, labels, ct)
+    rl, rd = tx._plain_fwd(logits, labels), tx._plain_bwd(logits, labels, ct)
+    lse = torch.logsumexp(logits, dim=-1)
+    soft = torch.softmax(logits, dim=-1) * ct[:, None]
+    torch.cuda.synchronize()
+    rec = {"kind": "xent_out_of_range_labels", "labels": [0, 10, -1, 9],
+           "loss_max_abs_err": (loss - rl).abs().max().item(),
+           "grad_max_abs_err": (d - rd).abs().max().item(),
+           "loss_vs_logsumexp": (loss[1:3] - lse[1:3]).abs().max().item(),
+           "grad_vs_softmax_ct": (d[1:3] - soft[1:3]).abs().max().item(),
+           "finite": bool(torch.isfinite(loss).all()
+                          and torch.isfinite(d).all())}
+    rec["ok"] = (rec["finite"] and rec["loss_max_abs_err"] <= 1e-5
+                 and rec["grad_max_abs_err"] <= 1e-6
+                 and rec["loss_vs_logsumexp"] <= 1e-5
+                 and rec["grad_vs_softmax_ct"] <= 1e-6)
+    ok &= rec["ok"]
+    print("[train-kernel] " + json.dumps(with_ratios(rec)))
+    out["xent_out_of_range"] = rec
     out["train_kernel_cases"] = cases
     if not ok:
         raise AssertionError("a train kernel disagrees with its plain "
@@ -789,13 +973,15 @@ def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     a step or forward)."""
     total = {k: sum(r[k] for r in recs)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    if all("wrapper_ms" in r for r in recs):
+        total["wrapper_ms"] = sum(r["wrapper_ms"] for r in recs)
     t_bytes = sum(r["bytes"] for r in recs) / PEAK_BYTES
     t_ops = sum(r["flops"] for r in recs) / peak
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
-            **total,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return with_ratios({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in recs), **total,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
 
 def kernels_line(out):
@@ -837,7 +1023,7 @@ def kernels_line(out):
             ("xent_fwd", "xent.softmax_xent forward", 71, "forward"),
             ("xent_bwd", "xent.softmax_xent backward", 82, "backward")):
         r = xent[(kind, 10)]  # CIFAR-10's head, the main path's shape
-        entries.append({
+        entries.append(with_ratios({
             "name": name, "route": "cuda", "source": src + "xent.cu",
             "replaces": f"tpu_dp/ops/xent.py:{line}",
             "launches": train["xent"][key],
@@ -845,7 +1031,7 @@ def kernels_line(out):
                                if k == kind),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"]}))
     return {"kernels": entries}
 
 

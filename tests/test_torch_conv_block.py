@@ -11,6 +11,7 @@ y through bf16 after summing the taps in different orders
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import jax.numpy as jnp
@@ -167,9 +168,10 @@ def test_kernel_matches_plain_on_card():
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     for h, c in ((32, 64), (16, 128), (8, 256), (4, 512)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(3, h, h, c, generator=g, device="cuda").to(dtype)
-            res = torch.randn(3, h, h, c, generator=g, device="cuda").to(dtype)
+        for b, dtype in itertools.product((1, 3, 127),
+                                          (torch.float32, torch.bfloat16)):
+            x = torch.randn(b, h, h, c, generator=g, device="cuda").to(dtype)
+            res = torch.randn(b, h, h, c, generator=g, device="cuda").to(dtype)
             w = torch.randn(3, 3, c, c, generator=g, device="cuda") * 0.05
             sc = torch.rand(c, generator=g, device="cuda") + 0.5
             sh = torch.randn(c, generator=g, device="cuda") * 0.1

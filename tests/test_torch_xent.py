@@ -108,12 +108,23 @@ def test_bad_inputs_are_refused_and_bad_labels_give_nan():
     with pytest.raises(ValueError, match="cpu or cuda"):
         tx.softmax_xent(logits.to("meta"),
                         torch.zeros(4, dtype=torch.int64, device="meta"))
-    lg = torch.zeros(4, 10, requires_grad=True)
-    loss = tx.softmax_xent(lg, torch.tensor([0, 10, -1, 9]))
-    loss.sum().backward()
-    assert torch.isnan(loss).tolist() == [False, True, True, False]
-    assert torch.isnan(lg.grad).all(dim=1).tolist() == [False, True, True,
-                                                         False]
+    # Labels outside [0, C) are not refused: like the JAX kernels (class
+    # index compare), they match no class, so the loss is the row's
+    # logsumexp and the gradient softmax * ct -- no NaN.
+    logits, _, ct = _inputs(4, 10, seed=5)
+    labels = np.array([0, 10, -1, 9], np.int32)
+    ref_loss = np.asarray(jx.softmax_xent(jnp.asarray(logits),
+                                          jnp.asarray(labels)))
+    ref_grad = np.asarray(jax.grad(
+        lambda lg: jnp.sum(jx.softmax_xent(lg, jnp.asarray(labels))
+                           * jnp.asarray(ct)))(jnp.asarray(logits)))
+    lg = torch.from_numpy(logits).requires_grad_()
+    loss = tx.softmax_xent(lg, torch.from_numpy(labels).long())
+    (loss * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(loss.detach().numpy(), ref_loss, rtol=1e-6)
+    np.testing.assert_allclose(lg.grad.numpy(), ref_grad, rtol=1e-6,
+                               atol=1e-6)
+    assert np.isfinite(loss.detach().numpy()).all()
 
 
 @pytest.mark.card
@@ -140,6 +151,14 @@ def test_kernels_match_plain_on_card():
                     tol = (1e-6 if dtype == torch.float32
                            else bf16_ulp(rd.float().abs().max().item()))
                     assert (d.float() - rd.float()).abs().max().item() <= tol
-    bad = tx._fwd(torch.zeros(2, 10, device="cuda"),
-                  torch.tensor([3, 10], device="cuda"))
-    assert torch.isnan(bad).tolist() == [False, True]
+    # Out-of-range labels: the kernels' loss and gradient equal the plain
+    # versions' (logsumexp and softmax * ct, as the JAX kernels give).
+    logits, _, ct = _inputs(4, 10, seed=5)
+    lg = torch.from_numpy(logits).cuda()
+    lb = torch.tensor([0, 10, -1, 9], device="cuda")
+    ctt = torch.from_numpy(ct).cuda()
+    loss, d = tx._fwd(lg, lb), tx._bwd(lg, lb, ctt)
+    assert torch.allclose(loss, tx._plain_fwd(lg, lb), rtol=1e-6, atol=1e-6)
+    assert torch.allclose(d, tx._plain_bwd(lg, lb, ctt), rtol=1e-6,
+                          atol=1e-6)
+    assert bool(torch.isfinite(loss).all())

@@ -7,7 +7,11 @@ Each source under ``tpu_dp_torch/ops/csrc/`` is compiled on first use into
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <src>
 
 The library exposes a plain C interface and is loaded with `ctypes`, so a
-build takes seconds (no PyTorch headers). The file name carries a hash of
+build takes seconds (no PyTorch headers). No ``-lcuda`` either: the conv
+kernel's TMA tensor map (``cuTensorMapEncodeTiled``, a driver-API call) is
+reached through the runtime's ``cudaGetDriverEntryPoint`` (its
+``ByVersion`` form from CUDA 12.5), and ``cuda.h`` is used for its types
+only. The file name carries a hash of
 the source and flags: an edited source is rebuilt, an unchanged one is
 loaded as it is. ``ptxas`` reports (registers, shared memory, spills) are
 kept beside the library as ``<name>-<hash>.log``.

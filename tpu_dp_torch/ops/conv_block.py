@@ -55,9 +55,9 @@ launches_by_role = {"eval": 0, "stats": 0, "input_grad": 0}
 reduce_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64  # the kernel's pixel tile and channel block (csrc/conv_block.cu)
 _fn = None
 _reduce_fn = None
+_lib = None
 
 
 def reset_launches() -> None:
@@ -139,7 +139,7 @@ def reference_affine_relu_conv(x, w, scale, shift, residual=None,
 
 
 def _kernel():
-    global _fn, _reduce_fn
+    global _fn, _reduce_fn, _lib
     if _fn is None:
         from tpu_dp_torch.ops import _build
 
@@ -152,8 +152,36 @@ def _kernel():
         red.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
         red.restype = ctypes.c_int
-        _fn, _reduce_fn = fn, red
+        lib.tpu_dp_conv_block_partials_rows.argtypes = [ctypes.c_int] * 4
+        lib.tpu_dp_conv_block_partials_rows.restype = ctypes.c_int
+        lib.tpu_dp_conv_block_tile.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.tpu_dp_conv_block_tile.restype = ctypes.c_int
+        _fn, _reduce_fn, _lib = fn, red, lib
     return _fn, _reduce_fn
+
+
+def partials_rows(b, h, w, c) -> int:
+    """Rows of the per-block stats partials a launch of ``[b,h,w,c]``
+    writes: its grid's x size, which depends on the tile the kernel picks
+    for the shape (the kernel's own ``tpu_dp_conv_block_partials_rows``)."""
+    _kernel()
+    n = _lib.tpu_dp_conv_block_partials_rows(b, h, w, c)
+    if n < 0:
+        raise ValueError(f"conv_block kernel refuses [B,H,W,C] = "
+                         f"{(b, h, w, c)}")
+    return n
+
+
+def tile_of(b, h, w, c) -> dict:
+    """The kernel's tile for ``[b,h,w,c]``: pixels ``bm`` and output
+    channels ``bn`` per block, and the grid's ``blocks``."""
+    _kernel()
+    out = (ctypes.c_int * 3)()
+    if _lib.tpu_dp_conv_block_tile(b, h, w, c, out) != 0:
+        raise ValueError(f"conv_block kernel refuses [B,H,W,C] = "
+                         f"{(b, h, w, c)}")
+    return {"bm": out[0], "bn": out[1], "blocks": out[2]}
 
 
 def _check(name, t, dev, dtype=None, shape=None):
@@ -179,8 +207,8 @@ def _launch(x, w, scale, shift, residual, activate, emit_z,
         raise ValueError(f"x must be [B,H,W,C], got {tuple(x.shape)}")
     b, h, wd, c = x.shape
     hw = h * wd
-    if c % _TILE or _TILE % wd or not (
-            (hw % _TILE == 0 and h % (_TILE // wd) == 0) or _TILE % hw == 0):
+    if c % 64 or 64 % wd or not (
+            (hw % 64 == 0 and h % (64 // wd) == 0) or 64 % hw == 0):
         raise ValueError(
             f"conv_block kernel takes C % 64 == 0, W dividing 64 and H*W a "
             f"multiple or divisor of 64; got [B,H,W,C] = {tuple(x.shape)}")
@@ -199,7 +227,7 @@ def _launch(x, w, scale, shift, residual, activate, emit_z,
     z = torch.empty_like(x) if emit_z else None
     partials = stats = None
     if emit_stats:
-        nb = -(-b * hw // _TILE)  # the kernel's grid.x
+        nb = partials_rows(b, h, wd, c)  # the kernel's grid.x
         partials = torch.empty((nb, 2, c), dtype=torch.float32, device=dev)
         stats = torch.empty((2, c), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -12,8 +12,9 @@
 //                             stored in the logits' dtype
 //
 // with every per-row quantity (max, sum of exp, log, softmax) in f32, as the
-// TPU kernels compute it. A label outside [0, C) gives a NaN loss row and a
-// NaN gradient row: never a silently wrong value.
+// TPU kernels compute it. The label's one-hot compares class indices, as the
+// TPU kernels' iota compare does, so a label outside [0, C) matches no class:
+// its loss is logsumexp(l[b, :]) and its gradient softmax * ct.
 //
 // Bound on an H100: at CIFAR head sizes (C = 10 or 100, B = 128) a call moves
 // a few KB (logits read once, loss or gradient written once), nanoseconds at
@@ -83,8 +84,7 @@ xent_fwd_kernel(const T* __restrict__ logits, const L* __restrict__ labels,
   for (int c = lane; c < C; c += 32)
     if (c == label) tl = load_f32(r + c);
   tl = warp_sum(tl);
-  if (lane == 0)
-    loss[row] = (label >= 0 && label < C) ? (logf(s) + m) - tl : NAN;
+  if (lane == 0) loss[row] = (logf(s) + m) - tl;
 }
 
 template <typename T, typename L>
@@ -98,14 +98,13 @@ xent_bwd_kernel(const T* __restrict__ logits, const L* __restrict__ labels,
   const T* r = logits + (long long)row * C;
   T* d = dlogits + (long long)row * C;
   const long long label = (long long)labels[row];
-  const bool valid = label >= 0 && label < C;
   float m, s;
   row_max_sum(r, C, lane, m, s);
   const float g = ct[row];
   for (int c = lane; c < C; c += 32) {
     const float p = expf(load_f32(r + c) - m) / s;
     const float onehot = (c == label) ? 1.f : 0.f;
-    store_from_f32(d + c, valid ? (p - onehot) * g : NAN);
+    store_from_f32(d + c, (p - onehot) * g);
   }
 }
 

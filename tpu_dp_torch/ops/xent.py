@@ -14,9 +14,10 @@ as in the JAX package.
 Dispatch is by where the tensor lies: CPU tensors go to the plain versions
 `_plain_fwd` / `_plain_bwd` (the ports of `_jnp_fwd` / `_jnp_bwd`), CUDA
 tensors launch the kernels or raise — no fallback. Labels are int64 or
-int32; a label outside ``[0, C)`` gives a NaN loss and a NaN gradient row
-on both routes, never a silently wrong value (checking the range on the
-host would stall every step on a device-to-host copy).
+int32. The one-hot compares class indices, as the TPU kernels do, so a
+label outside ``[0, C)`` matches no class on both routes: its loss is the
+row's logsumexp and its gradient ``softmax * ct`` (no range check on the
+host, which would stall every step on a device-to-host copy).
 
 ``launches`` counts kernel launches by direction (CUDA only).
 """
@@ -40,33 +41,35 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _valid(labels, c):
-    return (labels >= 0) & (labels < c)
+def _onehot(labels, c):
+    """``[B, C]`` f32 one-hot by class-index compare: a zero row for a
+    label outside ``[0, C)``, as ``jax.nn.one_hot`` and the TPU kernels'
+    iota compare give."""
+    classes = torch.arange(c, device=labels.device)
+    return (classes[None, :] == labels.long()[:, None]).float()
 
 
 def _plain_fwd(logits, labels):
-    """Per-example loss in f32 (`_jnp_fwd`): max, logsumexp, label gather."""
+    """Per-example loss in f32 (`_jnp_fwd`): max, logsumexp, label gather;
+    an out-of-range label gathers nothing (its true logit is 0)."""
     logits = logits.float()
     c = logits.shape[-1]
     m = logits.max(dim=-1, keepdim=True).values
     lse = torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)) + m
-    true_logit = torch.gather(
-        logits, -1, labels.long().clamp(0, c - 1)[:, None])
-    loss = (lse - true_logit)[:, 0]
-    return torch.where(_valid(labels, c), loss, float("nan"))
+    lab = labels.long()[:, None]
+    true_logit = torch.where((lab >= 0) & (lab < c),
+                             torch.gather(logits, -1, lab.clamp(0, c - 1)),
+                             0.0)
+    return (lse - true_logit)[:, 0]
 
 
 def _plain_bwd(logits, labels, ct):
     """``(softmax - onehot) * ct`` in the logits' dtype (`_jnp_bwd`)."""
     logits32 = logits.float()
-    c = logits.shape[-1]
     m = logits32.max(dim=-1, keepdim=True).values
     e = torch.exp(logits32 - m)
     probs = e / e.sum(dim=-1, keepdim=True)
-    onehot = torch.nn.functional.one_hot(
-        labels.long().clamp(0, c - 1), c).float()
-    d = (probs - onehot) * ct.float()[:, None]
-    d = torch.where(_valid(labels, c)[:, None], d, float("nan"))
+    d = (probs - _onehot(labels, logits.shape[-1])) * ct.float()[:, None]
     return d.to(logits.dtype)
 
 
