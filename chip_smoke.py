@@ -22,21 +22,29 @@ Phases, in order; any failure exits non-zero before the last line:
 4. kernel vs plain, train, at the training batch B=128 for the four
    stages: the ``emit_stats`` conv (emit_z and residual on or off, f32; y
    within one ulp, stats within 1e-5 * sum|y| of the plain sums of the
-   kernel's own y, and bit-identical across two launches), its stats
-   reduce, the input-grad reuse (bf16 ct, flipped weight, no activation;
-   one ulp), the autograd rule's five gradients against the plain
-   version's autograd (max|g - g_plain| <= 2e-2 * max|g_plain|), and the
-   xent kernels forward and backward at C = 10 and 100 (f32 within 1e-6)
-   and, untimed, with labels outside [0, C) (the JAX kernels' logsumexp
-   loss and softmax * ct gradient); untimed ragged batches B = 1, 3, 127
-   at every stage (emit_stats: y one ulp, z equal, stats bit-identical
-   over two launches; input-grad one ulp); the host microseconds of one
-   wrapper call and of the C entry alone;
+   kernel's own y), and its stats fold three ways: bit-exact against
+   ``ordered_stats_sum`` replayed on the card over the partial rows the
+   same launch left in its scratch, and bit-identical across two launches,
+   across three replays of a CUDA graph of one ``fused_conv_bn`` call and
+   on a launch made while a large matmul runs on a side stream (blocks
+   finish in another order); the fold's cost (``emit_stats`` time minus
+   the stats-off time of the same shape, both through the C entry); the
+   input-grad reuse (bf16 ct, flipped weight, no activation; one ulp), the
+   autograd rule's five gradients against the plain version's autograd
+   (max|g - g_plain| <= 2e-2 * max|g_plain|), and the xent kernels: per
+   example forward and backward at C = 10 and 100 (f32 within 1e-6), the
+   batch-mean variants at B = 1, 7, 128, 1000 (within 1e-6 of the plain
+   versions, loss bit-identical across launches, gradient bit-identical to
+   the per-example kernel + torch mean + MeanBackward route) and, untimed,
+   labels outside [0, C) (the JAX kernels' logsumexp loss and softmax * ct
+   gradient); ragged batches B = 1, 3, 127 at every stage (emit_stats: y
+   one ulp, z equal, the same three fold checks; input-grad one ulp); the
+   host microseconds of one wrapper call and of the C entry alone;
    each timed beside its bound, its plain version and one library call
    (cuDNN bf16 conv2d / conv2d_input, torch.sum, F.cross_entropy) — the
-   convs by CUDA events over back-to-back launches, the microsecond stats
-   reduce and xent kernels by their device time under the profiler (an
-   event loop would time the host's launch rate, which is also recorded);
+   convs by CUDA events over back-to-back launches, the microsecond xent
+   kernels and sums by their device time under the profiler (an event
+   loop would time the host's launch rate, which is also recorded);
 5. serve: the full-width fused CIFAR ResNet-18 (f32, random weights and
    random BN statistics from a seed) behind `InferenceEngine` with
    buckets 1..32, 200 Poisson requests of 1-4 images: audited books, the
@@ -46,8 +54,9 @@ Phases, in order; any failure exits non-zero before the last line:
 6. train: `Trainer` on ``--preset=resnet18_cifar10 --model.fused_stages=all
    --model.fused_bwd=true --train.pallas_xent=true`` at full width (f32,
    batch 128, synthetic data), 30 steps and one eval: finite losses that
-   fall, exactly 20 conv-kernel launches (+10 stats reduces) and 2 xent
-   launches per step and 10 per eval forward, the first 5 losses within
+   fall, exactly 20 conv-kernel launches and 2 xent launches per step
+   (and the same 20 + 2 by kernel name under the profiler, with no stats
+   reduce kernel) and 10 per eval forward, the first 5 losses within
    0.05 of the same init and batches run unfused without kernels, a
    number for the accuracy; step time, device-busy share, top kernels and
    peak memory;
@@ -99,6 +108,8 @@ RAGGED_B = (1, 3, 127)
 #: one train step's 10 input-grad launches, by stage.
 INPUT_GRAD_STAGES = (0, 0, 0, 0, 1, 1, 2, 2, 3, 3)
 XENT_CLASSES = (10, 100)
+#: batches of the xent batch-mean checks (C = 10); timed at TRAIN_B.
+XENT_MEAN_B = (1, 7, TRAIN_B, 1000)
 TRAIN_STEPS = 30
 TRAIN_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
               "--model.fused_bwd=true", "--train.pallas_xent=true",
@@ -376,27 +387,82 @@ def phase_kernels(out):
 
 def _direct_conv(cb, x, wk, scale, shift, res, emit_z, stats, act=True):
     """One launch of the conv kernel alone through its C entry, on buffers
-    allocated once (no wrapper, no stats reduce): for timing."""
+    allocated once (no wrapper): for timing and, with ``stats``, to read
+    the partial rows the launch leaves in its scratch. Returns ``(launch,
+    scratch)``: scratch is None, or ``{"partials": the launch's [nbx, 2,
+    C] block rows, "stats": [2, C]}``."""
     import torch
+
+    from tpu_dp_torch.ops import _tickets
 
     b, h, w, c = x.shape
     y = torch.empty_like(x)
     z = torch.empty_like(x) if emit_z else None
-    nb = cb.partials_rows(b, h, w, c)
-    partials = torch.empty((nb, 2, c), device=x.device) if stats else None
-    conv, _ = cb._kernel()
+    rows, n_tick = cb.stats_scratch(b, h, w, c)
+    part = st = tick = scratch = None
+    if stats:
+        tile = cb.tile_of(b, h, w, c)
+        part = torch.empty((rows, 2, c), device=x.device)
+        st = torch.empty((2, c), device=x.device)
+        tick = _tickets.tickets(x.device, n_tick)
+        scratch = {"partials": part[:tile["blocks"] // (c // tile["bn"])],
+                   "stats": st}
+    conv = cb._kernel()
     stream = torch.cuda.current_stream().cuda_stream
+    ptr = (lambda t: None if t is None else t.data_ptr())
     args = (cb._DTYPES[x.dtype], res is not None, emit_z, act, stats,
             x.data_ptr(), wk.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            None if res is None else res.data_ptr(), y.data_ptr(),
-            None if z is None else z.data_ptr(),
-            None if partials is None else partials.data_ptr(), b, h, w, c,
-            stream)
+            ptr(res), y.data_ptr(), ptr(z), ptr(part), ptr(st), ptr(tick),
+            b, h, w, c, rows, n_tick, cb.STATS_GROUP, stream)
 
     def launch():
         if conv(*args) != 0:
             raise RuntimeError("conv_block launch failed")
-    return launch, partials
+    return launch, scratch
+
+
+def _fold_checks(cb, x, wk, scale, shift, res, emit, st, big, side):
+    """The stats fold of one ``emit_stats`` case whose wrapper call gave
+    ``st``: bit-exact against `ordered_stats_sum` over the rows a launch
+    through the C entry left in its scratch, and bit-identical over three
+    replays of a CUDA graph of one wrapper call (captured on the stream
+    ``side``) and on a wrapper call made while ``big @ big`` runs on
+    ``side``. One side stream serves every case: cuBLAS keeps a workspace
+    per stream for the life of the process."""
+    import torch
+
+    launch, scr = _direct_conv(cb, x, wk, scale, shift, res, emit, True)
+    launch()
+    torch.cuda.synchronize()
+    rec = {"stats_eq_ordered_sum": bool(torch.equal(
+               scr["stats"], cb.ordered_stats_sum(scr["partials"]))),
+           "c_entry_eq_wrapper": bool(torch.equal(scr["stats"], st)),
+           "partial_rows": scr["partials"].shape[0]}
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the stream's tickets, outside capture
+        cb.fused_conv_bn(x, wk, scale, shift, res, emit_z=emit)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = cb.fused_conv_bn(x, wk, scale, shift, res, emit_z=emit)
+    same = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(bool(torch.equal(out[-1], st)))
+    rec["graph_replays_identical"] = all(same)
+    del graph, out
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        busy = big @ big
+    got = cb.fused_conv_bn(x, wk, scale, shift, res, emit_z=emit)[-1]
+    torch.cuda.synchronize()
+    rec["side_stream_identical"] = bool(torch.equal(got, st))
+    del busy
+    rec["fold_ok"] = all(rec[k] for k in (
+        "stats_eq_ordered_sum", "c_entry_eq_wrapper",
+        "graph_replays_identical", "side_stream_identical"))
+    return rec
 
 
 def _grad_check(cb, x, w, scale, shift, res, gen):
@@ -425,12 +491,12 @@ def _grad_check(cb, x, w, scale, shift, res, gen):
     return errs
 
 
-def _ragged_cases(cb, gen):
+def _ragged_cases(cb, gen, big, side):
     """Untimed emit_stats (emit_z + residual, f32) and input-grad (bf16)
     cases at the ragged batches, every stage: the tile's partly filled
     edges. y within one ulp, z equal, stats bit-identical over two
-    launches and within 1e-5 * sum|y| of the plain sums of the kernel's
-    own y; input-grad within one ulp."""
+    launches, the fold's checks (`_fold_checks`) and within 1e-5 * sum|y|
+    of the plain sums of the kernel's own y; input-grad within one ulp."""
     import torch
 
     recs = []
@@ -466,9 +532,11 @@ def _ragged_cases(cb, gen):
                    "input_grad_max_abs_err":
                        (dz.float() - dzr.float()).abs().max().item(),
                    "input_grad_tol": bf16_ulp(dzr.float().abs().max().item())}
+            rec.update(_fold_checks(cb, x, cb.pack_weight(w), scale, shift,
+                                    res, True, st, big, side))
             rec["ok"] = (rec["max_abs_err"] <= rec["tol"] and rec["z_equal"]
                          and rec["stats_rel_err"] <= 1e-5
-                         and rec["stats_bit_identical"]
+                         and rec["stats_bit_identical"] and rec["fold_ok"]
                          and rec["input_grad_max_abs_err"]
                          <= rec["input_grad_tol"])
             print("[ragged] " + json.dumps(rec))
@@ -501,6 +569,11 @@ def phase_train_kernels(out):
     from tpu_dp_torch.ops import xent as tx
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    # Side-stream load for the fold's concurrency check: ~1 ms of bf16
+    # tensor-core work on every SM.
+    big = torch.randn(8192, 8192, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    side = torch.cuda.Stream()
     cases, ok = [], True
     for stage, (h, c) in enumerate(STAGES):
         n = TRAIN_B * h * h * c
@@ -531,18 +604,26 @@ def phase_train_kernels(out):
             }
             if emit:
                 rec["z_equal"] = bool(torch.equal(got[1], ref[1]))
+            rec.update(_fold_checks(cb, x, wk, scale, shift, res, emit, st,
+                                    big, side))
             rec["ok"] = (rec["max_abs_err"] <= tol
                          and rec["stats_rel_err"] <= 1e-5
                          and rec["stats_bit_identical"]
                          and rec["y_bit_identical"]
-                         and rec.get("z_equal", True))
-            launch, partials = _direct_conv(cb, x, wk, scale, shift, res,
-                                            emit, True)
+                         and rec.get("z_equal", True) and rec["fold_ok"])
+            launch, scratch = _direct_conv(cb, x, wk, scale, shift, res,
+                                           emit, True)
+            off, _ = _direct_conv(cb, x, wk, scale, shift, res, emit, False)
             zl = ref[1] if emit else cb._reference_z(x, scale, shift, res)
             zl = zl.to(torch.bfloat16).permute(0, 3, 1, 2)
             wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
-            rec["ms"] = cuda_loop_ms(launch)
+            # The fold's cost: the same launch with stats on and off, in
+            # turns (on, off, on, off), the faster of each pair.
+            on1, off1 = cuda_loop_ms(launch), cuda_loop_ms(off)
+            on2, off2 = cuda_loop_ms(launch), cuda_loop_ms(off)
+            rec["ms"], rec["nostats_ms"] = min(on1, on2), min(off1, off2)
+            rec["fold_ms"] = rec["ms"] - rec["nostats_ms"]
             rec["plain_ms"] = cuda_median_ms(
                 lambda: cb.reference_affine_relu_conv(
                     x, w, scale, shift, res, emit_z=emit, emit_stats=True),
@@ -556,27 +637,31 @@ def phase_train_kernels(out):
             ok &= rec["ok"]
             print("[train-kernel] " + json.dumps(with_ratios(rec)))
             cases.append(rec)
-        # The stats reduce of this stage's partials.
-        _, red = cb._kernel()
-        nb = partials.shape[0]
-        stats = torch.empty((2, c), device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def reduce():
-            if red(partials.data_ptr(), stats.data_ptr(), nb, c, stream):
-                raise RuntimeError("stats reduce launch failed")
-        reduce()
+        # The stats fold of this stage (its cost per variant is in the
+        # emit_stats records): the sum it replaces, on the last case's
+        # partial rows, timed as the plain version and the library call.
+        partials = scratch["partials"]
+        launch()
         torch.cuda.synchronize()
-        rerr = (stats - partials.sum(0)).abs().max().item()
-        rbytes = partials.numel() * 4 + stats.numel() * 4
-        rec = {"kind": "stats_reduce", "stage": stage, "partials": [nb, 2, c],
-               "max_abs_err": rerr,
-               "ok": rerr <= 1e-5 * partials.abs().sum(0).max().item(),
-               "ms": device_ms(reduce),
-               "launch_loop_ms": cuda_loop_ms(reduce),
+        nb = partials.shape[0]
+        plain_sum = partials.sum(0)
+        rbytes = partials.numel() * 4 + 2 * c * 4
+        rec = {"kind": "stats_fold", "stage": stage, "partials": [nb, 2, c],
+               "groups": -(-nb // cb.STATS_GROUP),
+               "max_abs_err": (scratch["stats"] - cb.ordered_stats_sum(
+                   partials)).abs().max().item(),
+               "vs_sum_max_rel_err": ((scratch["stats"] - plain_sum).abs()
+                                      / partials.abs().sum(0).clamp(
+                                          min=1e-30)).max().item(),
+               "fold_ms_by_variant": {r["variant"]: r["fold_ms"]
+                                      for r in cases
+                                      if r["kind"] == "emit_stats"
+                                      and r["stage"] == stage},
                "plain_ms": device_ms(lambda: partials.sum(dim=0)),
                "library_ms": device_ms(lambda: torch.sum(partials, 0)),
                "bytes": rbytes, "flops": partials.numel()}
+        rec["ok"] = (rec["max_abs_err"] == 0.0
+                     and rec["vs_sum_max_rel_err"] <= 1e-6)
         rec["bound_ms"], rec["bound_by"] = bound(
             rbytes, partials.numel(), PEAK_F32_FLOPS)
         ok &= rec["ok"]
@@ -626,13 +711,14 @@ def phase_train_kernels(out):
         ok &= rec["ok"]
         print("[train-kernel] " + json.dumps(with_ratios(rec)))
         cases.append(rec)
-    ragged = _ragged_cases(cb, gen)
+    ragged = _ragged_cases(cb, gen, big, side)
+    del big, side
     ok &= all(r["ok"] for r in ragged)
     out["ragged_cases"] = ragged
     print(f"[ragged] {len(ragged)} cases at B={list(RAGGED_B)}: "
           f"{'all ok' if all(r['ok'] for r in ragged) else 'FAILED'}")
     # Host cost of one call: the public wrapper (checks, allocation, the
-    # conv and stats-reduce launches) and the C entry alone, stage 3.
+    # one launch) and the C entry alone, stage 3.
     h, c = STAGES[3]
     x, w, scale, shift, res = _case_inputs(gen, TRAIN_B, h, c,
                                            torch.float32, False)
@@ -680,6 +766,70 @@ def phase_train_kernels(out):
             ok &= rec["ok"]
             print("[train-kernel] " + json.dumps(with_ratios(rec)))
             cases.append(rec)
+    # The batch mean, the training loss: one launch each way. Timed at
+    # the training batch, beside the route it replaces (per-example kernel
+    # + torch mean; MeanBackward's scale + per-example backward kernel).
+    for b in XENT_MEAN_B:
+        c = XENT_CLASSES[0]
+        logits = 3.0 * torch.randn(b, c, generator=gen, device="cuda")
+        labels = torch.randint(0, c, (b,), generator=gen, device="cuda")
+        ct = torch.tensor(1.7, device="cuda")
+        loss, again = tx._fwd(logits, labels, True), tx._fwd(logits, labels,
+                                                             True)
+        d = tx._bwd(logits, labels, ct, mean=True)
+        rl = tx._plain_fwd(logits, labels).mean()
+        rd = tx._plain_bwd(logits, labels, (ct / b).expand(b))
+        old = logits.clone().requires_grad_()
+        tx.softmax_xent(old, labels).mean().backward(ct)
+        torch.cuda.synchronize()
+        lref = logits.clone().requires_grad_()
+        nbytes = b * c * 4 + b * 8 + 4
+        fwd = {"kind": "xent_mean_fwd", "shape": [b, c],
+               "max_abs_err": (loss - rl).abs().item(),
+               "max_rel_err": ((loss - rl).abs() / rl.abs()).item(),
+               "bit_identical_across_launches": bool(torch.equal(loss,
+                                                                 again)),
+               "bytes": nbytes}
+        fwd["ok"] = (fwd["max_rel_err"] <= 1e-6
+                     and fwd["bit_identical_across_launches"])
+        bwd = {"kind": "xent_mean_bwd", "shape": [b, c],
+               "max_abs_err": (d - rd).abs().max().item(),
+               "max_rel_err": ((d - rd).abs().max()
+                               / rd.abs().max()).item(),
+               "bit_identical_to_mean_backward_route": bool(
+                   torch.equal(d, old.grad)),
+               "bytes": nbytes + b * c * 4}
+        bwd["ok"] = (bwd["max_rel_err"] <= 1e-6
+                     and bwd["bit_identical_to_mean_backward_route"])
+        for rec in (fwd, bwd):
+            # ~10 operations per element (exp, max, add, divide), f32.
+            rec["bound_ms"], rec["bound_by"] = bound(
+                rec["bytes"], 10.0 * b * c, PEAK_F32_FLOPS)
+        if b == TRAIN_B:
+            fwd.update({
+                "ms": device_ms(lambda: tx._fwd(logits, labels, True)),
+                "launch_loop_ms": cuda_loop_ms(
+                    lambda: tx._fwd(logits, labels, True)),
+                "old_route_ms": device_ms(
+                    lambda: tx._fwd(logits, labels).mean()),
+                "plain_ms": device_ms(
+                    lambda: tx._plain_fwd(logits, labels).mean()),
+                "library_ms": device_ms(
+                    lambda: F.cross_entropy(logits, labels))})
+            bwd.update({
+                "ms": device_ms(lambda: tx._bwd(logits, labels, ct, True)),
+                "launch_loop_ms": cuda_loop_ms(
+                    lambda: tx._bwd(logits, labels, ct, True)),
+                "old_route_ms": device_ms(
+                    lambda: tx._bwd(logits, labels, ct.expand(b) / b)),
+                "plain_ms": device_ms(lambda: tx._plain_bwd(
+                    logits, labels, (ct / b).expand(b))),
+                "library_ms": device_ms(lambda: torch.autograd.grad(
+                    F.cross_entropy(lref, labels), lref, ct))})
+        for rec in (fwd, bwd):
+            ok &= rec["ok"]
+            print("[train-kernel] " + json.dumps(with_ratios(rec)))
+            cases.append(rec)
     # Labels outside [0, C), untimed: both kernels give the JAX kernels'
     # values (loss = the row's logsumexp, gradient = softmax * ct), as the
     # plain versions do.
@@ -710,7 +860,8 @@ def phase_train_kernels(out):
         raise AssertionError("a train kernel disagrees with its plain "
                              "version")
     print(f"[train-kernel] all {len(cases)} cases within tolerance; stats "
-          f"bit-identical across launches")
+          f"bit-exact with ordered_stats_sum and bit-identical across "
+          f"launches, graph replays and a busy side stream")
 
 
 def profile_forward(fn, n: int = 5) -> dict:
@@ -746,13 +897,12 @@ def profile_forward(fn, n: int = 5) -> dict:
     # The port's own kernels, by name: their device time per launch, which
     # for microsecond kernels a host-side loop cannot see.
     ours = {k: v for k, v in kernels.items()
-            if any(s in k for s in ("conv_block_kernel",
-                                    "stats_reduce_kernel", "xent_"))}
+            if any(s in k for s in ("conv_block_kernel", "xent_"))}
     return {"wall_us_per_call": wall_us / n, "device_busy_us_per_call":
             busy_us, "device_busy_share": busy_us * n / wall_us,
             "kernel_launches_per_call": sum(
                 k["count_per_call"] for k in kernels.values()),
-            "top": top, "ours": ours}
+            "top": top, "ours": ours, "kernel_names": sorted(kernels)}
 
 
 def _randomize_bn(model, gen):
@@ -893,13 +1043,14 @@ def phase_train(out):
 
     trainer = Trainer(parse_cli(TRAIN_ARGS), device="cuda")
     steps, evals = len(trainer.train_pipe), len(trainer.test_pipe)
+    held = torch.cuda.memory_allocated()  # by the earlier phases
     torch.cuda.reset_peak_memory_stats()
     cb.reset_launches()
     tx.reset_launches()
     result = trainer.fit()
     torch.cuda.synchronize()
     counts = {"conv": dict(cb.launches_by_role), "conv_total": cb.launches,
-              "stats_reduce": cb.reduce_launches, "xent": dict(tx.launches)}
+              "xent": dict(tx.launches)}
     peak = torch.cuda.max_memory_allocated()
     losses = trainer.step_losses
     acc = result["eval"]["accuracy"]
@@ -913,7 +1064,6 @@ def phase_train(out):
             counts["conv"]["input_grad"] == 10 * steps,
         "conv_eval_10_per_eval_forward":
             counts["conv"]["eval"] == 10 * evals,
-        "stats_reduce_10_per_step": counts["stats_reduce"] == 10 * steps,
         "xent_1_and_1_per_step":
             counts["xent"] == {"forward": steps, "backward": steps},
         "accuracy_is_number": isinstance(acc, float) and math.isfinite(acc),
@@ -941,17 +1091,42 @@ def phase_train(out):
                              reps=20)
     ref_step_ms = cuda_median_ms(lambda: ref.train_step(ref.state, batch),
                                  reps=10)
-    breakdown = profile_forward(
-        lambda: trainer.train_step(trainer.state, batch))
+    # The same books by kernel name on the device: 20 conv launches, 1 + 1
+    # xent launches and no stats-reduce kernel per step (it is folded into
+    # the conv launch). The profiler now and then loses device records
+    # (`tools/port_profiler_loss.py` counts how many), so a session can
+    # count fewer launches than ran but never more: a count above the books
+    # fails at once, one below is profiled again, in at most three
+    # sessions, all of them recorded.
+    books = {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1}
+    sessions = []
+    for _ in range(3):
+        breakdown = profile_forward(
+            lambda: trainer.train_step(trainer.state, batch))
+        ours = breakdown["ours"]
+        by_name = {k: sum(v["count_per_call"] for n, v in ours.items()
+                          if k in n) for k in books}
+        sessions.append({"by_name": by_name, "device_ops_per_step":
+                         breakdown["kernel_launches_per_call"],
+                         "kernel_names": breakdown["kernel_names"]})
+        if by_name == books or any(by_name[k] > v for k, v in books.items()):
+            break
+    checks["profiled_20_conv_1_1_xent_per_step"] = by_name == books
+    checks["no_stats_reduce_kernel"] = not any(
+        "stats_reduce" in n for s in sessions for n in s["kernel_names"])
     out["train"] = {
         "checks": checks, "steps": steps, "eval_forwards": evals,
-        "launches": counts, "losses": losses, "unfused_losses": ref_losses,
+        "launches": counts, "profiled_launches_per_step": by_name,
+        "profiled_sessions": [{k: v for k, v in s.items()
+                               if k != "kernel_names"} for s in sessions],
+        "losses": losses, "unfused_losses": ref_losses,
         "first5_max_abs_diff": max(diffs), "eval": result["eval"],
         "fit_wall_s": result["wall_time_s"],
         "fit_images_per_s": result["images_per_sec"],
         "step_ms": step_ms, "images_per_s": TRAIN_B / (step_ms / 1e3),
         "unfused_step_ms": ref_step_ms,
-        "peak_memory_bytes": peak, "step_profile": breakdown,
+        "peak_memory_bytes": peak, "held_before_fit_bytes": held,
+        "step_profile": breakdown,
         "card": out["card"],
     }
     print("[train] " + json.dumps(out["train"]))
@@ -1002,9 +1177,14 @@ def kernels_line(out):
     stats = {(r["stage"], r["variant"]): r for r in tk
              if r["kind"] == "emit_stats"}
     by_stage = {kind: {r["stage"]: r for r in tk if r["kind"] == kind}
-                for kind in ("stats_reduce", "input_grad")}
-    xent = {(r["kind"], r["shape"][1]): r for r in tk
-            if r["kind"].startswith("xent")}
+                for kind in ("stats_fold", "input_grad")}
+    # The fold's cost per launch of one forward: its stage's sum record
+    # (plain, library, bound) with the measured emit_stats - stats-off time
+    # of that launch's variant.
+    fold = [{**by_stage["stats_fold"][st], "ms": stats[(st, v)]["fold_ms"]}
+            for st, v in FORWARD_CALLS]
+    xent = {(r["kind"], r["shape"][0]): r for r in tk
+            if r["kind"].startswith("xent_mean")}
     entries = [
         eval_entry,
         # Sums over the 10 launches of one B=128 train forward / step.
@@ -1014,21 +1194,24 @@ def kernels_line(out):
         _summed("conv_block input-grad (pallas_bwd)", src + "conv_block.cu",
                 "tpu_dp/ops/conv_block.py:418", train["conv"]["input_grad"],
                 [by_stage["input_grad"][s] for s in INPUT_GRAD_STAGES]),
-        _summed("conv_block stats reduce", src + "conv_block.cu",
-                "tpu_dp/ops/conv_block.py:167", train["stats_reduce"],
-                [by_stage["stats_reduce"][s] for s in INPUT_GRAD_STAGES],
-                PEAK_F32_FLOPS),
+        # Runs inside each emit_stats launch: its launches are theirs.
+        _summed("conv_block.fused_conv_bn stats fold (folded epilogue)",
+                src + "conv_block.cu", "tpu_dp/ops/conv_block.py:167",
+                train["conv"]["stats"], fold, PEAK_F32_FLOPS),
     ]
     for kind, name, line, key in (
-            ("xent_fwd", "xent.softmax_xent forward", 71, "forward"),
-            ("xent_bwd", "xent.softmax_xent backward", 82, "backward")):
-        r = xent[(kind, 10)]  # CIFAR-10's head, the main path's shape
+            ("xent_mean_fwd", "xent.mean_softmax_xent forward (mean)", 71,
+             "forward"),
+            ("xent_mean_bwd", "xent.mean_softmax_xent backward (mean)", 82,
+             "backward")):
+        r = xent[(kind, TRAIN_B)]  # the main path's [128, 10]
+        every = [x for x in tk if x["kind"] in (kind, kind.replace("_mean",
+                                                                   ""))]
         entries.append(with_ratios({
             "name": name, "route": "cuda", "source": src + "xent.cu",
             "replaces": f"tpu_dp/ops/xent.py:{line}",
             "launches": train["xent"][key],
-            "max_abs_err": max(x["max_abs_err"] for (k, _), x in xent.items()
-                               if k == kind),
+            "max_abs_err": max(x["max_abs_err"] for x in every),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]}))
@@ -1037,16 +1220,16 @@ def kernels_line(out):
 
 def main() -> int:
     sys.path.insert(0, HERE)
-    import torch  # noqa: F401  (fails here, not mid-phase, if missing)
+    import torch  # fails here, not mid-phase, if missing
 
-    out: dict = {}
+    out: dict = {"allocated_bytes_before": {}}
     try:
-        phase_header(out)
-        phase_build(out)
-        phase_kernels(out)
-        phase_train_kernels(out)
-        phase_serve(out)
-        phase_train(out)
+        for phase in (phase_header, phase_build, phase_kernels,
+                      phase_train_kernels, phase_serve, phase_train):
+            if torch.cuda.is_available():
+                out["allocated_bytes_before"][phase.__name__] = (
+                    torch.cuda.memory_allocated())
+            phase(out)
         line = kernels_line(out)
     except SystemExit:
         raise
@@ -1057,8 +1240,6 @@ def main() -> int:
         return 1
     out["kernels"] = line["kernels"]
     _save(out)
-    import torch
-
     print(out["card"])
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,11 @@ and the autograd rule of every variant) against the JAX package's
 on the same numpy inputs.
 
 On the CPU the port's wrappers run the plain version; the kernel itself is
-held against it on the card (`test_train_kernels_match_plain_on_card`,
-skipped without CUDA, and chip_smoke.py at full width).
+held against it on the card (`test_train_kernels_match_plain_on_card` and
+`test_stats_are_bit_identical_across_graph_replays_on_card`, skipped
+without CUDA, and chip_smoke.py at full width). `ordered_stats_sum`, the
+order of the kernel's cross-block stats sum, is held bit-exact against a
+sequential sum written out in numpy f32.
 
 Tolerances: y and z within one bf16 ulp at y's magnitude (both sides round
 y through bf16 after summing the taps in another order). The stats sum
@@ -73,7 +76,7 @@ def test_fused_conv_bn_matches_jax(with_res, emit_z, dtype):
         jnp.asarray(a["x"]).astype(jdt), jnp.asarray(a["w"]),
         jnp.asarray(a["scale"]), jnp.asarray(a["shift"]), res_j,
         emit_z=emit_z)
-    assert tcb.launches == tcb.reduce_launches == 0  # CPU: plain version
+    assert tcb.launches == 0  # CPU: plain version
     assert len(got) == len(ref) == (3 if emit_z else 2)
     y, ry = _f32(got[0]), _f32(ref[0])
     assert got[0].dtype == tdt and y.shape == ry.shape
@@ -207,13 +210,14 @@ def test_train_kernels_match_plain_on_card():
             w = torch.randn(3, 3, c, c, generator=g, device="cuda") * 0.05
             sc = torch.rand(c, generator=g, device="cuda") + 0.5
             sh = torch.randn(c, generator=g, device="cuda") * 0.1
-            before = tcb.reduce_launches
+            before = tcb.launches
             y, z, st = tcb.fused_conv_bn(x, w, sc, sh, res, emit_z=True)
             y2, z2, st2 = tcb.fused_conv_bn(x, w, sc, sh, res, emit_z=True)
             yr, zr, _ = tcb.reference_affine_relu_conv(
                 x, w, sc, sh, res, emit_z=True, emit_stats=True)
             torch.cuda.synchronize()
-            assert tcb.reduce_launches == before + 2
+            # One launch per call: the stats sum is folded into it.
+            assert tcb.launches == before + 2
             assert torch.equal(st, st2) and torch.equal(y, y2)
             assert torch.equal(z, zr)
             tol = bf16_ulp(yr.abs().max().item())
@@ -234,3 +238,92 @@ def test_train_kernels_match_plain_on_card():
             torch.cuda.synchronize()
             tol = bf16_ulp(dzr.float().abs().max().item())
             assert (dz.float() - dzr.float()).abs().max().item() <= tol
+
+
+def _sequential_f32(rows):
+    """Rows added one at a time from 0, each add rounded to f32."""
+    acc = np.zeros_like(rows[0], dtype=np.float32)
+    for r in rows:
+        acc = np.float32(acc + r)
+    return acc
+
+
+def _kernel_order_f32(rows, group):
+    """The kernel's stats fold written out: each group of ``group`` rows
+    in order, then the group sums in order (one group: its sum)."""
+    groups = [_sequential_f32(rows[g:g + group])
+              for g in range(0, len(rows), group)]
+    return groups[0] if len(groups) == 1 else _sequential_f32(groups)
+
+
+@pytest.mark.parametrize("group,want", [(1, 1.0), (2, 0.0), (3, 1.0),
+                                        (4, 1.0), (32, 1.0)])
+def test_ordered_stats_sum_keeps_the_kernels_order(group, want):
+    # 1e8 + 1 rounds back to 1e8 in f32, so the order decides the sum:
+    # rows in order give 1; pairs first give (1e8) + (-1e8) = 0; a sum
+    # that paired 1e8 with -1e8 first would give 2.
+    col = np.array([1e8, 1.0, -1e8, 1.0], np.float32)
+    rows = np.stack([np.full((2, 3), v, np.float32) for v in col])
+    got = tcb.ordered_stats_sum(torch.from_numpy(rows), group).numpy()
+    ref = _kernel_order_f32(rows, group)
+    assert got.dtype == np.float32 and got.shape == (2, 3)
+    assert np.array_equal(got, ref) and np.all(ref == np.float32(want))
+
+
+@pytest.mark.parametrize("nb", [1, 31, 32, 33, 100, 1024])
+def test_ordered_stats_sum_matches_sum(nb):
+    # Bit-exact with the kernel's order written out, and within 1e-6 of
+    # the sum's magnitude from partials.sum(0) (another order).
+    rng = np.random.default_rng(nb)
+    rows = (rng.standard_normal((nb, 2, 64)) * 10.0 ** rng.integers(
+        -3, 4, (nb, 1, 1))).astype(np.float32)
+    got = tcb.ordered_stats_sum(torch.from_numpy(rows))
+    assert np.array_equal(got.numpy(),
+                          _kernel_order_f32(rows, tcb.STATS_GROUP))
+    t = torch.from_numpy(rows)
+    bound = 1e-6 * t.abs().sum(0)
+    assert bool(((got - t.sum(0)).abs() <= bound).all())
+
+
+def test_stats_scratch_covers_every_tile():
+    # The wrapper sizes the stats scratch without asking the library: the
+    # bound of the smallest tile (64 pixels x 64 channels) covers the
+    # launch's rows + group rows and tickets for any tile.
+    for b, h, c in ((1, 4, 512), (3, 8, 256), (127, 16, 128),
+                    (128, 32, 64), (1000, 32, 64)):
+        rows, tick = tcb.stats_scratch(b, h, h, c)
+        for bm, bn in ((128, 128), (128, 64), (64, 64)):
+            nbx = -(-b * h * h // bm)
+            groups = -(-nbx // tcb.STATS_GROUP)
+            assert rows >= nbx + (groups if groups > 1 else 0)
+            assert tick >= (c // bn) * (groups + 1)
+
+
+@pytest.mark.card
+def test_stats_are_bit_identical_across_graph_replays_on_card():
+    # The fold's ticket counters reset themselves, so one fused_conv_bn
+    # call captured in a CUDA graph replays with bit-identical stats.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for h, c, b in ((32, 64, 128), (8, 256, 128), (4, 512, 3)):
+        x = torch.randn(b, h, h, c, generator=g, device="cuda")
+        w = torch.randn(3, 3, c, c, generator=g, device="cuda") * 0.05
+        sc = torch.rand(c, generator=g, device="cuda") + 0.5
+        sh = torch.randn(c, generator=g, device="cuda") * 0.1
+        wk = tcb.pack_weight(w)
+        eager = tcb.fused_conv_bn(x, wk, sc, sh)[-1].clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tcb.fused_conv_bn(x, wk, sc, sh)  # tickets made outside capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = tcb.fused_conv_bn(x, wk, sc, sh)
+        replays = []
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(out[-1].clone())
+        assert all(torch.equal(r, eager) for r in replays)

@@ -11,10 +11,11 @@ build takes seconds (no PyTorch headers). No ``-lcuda`` either: the conv
 kernel's TMA tensor map (``cuTensorMapEncodeTiled``, a driver-API call) is
 reached through the runtime's ``cudaGetDriverEntryPoint`` (its
 ``ByVersion`` form from CUDA 12.5), and ``cuda.h`` is used for its types
-only. The file name carries a hash of
-the source and flags: an edited source is rebuilt, an unchanged one is
-loaded as it is. ``ptxas`` reports (registers, shared memory, spills) are
-kept beside the library as ``<name>-<hash>.log``.
+only. The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``: ``ordered_reduce.cuh``, the cross-block ordered sum both
+kernels include) and the flags: an edited source or header is rebuilt, an
+unchanged one is loaded as it is. ``ptxas`` reports (registers, shared
+memory, spills) are kept beside the library as ``<name>-<hash>.log``.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package, and this machine-dependent work happens only when a kernel
@@ -64,8 +65,9 @@ def find_nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -12,9 +12,10 @@ The kernel is `csrc/conv_block.cu`, a hand-written CUDA C++ kernel for
 ``sm_90a`` built with nvcc at first use and bound with ctypes
 (`tpu_dp_torch.ops._build`). It replaces the TPU kernel `_conv_kernel` in
 ``tpu_dp/ops/conv_block.py`` in every variant: plain, ``emit_z``,
-``emit_z`` + residual, and ``emit_stats`` (whose cross-block sum is a
-second, fixed-order reduce kernel in the same source). The source states
-its bound and design.
+``emit_z`` + residual, and ``emit_stats``, whose cross-block sum of the
+moments finishes in the same launch: the last blocks to arrive sum the
+blocks' rows in index order (`ordered_stats_sum` replays that order). The
+source states its bound and design.
 
 All three public functions are differentiable through one
 `torch.autograd.Function`, the port of the JAX package's custom VJP
@@ -35,8 +36,8 @@ without gradient.
 
 ``launches`` counts conv kernel launches (a plain integer, CUDA only);
 ``launches_by_role`` splits them into ``eval`` (no stats), ``stats``
-(`fused_conv_bn`) and ``input_grad`` (the backward reuse), and
-``reduce_launches`` counts the stats-reduce kernel.
+(`fused_conv_bn`) and ``input_grad`` (the backward reuse). A stats launch
+is one launch: there is no separate reduce.
 """
 
 from __future__ import annotations
@@ -46,23 +47,28 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from tpu_dp_torch.ops import _tickets
+
 #: conv kernel launches since import or the last `reset_launches` (CUDA
 #: only), every variant.
 launches = 0
 #: the same launches by role: "eval", "stats", "input_grad".
 launches_by_role = {"eval": 0, "stats": 0, "input_grad": 0}
-#: launches of the stats-reduce kernel (one per `fused_conv_bn` launch).
-reduce_launches = 0
+#: blocks per level-1 group of the kernel's stats fold (`ordered_stats_sum`).
+STATS_GROUP = 32
+#: the smallest tile's pixels: the most partial rows a launch can write are
+#: ceil(B*H*W / this).
+_MIN_TILE_PIXELS = 64
+_MIN_TILE_CHANNELS = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
-_reduce_fn = None
 _lib = None
 
 
 def reset_launches() -> None:
-    global launches, reduce_launches
-    launches = reduce_launches = 0
+    global launches
+    launches = 0
     for role in launches_by_role:
         launches_by_role[role] = 0
 
@@ -116,6 +122,25 @@ def _stats_of(y):
     return torch.stack([yf.sum(dim=(0, 1, 2)), yf.square().sum(dim=(0, 1, 2))])
 
 
+def ordered_stats_sum(partials, group=STATS_GROUP):
+    """The kernel's cross-block sum of the stats rows ``partials``
+    ``[nb, 2, C]`` (f32), in its order: the rows of each group of ``group``
+    consecutive blocks added one at a time from 0, then the group sums
+    added one at a time from 0 (one group: its sum). Bit-exact with the
+    kernel on the rows its launch wrote; the CPU tests and chip_smoke.py
+    replay it, the main path never calls it."""
+    rows = partials.float()
+
+    def in_order(rs):
+        acc = torch.zeros_like(rows[0])
+        for r in rs:
+            acc = acc + r
+        return acc
+    groups = [in_order(rows[g:g + group])
+              for g in range(0, rows.shape[0], group)]
+    return groups[0] if len(groups) == 1 else in_order(groups)
+
+
 def reference_affine_relu_conv(x, w, scale, shift, residual=None,
                                activate=True, emit_z=False, emit_stats=False):
     """The plain version: same math and the same two bf16 roundings, in
@@ -139,43 +164,36 @@ def reference_affine_relu_conv(x, w, scale, shift, residual=None,
 
 
 def _kernel():
-    global _fn, _reduce_fn, _lib
+    global _fn, _lib
     if _fn is None:
         from tpu_dp_torch.ops import _build
 
         lib = _build.load("conv_block")
         fn = lib.tpu_dp_conv_block
-        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        red = lib.tpu_dp_conv_stats_reduce
-        red.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
-        red.restype = ctypes.c_int
-        lib.tpu_dp_conv_block_partials_rows.argtypes = [ctypes.c_int] * 4
-        lib.tpu_dp_conv_block_partials_rows.restype = ctypes.c_int
         lib.tpu_dp_conv_block_tile.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.tpu_dp_conv_block_tile.restype = ctypes.c_int
-        _fn, _reduce_fn, _lib = fn, red, lib
-    return _fn, _reduce_fn
+        _fn, _lib = fn, lib
+    return _fn
 
 
-def partials_rows(b, h, w, c) -> int:
-    """Rows of the per-block stats partials a launch of ``[b,h,w,c]``
-    writes: its grid's x size, which depends on the tile the kernel picks
-    for the shape (the kernel's own ``tpu_dp_conv_block_partials_rows``)."""
-    _kernel()
-    n = _lib.tpu_dp_conv_block_partials_rows(b, h, w, c)
-    if n < 0:
-        raise ValueError(f"conv_block kernel refuses [B,H,W,C] = "
-                         f"{(b, h, w, c)}")
-    return n
+def stats_scratch(b, h, w, c, group=STATS_GROUP):
+    """``(rows, tickets)`` that cover a stats launch of ``[b,h,w,c]`` with
+    any tile: partial rows plus group rows of the scratch, and ticket
+    counters (`_tickets`). Upper bounds from the smallest tile, so the
+    wrapper needs no call into the library to size them."""
+    rows = -(-b * h * w // _MIN_TILE_PIXELS)
+    groups = -(-rows // group)
+    return rows + groups, (c // _MIN_TILE_CHANNELS) * (groups + 1)
 
 
 def tile_of(b, h, w, c) -> dict:
     """The kernel's tile for ``[b,h,w,c]``: pixels ``bm`` and output
-    channels ``bn`` per block, and the grid's ``blocks``."""
+    channels ``bn`` per block, and the grid's ``blocks`` (``blocks //
+    (c // bn)`` of them along x: the rows of the stats partials)."""
     _kernel()
     out = (ctypes.c_int * 3)()
     if _lib.tpu_dp_conv_block_tile(b, h, w, c, out) != 0:
@@ -200,7 +218,7 @@ def _check(name, t, dev, dtype=None, shape=None):
 
 def _launch(x, w, scale, shift, residual, activate, emit_z,
             emit_stats=False, role="eval"):
-    global launches, reduce_launches
+    global launches
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4:
@@ -225,32 +243,29 @@ def _launch(x, w, scale, shift, residual, activate, emit_z,
         _check("residual", residual, dev, x.dtype, x.shape)
     y = torch.empty_like(x)
     z = torch.empty_like(x) if emit_z else None
-    partials = stats = None
+    partials = stats = tick = None
+    rows = n_tick = 0
     if emit_stats:
-        nb = partials_rows(b, h, wd, c)  # the kernel's grid.x
-        partials = torch.empty((nb, 2, c), dtype=torch.float32, device=dev)
+        rows, n_tick = stats_scratch(b, h, wd, c)
+        partials = torch.empty((rows, 2, c), dtype=torch.float32, device=dev)
         stats = torch.empty((2, c), dtype=torch.float32, device=dev)
+        tick = _tickets.tickets(dev, n_tick)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    conv, reduce = _kernel()
     with torch.cuda.device(dev):
-        rc = conv(
+        rc = _kernel()(
             _DTYPES[x.dtype], residual is not None, bool(emit_z),
             bool(activate), bool(emit_stats), x.data_ptr(), w.data_ptr(),
             scale.data_ptr(), shift.data_ptr(),
             None if residual is None else residual.data_ptr(),
             y.data_ptr(), None if z is None else z.data_ptr(),
             None if partials is None else partials.data_ptr(),
-            b, h, wd, c, stream)
-        if rc != 0:
-            raise RuntimeError(f"conv_block kernel launch failed: error {rc}")
-        launches += 1
-        launches_by_role[role] += 1
-        if emit_stats:
-            rc = reduce(partials.data_ptr(), stats.data_ptr(), nb, c, stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"conv_block stats-reduce launch failed: error {rc}")
-            reduce_launches += 1
+            None if stats is None else stats.data_ptr(),
+            None if tick is None else tick.data_ptr(),
+            b, h, wd, c, rows, n_tick, STATS_GROUP, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv_block kernel launch failed: error {rc}")
+    launches += 1
+    launches_by_role[role] += 1
     out = (y,) + ((z,) if emit_z else ()) + ((stats,) if emit_stats else ())
     return out if len(out) > 1 else y
 

@@ -82,10 +82,22 @@
 // make the sum's rounding change from run to run. Each block folds its
 // pixels' rounded y per channel with a fixed xor-shuffle tree over the
 // accumulator fragments, then its warps in a fixed order through shared
-// memory, and writes partials[blockIdx.x][2][C]; `stats_reduce_kernel` sums
-// the partials over blockIdx.x in a fixed order: two launches on the same
-// input give bit-identical stats. The partials' row count depends on the
-// tile: `tpu_dp_conv_block_partials_rows` exports it.
+// memory, and writes its row partials[blockIdx.x][2][C]. The cross-block sum
+// is folded into the same launch (ordered_reduce.cuh): the blocks of each
+// group of `group` consecutive blockIdx.x take integer tickets, and the
+// last of a group to arrive sums the group's rows in index order into a
+// group row; the last group-finisher of a blockIdx.y column sums the group
+// rows in order into stats[2][C]. With one group (stage 3 at B=128, the
+// small ragged batches) the group-finisher writes stats itself. A block
+// sums its moments, writes its row and draws its ticket (a barrier, then
+// one release fence and the atomic in thread 0) before it stores y, so the
+// fence waits on the row alone and the ticket's round trip overlaps y's
+// stores. One thread owns one of the 2*BN columns and
+// walks its rows with 32 loads in flight: one L2 round trip per level. The order is fixed by the indices,
+// not by arrival, so two launches on the same input give bit-identical
+// stats; `ordered_stats_sum` in conv_block.py replays it in torch ops. The
+// tail runs after the accumulators are dead. Eval and input-grad launches
+// (stats off) skip it.
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
 #include <cuda_bf16.h>
@@ -95,6 +107,8 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+
+#include "ordered_reduce.cuh"
 
 namespace {
 
@@ -116,9 +130,12 @@ struct Args {
   const void* res;
   void* y;
   void* z;
-  float* partials;
+  float* partials;  // [gridDim.x + groups (if > 1)][2][C]: rows, group rows
+  float* stats;     // [2][C]
+  int* tickets;     // [gridDim.y][groups + 1], zero at launch and at exit
   int B, H, W, C, rows;  // rows: image rows in a tile (H when H*W < BM)
-  int has_res, emit_z, activate, stats;
+  int has_res, emit_z, activate, stats_on;
+  int group;             // rows per level-1 group of the stats fold
 };
 
 template <typename T> struct Vec8;
@@ -332,8 +349,9 @@ __host__ __device__ constexpr int min_blocks(int bm, int bn) {
 
 // x, res, y, z: [B,H,W,C] of T, NHWC contiguous. The weight map views the
 // packed weight [9][C][C] bf16 ([tap][c_out][c_in]) as rows tap*C + c_out of
-// C input channels. scale, shift: [C] f32. partials (stats only):
-// [gridDim.x][2][C] f32, the block's [sum(y), sum(y^2)] per channel.
+// C input channels. scale, shift: [C] f32. Stats only: partials holds the
+// blocks' [sum(y), sum(y^2)] rows ([gridDim.x][2][C] f32) and, after them,
+// the group rows; stats [2][C] f32 is their ordered sum.
 template <typename T, int BM, int BN>
 __global__ void __launch_bounds__(kThreads, min_blocks(BM, BN))
 conv_block_kernel(const __grid_constant__ CUtensorMap wmap, const Args a) {
@@ -515,84 +533,103 @@ conv_block_kernel(const __grid_constant__ CUtensorMap wmap, const Args a) {
     if (lane == 0) mbar_arrive(empty_s + 8 * prev_s);
   }
 
-  // Epilogue: round y to bf16, store as T; with stats, sum the rounded
-  // values per channel (pixels past the batch end are masked out: at 4x4 a
-  // tile holds several image slots, and the last tile's may be empty).
+  // Epilogue: round y to bf16, store as T; with stats, first sum the
+  // rounded values per channel (pixels past the batch end are masked out:
+  // at 4x4 a tile holds several image slots, and the last tile's may be
+  // empty), write the block's partial row and draw the block's ticket --
+  // before y is stored, so the release fence waits on the row alone and
+  // the ticket's round trip overlaps the stores of y.
   // Accumulator i of a thread: row 16*wq + g + 8*((i >> 1) & 1) of its
   // warpgroup's 64, column 8*(i >> 2) + 2*q + (i & 1) of its kNw.
+  static_assert(2 * BN <= kThreads, "one thread per stats column");
   const int g = lane >> 2, q = lane & 3;
-  T* y = static_cast<T*>(a.y);
+  const int m = tid / BN, col = tid % BN;  // column (m, n0 + col) if tid < 2*BN
+  const long long row_len = 2LL * C;
+  const int nbx = gridDim.x, G = max(a.group, 1);  // group: stats only
+  const int n_groups = (nbx + G - 1) / G;
+  const int grp = blockIdx.x / G, first = grp * G;
+  const int g_rows = min(G, nbx - first);
+  int* tick = a.tickets + blockIdx.y * (n_groups + 1);
+  int ticket = 0;
+  if (a.stats_on) {
 #pragma unroll
-  for (int j = 0; j < kNw / 8; ++j) {
-    const int col = wg_n * kNw + 8 * j + 2 * q;  // in [0, BN)
-    float s1a = 0.f, s1b = 0.f, s2a = 0.f, s2b = 0.f;
+    for (int j = 0; j < kNw / 8; ++j) {
+      float s1a = 0.f, s1b = 0.f, s2a = 0.f, s2b = 0.f;
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const long long p = p0 + wg_m * 64 + wq * 16 + g + 8 * hi;
-      const __nv_bfloat16 ya = __float2bfloat16_rn(acc[4 * j + 2 * hi]);
-      const __nv_bfloat16 yb = __float2bfloat16_rn(acc[4 * j + 2 * hi + 1]);
-      if (p < total_px) {
-        store_pair(y + p * C + n0 + col, ya, yb);
-        const float fa = __bfloat162float(ya), fb = __bfloat162float(yb);
-        s1a += fa;
-        s1b += fb;
-        s2a += fa * fa;
-        s2b += fb * fb;
+      for (int hi = 0; hi < 2; ++hi) {
+        const long long p = p0 + wg_m * 64 + wq * 16 + g + 8 * hi;
+        if (p < total_px) {
+          const float fa = __bfloat162float(
+              __float2bfloat16_rn(acc[4 * j + 2 * hi]));
+          const float fb = __bfloat162float(
+              __float2bfloat16_rn(acc[4 * j + 2 * hi + 1]));
+          s1a += fa;
+          s1b += fb;
+          s2a += fa * fa;
+          s2b += fb * fb;
+        }
       }
-    }
-    if (a.stats) {
       // Lanes g = 0..7 of one q hold the same 2 channels: a fixed xor tree.
 #pragma unroll
-      for (int m = 4; m < 32; m <<= 1) {
-        s1a += __shfl_xor_sync(0xffffffffu, s1a, m);
-        s1b += __shfl_xor_sync(0xffffffffu, s1b, m);
-        s2a += __shfl_xor_sync(0xffffffffu, s2a, m);
-        s2b += __shfl_xor_sync(0xffffffffu, s2b, m);
+      for (int k = 4; k < 32; k <<= 1) {
+        s1a += __shfl_xor_sync(0xffffffffu, s1a, k);
+        s1b += __shfl_xor_sync(0xffffffffu, s1b, k);
+        s2a += __shfl_xor_sync(0xffffffffu, s2a, k);
+        s2b += __shfl_xor_sync(0xffffffffu, s2b, k);
       }
       if (g == 0) {
-        float* r = red + (wg_m * 4 + wq) * 2 * BN + col;
+        float* r = red + (wg_m * 4 + wq) * 2 * BN + wg_n * kNw + 8 * j + 2 * q;
         r[0] = s1a;
         r[1] = s1b;
         r[BN] = s2a;
         r[BN + 1] = s2b;
       }
     }
-  }
-  if (a.stats) {
-    // The warps' rows in a fixed order.
+    // The warps' rows in a fixed order: this block's partial row.
     __syncthreads();
-    for (int idx = tid; idx < 2 * BN; idx += kThreads) {
-      const int m = idx / BN, col = idx % BN;
+    if (tid < 2 * BN) {
       float t = 0.f;
 #pragma unroll
-      for (int rg = 0; rg < kRowGroups; ++rg) t += red[(rg * 2 + m) * BN + col];
-      a.partials[((long long)blockIdx.x * 2 + m) * C + n0 + col] = t;
+      for (int rg = 0; rg < kRowGroups; ++rg)
+        t += red[(rg * 2 + m) * BN + col];
+      a.partials[blockIdx.x * row_len + m * C + n0 + col] = t;
+    }
+    ticket = tpu_dp::draw_ticket(tick + grp);
+  }
+  T* y = static_cast<T*>(a.y);
+#pragma unroll
+  for (int j = 0; j < kNw / 8; ++j) {
+    const int cy = wg_n * kNw + 8 * j + 2 * q;  // in [0, BN)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const long long p = p0 + wg_m * 64 + wq * 16 + g + 8 * hi;
+      if (p < total_px)
+        store_pair(y + p * C + n0 + cy,
+                   __float2bfloat16_rn(acc[4 * j + 2 * hi]),
+                   __float2bfloat16_rn(acc[4 * j + 2 * hi + 1]));
     }
   }
-}
-
-// stats[k][c] = sum over b of partials[b][k][c], in a fixed order: thread
-// row ty sums b = ty, ty + kRedRows, ... and row 0 then adds the kRedRows
-// partial sums in order. n = 2 * C columns, 32 per block.
-constexpr int kRedRows = 16;
-
-__global__ void __launch_bounds__(32 * kRedRows)
-stats_reduce_kernel(const float* __restrict__ partials,
-                    float* __restrict__ stats, int nb, int n) {
-  __shared__ float sh[kRedRows][32];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (col < n)
-    for (int r = threadIdx.y; r < nb; r += kRedRows)
-      acc += partials[(long long)r * n + col];
-  sh[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < n) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRedRows; ++i) t += sh[i][threadIdx.x];
-    stats[col] = t;
+  if (!a.stats_on) return;
+  // Level 1: the last block of this group sums the group's rows in order.
+  if (!tpu_dp::drew_last(ticket, g_rows)) return;
+  float* group_rows = a.partials + nbx * row_len;
+  if (tid < 2 * BN) {
+    const float t = tpu_dp::ordered_sum(
+        a.partials + first * row_len + m * C + n0 + col, row_len, g_rows);
+    if (n_groups == 1)
+      a.stats[m * C + n0 + col] = t;
+    else
+      group_rows[grp * row_len + m * C + n0 + col] = t;
   }
+  if (tid == 0) tpu_dp::reset_counter(tick + grp);
+  if (n_groups == 1) return;
+  // Level 2: the last group-finisher of this column sums the group rows.
+  if (!tpu_dp::drew_last(tpu_dp::draw_ticket(tick + n_groups), n_groups))
+    return;
+  if (tid < 2 * BN)
+    a.stats[m * C + n0 + col] = tpu_dp::ordered_sum(
+        group_rows + m * C + n0 + col, row_len, n_groups);
+  if (tid == 0) tpu_dp::reset_counter(tick + n_groups);
 }
 
 // ---- host side ----
@@ -739,45 +776,57 @@ bool shape_taken(int B, int H, int W, int C) {
   return pick_tile(B, H, W, C) >= 0;
 }
 
+// Rows of the stats fold: level-1 groups of a launch with `nbx` blocks
+// along x (1: no group rows, the group-finisher writes stats).
+int stats_groups(long long nbx, int group) {
+  return (int)((nbx + group - 1) / group);
+}
+
 }  // namespace
 
 // Shapes the kernel takes: C % 64 == 0; W divides 64; and either H*W is a
 // multiple of 64 (then 64/W divides H) or H*W divides 64. The Python wrapper
-// checks these and raises before calling. `partials` is
-// [tpu_dp_conv_block_partials_rows(B, H, W, C)][2][C] f32 when `stats` is
-// set, else null. Returns 0 or a CUDA error code (-1 for a flag combination
-// that does not exist, -2 for a refused shape, -3 if the weight's tensor map
-// cannot be made).
+// checks these and raises before calling. With `stats` set: `partials` is
+// f32 scratch of `scratch_rows` rows of [2][C] (the blocks' rows, then the
+// group rows: at least gridDim.x + groups when groups > 1, where groups =
+// ceil(gridDim.x / group)); `stats` is [2][C] f32; `tickets` is int32,
+// `n_tickets` long (at least (C / BN) * (groups + 1)), zero, and left zero.
+// Returns 0 or a CUDA error code (-1 for a flag combination that does not
+// exist, -2 for a refused shape, -3 if the weight's tensor map cannot be
+// made, -4 for scratch or tickets too small for the launch).
 extern "C" int tpu_dp_conv_block(int dtype, int has_res, int emit_z,
                                  int activate, int stats, const void* x,
                                  const void* wk, const float* scale,
                                  const float* shift, const void* res, void* y,
-                                 void* z, float* partials, int B, int H,
-                                 int W, int C, void* stream) {
+                                 void* z, float* partials, float* stats_out,
+                                 int* tickets, int B, int H, int W, int C,
+                                 int scratch_rows, int n_tickets, int group,
+                                 void* stream) {
   if (!shape_taken(B, H, W, C)) return -2;
-  if ((stats && partials == nullptr) || (emit_z && z == nullptr) ||
-      (has_res && res == nullptr) || (dtype != 0 && dtype != 1))
+  if ((stats && (partials == nullptr || stats_out == nullptr ||
+                 tickets == nullptr || group <= 0)) ||
+      (emit_z && z == nullptr) || (has_res && res == nullptr) ||
+      (dtype != 0 && dtype != 1))
     return -1;
   const int tile = pick_tile(B, H, W, C);
   const Tile& t = kTiles[tile];
+  if (stats) {
+    const long long nbx = ((long long)B * H * W + t.bm - 1) / t.bm;
+    const int groups = stats_groups(nbx, group);
+    if (nbx + (groups > 1 ? groups : 0) > scratch_rows ||
+        (long long)(C / t.bn) * (groups + 1) > n_tickets)
+      return -4;
+  }
   CUtensorMap map;
   const int rc = weight_map(wk, C, t.bn, &map);
   if (rc != 0) return rc;
-  const Args a{x, scale, shift, res, y, z, partials, B, H, W, C,
-               tile_rows(H, W, t.bm), has_res != 0, emit_z != 0,
-               activate != 0, stats != 0};
+  const Args a{x, scale, shift, res, y, z, partials, stats_out, tickets,
+               B, H, W, C, tile_rows(H, W, t.bm), has_res != 0,
+               emit_z != 0, activate != 0, stats != 0, group};
   const size_t smem = tile_smem(H, W, t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? dispatch<float>(tile, map, a, smem, s)
                     : dispatch<__nv_bfloat16>(tile, map, a, smem, s);
-}
-
-// Rows of `partials` a stats launch of this shape writes (its grid's x
-// size), or -2 for a refused shape.
-extern "C" int tpu_dp_conv_block_partials_rows(int B, int H, int W, int C) {
-  if (!shape_taken(B, H, W, C)) return -2;
-  const int bm = kTiles[pick_tile(B, H, W, C)].bm;
-  return (int)(((long long)B * H * W + bm - 1) / bm);
 }
 
 // The tile of this shape's launch: out[0] = BM (pixels), out[1] = BN
@@ -789,16 +838,4 @@ extern "C" int tpu_dp_conv_block_tile(int B, int H, int W, int C, int* out) {
   out[1] = t.bn;
   out[2] = (int)(((long long)B * H * W + t.bm - 1) / t.bm * (C / t.bn));
   return 0;
-}
-
-// stats[2][C] = sum of partials[nb][2][C] over its first axis, in a fixed
-// order (bit-identical from launch to launch). Returns 0 or a CUDA error.
-extern "C" int tpu_dp_conv_stats_reduce(const float* partials, float* stats,
-                                        int nb, int C, void* stream) {
-  if (nb <= 0 || C <= 0) return -2;
-  const int n = 2 * C;
-  stats_reduce_kernel<<<(n + 31) / 32, dim3(32, kRedRows), 0,
-                        static_cast<cudaStream_t>(stream)>>>(partials, stats,
-                                                             nb, n);
-  return (int)cudaGetLastError();
 }
