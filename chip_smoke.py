@@ -60,7 +60,25 @@ Phases, in order; any failure exits non-zero before the last line:
    0.05 of the same init and batches run unfused without kernels, a
    number for the accuracy; step time, device-busy share, top kernels and
    peak memory;
-7. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+7. data parallel (`tpu_dp_torch.parallel`), full width, f32, B=128 per
+   rank, against one process on the concatenated batch (per-step global
+   loss within 0.05, the fused bound of phase 6) with the ranks'
+   parameters and buffers bit-identical and each rank's books per step
+   (20 conv launches, 1 + 1 xent, 20 + 20 sync-BN pmeans, one metrics
+   all-reduce, DDP's buckets): (a) two ranks on the one card through
+   gloo on CUDA tensors (NCCL refuses two ranks on one card; a
+   correctness run, its step time no DDP figure); (b) `Trainer` at world 1
+   on NCCL through `initialize()` and the env contract, 30 steps and one
+   eval (falling loss, eval count = test set), its step beside phase 6's
+   and, in turns on one model, the step with and without DDP's wrapper;
+   (c) with two or more cards, NCCL with one rank per card (two, and every
+   visible card), else ``ddp_nccl_multi_card: not run, 1 card visible``;
+8. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --only ddp_nccl_world1,ddp_nccl_multi_card`` runs
+the header, the build and the named phases alone (a four-card machine's
+multi-card check), without the kernels' line. ``--ddp-worker SPEC`` is
+phase 7's rank process.
 
 Every timed case also prints ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
@@ -111,6 +129,13 @@ XENT_CLASSES = (10, 100)
 #: batches of the xent batch-mean checks (C = 10); timed at TRAIN_B.
 XENT_MEAN_B = (1, 7, TRAIN_B, 1000)
 TRAIN_STEPS = 30
+#: phase 7: updates of the two-rank parity runs, their ranks, and the
+#: schedule of the preset's first steps (cosine, 1 warmup step of 30).
+DDP_STEPS = 5
+DDP_WORLD = 2
+DDP_SCHED = ("cosine", 0.1, 30, 1, 0.0)
+#: the fused bound of tests/test_models.py and PERF.md §2.
+DDP_LOSS_TOL = 0.05
 TRAIN_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
               "--model.fused_bwd=true", "--train.pallas_xent=true",
               "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
@@ -864,16 +889,21 @@ def phase_train_kernels(out):
           f"launches, graph replays and a busy side stream")
 
 
-def profile_forward(fn, n: int = 5) -> dict:
+def profile_forward(fn, n: int = 5, cuda_only: bool = False,
+                    keep_all: bool = False) -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
-    and the device's busy share of the wall time they took."""
+    and the device's busy share of the wall time they took. ``cuda_only``
+    traces the CUDA activity alone (with the CPU's too, the profiler loses
+    device records now and then: `tools/port_profiler_loss.py`);
+    ``keep_all`` also returns every kernel's record under ``all``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([] if cuda_only
+                                      else [ProfilerActivity.CPU])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -902,7 +932,8 @@ def profile_forward(fn, n: int = 5) -> dict:
             busy_us, "device_busy_share": busy_us * n / wall_us,
             "kernel_launches_per_call": sum(
                 k["count_per_call"] for k in kernels.values()),
-            "top": top, "ours": ours, "kernel_names": sorted(kernels)}
+            "top": top, "ours": ours, "kernel_names": sorted(kernels),
+            **({"all": kernels} if keep_all else {})}
 
 
 def _randomize_bn(model, gen):
@@ -1143,6 +1174,363 @@ def phase_train(out):
         raise AssertionError(f"train checks failed: {failed}")
 
 
+def _ddp_batches(world: int):
+    """The parity runs' global batches: ``DDP_STEPS`` of ``world *
+    TRAIN_B`` uint8 images and labels, from seed 7 (rank r trains on rows
+    ``[r*TRAIN_B, (r+1)*TRAIN_B)``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    n = world * TRAIN_B
+    return (rng.integers(0, 256, (DDP_STEPS, n, 32, 32, 3), dtype=np.uint8),
+            rng.integers(0, 10, (DDP_STEPS, n)).astype(np.int64))
+
+
+def _ddp_train(ctx, world: int, profile: bool = False) -> dict:
+    """``DDP_STEPS`` fused full-width updates (f32, the slice's kernels)
+    from the seed-0 init on this rank's rows of `_ddp_batches`: per-step
+    global losses, the books of each step (kernel launches by the
+    wrappers' counters, the collectives by `collectives.counts`) and its
+    CUDA-event time. ``ctx`` None: one process on the whole batch, no
+    group. ``profile``: then 5 more steps on the last batch under the
+    profiler (CUDA activity alone): wall and device-busy time per step and
+    the NCCL kernels' share."""
+    import torch
+
+    from tpu_dp_torch.models import build_model
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+    from tpu_dp_torch.parallel import collectives
+    from tpu_dp_torch.train.optim import make_sgd
+    from tpu_dp_torch.train.schedule import make_schedule
+    from tpu_dp_torch.train.step import (
+        TrainState,
+        data_parallel,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda", 0) if ctx is None else ctx.device
+    group = None if ctx is None else ctx.process_group
+    model = build_model(
+        "resnet18", num_filters=64, num_classes=10,
+        fused_stages=(0, 1, 2, 3), fused_bwd=True, process_group=group,
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    runs = model if ctx is None else data_parallel(model, ctx)
+    opt = make_sgd(model, 0.9, 5e-4)
+    step = make_train_step(runs, opt, make_schedule(*DDP_SCHED),
+                           use_pallas_xent=True, device=dev,
+                           process_group=group)
+    state = TrainState(step=0, model=model, optimizer=opt)
+    images, labels = _ddp_batches(world)
+    rows = (slice(None) if ctx is None
+            else slice(ctx.rank * TRAIN_B, (ctx.rank + 1) * TRAIN_B))
+    losses, books, ms = [], [], []
+    for img, lab in zip(images, labels):
+        batch = {"image": torch.from_numpy(img[rows]).to(dev),
+                 "label": torch.from_numpy(lab[rows]).to(dev)}
+        torch.cuda.synchronize(dev)
+        cb.reset_launches()
+        tx.reset_launches()
+        collectives.reset_counts()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        m = step(state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        books.append({"conv": dict(cb.launches_by_role),
+                      "xent": dict(tx.launches), **collectives.counts})
+    prof = None
+    if profile:
+        p = profile_forward(lambda: step(state, batch), cuda_only=True,
+                            keep_all=True)
+        prof = {k: p[k] for k in ("wall_us_per_call",
+                                  "device_busy_us_per_call",
+                                  "kernel_launches_per_call")}
+        prof["nccl"] = {k: v for k, v in p["all"].items()
+                        if "nccl" in k.lower()}
+    return {"losses": losses, "books": books, "step_ms": ms, "profile": prof,
+            "device": str(next(model.parameters()).device),
+            "state": {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}}
+
+
+def ddp_worker(spec_path: str) -> int:
+    """One rank of phase 7's two-rank runs (``chip_smoke.py --ddp-worker
+    SPEC``): joins the group SPEC names, runs `_ddp_train`, and saves what
+    it recorded to ``SPEC["out"]`` (``torch.save``)."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from tpu_dp_torch.parallel.dist import initialize, shutdown
+
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = initialize(backend=spec["backend"], init_method=spec["init"],
+                     world_size=spec["world"], rank=spec["rank"],
+                     device=spec["device"], timeout_s=300)
+    try:
+        rec = _ddp_train(ctx, spec["world"], spec["profile"])
+        rec["backend"] = ctx.backend
+        torch.save(rec, spec["out"])
+    finally:
+        shutdown()
+    return 0
+
+
+def _ddp_ranks(world: int, backend, devices, profile: bool) -> list:
+    """Run ``world`` ranks of `ddp_worker` as processes of this script,
+    rank r on ``devices[r]``; returns each rank's record."""
+    import shutil
+
+    import torch
+
+    work = os.path.join(HERE, "build", "ddp_smoke", str(os.getpid()))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    try:
+        for rank in range(world):
+            spec = {"rank": rank, "world": world, "backend": backend,
+                    "device": devices[rank], "profile": profile,
+                    "init": "file://" + os.path.join(work, "rendezvous"),
+                    "out": os.path.join(work, f"rank{rank}.pt")}
+            path = os.path.join(work, f"spec{rank}.json")
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(spec, f)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                 path], cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        recs = []
+        for rank, p in enumerate(procs):
+            log, _ = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"ddp rank {rank} exited "
+                                     f"{p.returncode}:\n{log[-4000:]}")
+            recs.append(torch.load(os.path.join(work, f"rank{rank}.pt")))
+        return recs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _ddp_parity(out, key: str, world: int, backend, devices,
+                profile: bool = False) -> dict:
+    """``world`` ranks against one process on the concatenated batch:
+    per-step global loss within ``DDP_LOSS_TOL``, parameters and buffers
+    bit-identical across the ranks, and each rank's books per step: 20
+    conv launches (10 ``emit_stats``, 10 input-grad), 1 + 1 xent, 20 + 20
+    sync-BN pmeans, one metrics all-reduce, DDP's buckets (printed)."""
+    import torch
+
+    ranks = _ddp_ranks(world, backend, devices, profile)
+    ref = _ddp_train(None, world)
+    diffs = [max(abs(a - b) for a, b in zip(r["losses"], ref["losses"]))
+             for r in ranks]
+    same = all(torch.equal(ranks[0]["state"][k], r["state"][k])
+               for r in ranks[1:] for k in ranks[0]["state"])
+    want = {"conv": {"eval": 0, "stats": 10, "input_grad": 10},
+            "xent": {"forward": 1, "backward": 1}, "pmean_forward": 20,
+            "pmean_backward": 20, "psum": 1}
+    books_ok = all({k: b[k] for k in want} == want and b["ddp_buckets"] >= 1
+                   for r in ranks for b in r["books"])
+    rec = {
+        "world": world, "backend": [r["backend"] for r in ranks],
+        "devices": [r["device"] for r in ranks],
+        "losses": [r["losses"] for r in ranks],
+        "concatenated_losses": ref["losses"], "max_abs_diff": max(diffs),
+        "books_per_step": ranks[0]["books"],
+        "ddp_buckets_per_step": [b["ddp_buckets"] for b in
+                                 ranks[0]["books"]],
+        # Steps 2.. (the first builds cuDNN plans and DDP's buckets).
+        "step_ms_median": [statistics.median(r["step_ms"][1:])
+                           for r in ranks],
+        "concatenated_step_ms_median": statistics.median(ref["step_ms"][1:]),
+        "profile": [r["profile"] for r in ranks],
+        "checks": {
+            "losses_within_tol": max(diffs) <= DDP_LOSS_TOL,
+            "losses_finite": all(math.isfinite(v) for r in ranks
+                                 for v in r["losses"]),
+            "ranks_bit_identical": same,
+            "books_20_conv_1_1_xent_20_20_pmean": books_ok,
+            "backend_as_asked": all(r["backend"] == (backend or "nccl")
+                                    for r in ranks),
+            "on_the_card": all(r["device"].startswith("cuda")
+                               for r in ranks),
+        },
+        "card": out["card"],
+    }
+    step = rec["step_ms_median"][0]
+    rec["global_images_per_s"] = world * TRAIN_B / (step / 1e3)
+    out[key] = rec
+    print(f"[{key}] " + json.dumps(rec))
+    print(f"[{key}] {out['card']}: {world} ranks ({rec['backend'][0]}) on "
+          f"{rec['devices']}, B={TRAIN_B} per rank: losses "
+          f"{[round(v, 4) for v in rec['losses'][0]]} vs concatenated "
+          f"B={world * TRAIN_B} {[round(v, 4) for v in ref['losses']]} "
+          f"(max diff {max(diffs):.3g}); ranks bit-identical: {same}; DDP "
+          f"buckets per step {rec['ddp_buckets_per_step']}; step "
+          f"{step:.3f} ms")
+    failed = [k for k, v in rec["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
+def phase_ddp_gloo_one_card(out):
+    """7a: two ranks on the one card through gloo on CUDA tensors (NCCL
+    refuses two ranks on one card). A correctness run: gloo copies every
+    all-reduce through the host, so its step time is no DDP figure."""
+    print("[ddp_gloo_one_card] backend gloo, asked for explicitly: two "
+          "ranks share cuda:0")
+    _ddp_parity(out, "ddp_gloo_one_card", DDP_WORLD, "gloo",
+                ["cuda:0"] * DDP_WORLD)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_ddp_nccl_world1(out):
+    """7b: `Trainer` at world 1 on NCCL through `initialize()` and the env
+    contract (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT):
+    DDP's machinery on the card, 30 steps and one eval; its step beside
+    phase 6's single-process step, and, in turns on the same model and
+    batch (plain, DDP, DDP, plain; augmentation off in both), the step
+    without and with DDP's wrapper: what DDP adds, in ms and device ops
+    (CUDA activity alone under the profiler)."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+    from tpu_dp_torch.parallel import collectives
+    from tpu_dp_torch.parallel.dist import shutdown
+    from tpu_dp_torch.train.step import make_train_step
+    from tpu_dp_torch.train.trainer import Trainer
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        trainer = Trainer(parse_cli(TRAIN_ARGS))
+        ctx = trainer.ctx
+        steps = len(trainer.train_pipe)
+        cb.reset_launches()
+        tx.reset_launches()
+        collectives.reset_counts()
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        books = {"conv": dict(cb.launches_by_role),
+                 "xent": dict(tx.launches), **collectives.counts}
+        losses = trainer.step_losses
+        batch = next(iter(trainer.train_pipe))
+        step_ms = cuda_median_ms(
+            lambda: trainer.train_step(trainer.state, batch), reps=20)
+        prof = profile_forward(
+            lambda: trainer.train_step(trainer.state, batch), cuda_only=True,
+            keep_all=True)
+        ab = {}
+        for name in ("plain", "ddp", "ddp", "plain"):
+            fn = make_train_step(
+                trainer.ddp if name == "ddp" else trainer.model,
+                trainer.optimizer, trainer.schedule, use_pallas_xent=True,
+                device=trainer.device)
+            ms = cuda_median_ms(lambda: fn(trainer.state, batch), reps=20)
+            ops = profile_forward(lambda: fn(trainer.state, batch),
+                                  cuda_only=True)["kernel_launches_per_call"]
+            ab.setdefault(name, []).append({"step_ms": ms,
+                                            "device_ops_per_step": ops})
+    finally:
+        shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ev = result["eval"]
+    plain_ms = out.get("train", {}).get("step_ms")
+    rec = {
+        "backend": ctx.backend, "world": ctx.world, "device": str(ctx.device),
+        "steps": steps, "losses": losses, "eval": ev,
+        "launches": books, "step_ms": step_ms,
+        "single_process_step_ms": plain_ms,
+        "ddp_added_ms": None if plain_ms is None else step_ms - plain_ms,
+        "device_ops_per_step": prof["kernel_launches_per_call"],
+        "device_busy_share": prof["device_busy_share"],
+        "nccl_kernels": {k: v for k, v in prof["all"].items()
+                         if "nccl" in k.lower()},
+        "plain_vs_ddp_in_turns": ab,
+        "fit_images_per_s": result["images_per_sec"],
+        "card": out["card"],
+    }
+    rec["checks"] = {
+        "nccl_world_1": (ctx.backend, ctx.world) == ("nccl", 1)
+        and ctx.device.type == "cuda",
+        "steps": steps == TRAIN_STEPS and len(losses) == steps,
+        "losses_finite": all(math.isfinite(v) for v in losses),
+        "loss_falls": statistics.mean(losses[-5:])
+        < statistics.mean(losses[:5]),
+        "eval_count_is_test_set": ev["count"] == len(trainer.test_ds),
+        "conv_20_per_step": books["conv"]["stats"] == 10 * steps
+        and books["conv"]["input_grad"] == 10 * steps,
+        "xent_1_and_1_per_step":
+            books["xent"] == {"forward": steps, "backward": steps},
+        "ddp_buckets_reduced": books["ddp_buckets"] >= steps,
+        "world_1_issues_no_sync_bn": books["pmean_forward"] == 0,
+    }
+    out["ddp_nccl_world1"] = rec
+    print("[ddp_nccl_world1] " + json.dumps(rec))
+    print(f"[ddp_nccl_world1] {out['card']}: NCCL world 1 via initialize() "
+          f"and the env contract: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"eval {ev['count']} images, step {step_ms:.3f} ms (single "
+          f"process, phase 6: {plain_ms}); "
+          f"{prof['kernel_launches_per_call']:.0f} device ops per step; in "
+          f"turns, plain vs DDP: " + json.dumps(ab))
+    failed = [k for k, v in rec["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"ddp_nccl_world1 checks failed: {failed}")
+
+
+def phase_ddp_nccl_multi_card(out):
+    """7c: NCCL, one rank per card, when two or more cards are visible:
+    the same parity against the concatenated batch, and global images/s
+    (with every visible card too, when there are more than two)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"ddp_nccl_multi_card: not run, {n} card visible")
+        out["ddp_nccl_multi_card"] = {"run": False, "cards": n}
+        return
+    recs = {}
+    for world in sorted({2, n}):
+        recs[world] = _ddp_parity(out, f"ddp_nccl_world{world}", world,
+                                  None, [f"cuda:{r}" for r in range(world)],
+                                  profile=True)
+    one = out.get("ddp_nccl_world1", {}).get("step_ms")
+    out["ddp_nccl_multi_card"] = {
+        "run": True, "cards": n,
+        "global_images_per_s": {w: r["global_images_per_s"]
+                                for w, r in recs.items()},
+        "world1_images_per_s": None if one is None else TRAIN_B / (one / 1e3),
+    }
+    print("[ddp_nccl_multi_card] " + json.dumps(out["ddp_nccl_multi_card"]))
+
+
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     """One kernels-line entry whose times sum ``recs`` (one per launch of
     a step or forward)."""
@@ -1218,19 +1606,39 @@ def kernels_line(out):
     return {"kernels": entries}
 
 
-def main() -> int:
+PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
+          phase_serve, phase_train, phase_ddp_gloo_one_card,
+          phase_ddp_nccl_world1, phase_ddp_nccl_multi_card)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ddp-worker"]:
+        return ddp_worker(argv[1])
+    # ``--only a,b``: header, build and the named phases (e.g. the
+    # multi-card phase alone on a four-card machine); no kernels line.
+    only = None
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = set(argv[1].split(","))
+        known = {p.__name__.removeprefix("phase_") for p in PHASES}
+        if not only <= known:
+            raise SystemExit(f"chip_smoke: unknown phases {only - known}")
+    elif argv:
+        raise SystemExit(f"chip_smoke: unexpected arguments {argv}")
     sys.path.insert(0, HERE)
     import torch  # fails here, not mid-phase, if missing
 
     out: dict = {"allocated_bytes_before": {}}
     try:
-        for phase in (phase_header, phase_build, phase_kernels,
-                      phase_train_kernels, phase_serve, phase_train):
+        for phase in PHASES:
+            name = phase.__name__.removeprefix("phase_")
+            if only is not None and name not in only | {"header", "build"}:
+                continue
             if torch.cuda.is_available():
                 out["allocated_bytes_before"][phase.__name__] = (
                     torch.cuda.memory_allocated())
             phase(out)
-        line = kernels_line(out)
+        line = None if only is not None else kernels_line(out)
     except SystemExit:
         raise
     except BaseException:
@@ -1238,10 +1646,12 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         _save(out)
         return 1
-    out["kernels"] = line["kernels"]
     _save(out)
     print(out["card"])
-    print(json.dumps(line))
+    if line is not None:
+        out["kernels"] = line["kernels"]
+        _save(out)
+        print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax_or_tpu_dp():
     mods = _modules()
     for m in ("tpu_dp_torch.ops.conv_block", "tpu_dp_torch.ops.xent",
               "tpu_dp_torch.serve.__main__", "tpu_dp_torch.train.trainer",
-              "tpu_dp_torch.train.__main__"):
+              "tpu_dp_torch.train.__main__", "tpu_dp_torch.parallel.dist",
+              "tpu_dp_torch.parallel.collectives"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"

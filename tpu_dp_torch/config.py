@@ -1,7 +1,7 @@
 """Configuration of the port (the parts of `tpu_dp.config` it reads).
 
 Training: the `ModelConfig` / `DataConfig` / `OptimConfig` /
-`TrainConfig` fields the trainer implements, the presets and `parse_cli`
+`TrainConfig` / `ParallelConfig` fields the trainer implements, the presets and `parse_cli`
 (``--preset=name``, then ``--section.field=value``), with the JAX
 package's defaults and preset values. Every other field the JAX package
 knows is listed in `NOT_PORTED` with its default: setting one away from
@@ -75,11 +75,25 @@ class TrainConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """The process group (`tpu_dp_torch.parallel.dist.initialize`); unset
+    fields come from the launcher's env contract."""
+
+    # One process drives one device: None (or 1) only.
+    num_devices: int | None = None
+    # host:port of rank 0's rendezvous (tcp://), or an init-method URL.
+    coordinator_address: str | None = None
+    num_processes: int | None = None  # the world size
+    process_id: int | None = None  # this process's rank
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def override(self, dotted: str, value: str) -> None:
         """Apply one ``section.field=value`` override, coercing to the
@@ -111,10 +125,10 @@ class Config:
         return dataclasses.asdict(self)
 
 
-_SECTIONS = ("model", "data", "optim", "train")
+_SECTIONS = ("model", "data", "optim", "train", "parallel")
 
 #: Sections of the JAX package's config the trainer does not read yet.
-NOT_PORTED_SECTIONS = ("parallel", "resilience", "guard", "obs", "serve")
+NOT_PORTED_SECTIONS = ("resilience", "guard", "obs", "serve")
 
 #: Fields of the ported sections that the port does not implement yet,
 #: with the JAX package's defaults (the only values that run).
@@ -163,7 +177,13 @@ def _coerce(value: str, current: Any):
 
 def check_ported(cfg: Config) -> Config:
     """Raise `NotPortedError` for a configuration the port cannot run
-    (a model other than resnet18, the device-resident feed)."""
+    (a model other than resnet18, the device-resident feed, more than one
+    device per process)."""
+    if cfg.parallel.num_devices not in (None, 1):
+        raise NotPortedError(
+            f"parallel.num_devices={cfg.parallel.num_devices}: one "
+            f"tpu_dp_torch process drives one device; run one process per "
+            f"device (torchrun --nproc_per_node)")
     if cfg.model.name.lower() != "resnet18":
         raise NotPortedError(
             f"model.name={cfg.model.name!r}: tpu_dp_torch trains resnet18 "

@@ -1,14 +1,17 @@
 """On-device data augmentation (port of `tpu_dp.data.augment`): pad-4
 random crop + horizontal flip per image, NHWC, applied after normalize.
 
-Deterministic in ``(seed, step)``: each call draws its offsets and flips
-from a `torch.Generator` on the images' device seeded from both, so a step
-replays identically. The draws are not `jax.random`'s bits; the
+Deterministic in ``(seed, step, rank)``: each call draws its offsets and
+flips from a `torch.Generator` on the images' device seeded from all three,
+so a step replays identically, and the ranks of a data-parallel run crop
+and flip their rows independently (with one key, row i of every rank
+would get the same crop). The draws are not `jax.random`'s bits; the
 distribution is the same (offsets uniform over 0..2*pad, flip rate 1/2).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,14 +35,15 @@ def random_crop_flip(gen: torch.Generator, images: torch.Tensor,
     return padded[idx, rows[:, :, None], cols[:, None, :]]
 
 
-def make_augment_fn(seed: int, fill: float = -1.0):
-    """Build ``aug(step, images)``: deterministic in (seed, step). The
-    train step calls it with the update counter after its on-device
+def make_augment_fn(seed: int, fill: float = -1.0, rank: int = 0):
+    """Build ``aug(step, images)``: deterministic in (seed, step, rank).
+    The train step calls it with the update counter after its on-device
     normalize, so the default ``fill`` of -1 pads black."""
 
     def aug(step, images: torch.Tensor) -> torch.Tensor:
         gen = torch.Generator(device=images.device)
-        gen.manual_seed((int(seed) << 32) + int(step))
+        key = np.random.SeedSequence([int(seed), int(step), int(rank)])
+        gen.manual_seed(int(key.generate_state(1, np.uint64)[0]) >> 1)
         return random_crop_flip(gen, images, fill=fill)
 
     return aug

@@ -1,9 +1,12 @@
 """Batching + prefetch to the device: the port's input feed (the host-batch
 part of `tpu_dp.data.pipeline`).
 
-- The process draws the epoch's indices from `ShardedSampler` (one shard:
-  multi-rank feeds come with the multi-rank slice) and gathers
-  ``batch_size`` examples per step on the host.
+- Each process draws its shard of the epoch's global permutation from
+  `ShardedSampler` (``shard_id::num_shards``, padded by wraparound so
+  every rank has the same number of batches of the same size: a mean of
+  the ranks' means is then the global batch's mean) and gathers
+  ``batch_size`` examples per step on the host; the global batch is
+  ``batch_size x num_shards``.
 - Batches ship as uint8 images and int64 labels and are normalized on the
   device inside the step (4x fewer bytes than float32). The gather writes
   straight into page-locked (pinned) buffers, and the copy to the card is
@@ -12,8 +15,11 @@ part of `tpu_dp.data.pipeline`).
 - A background thread keeps ``prefetch`` placed batches ahead of the
   consumer.
 - The final partial batch (eval, ``drop_remainder=False``) is padded by
-  wraparound to keep shapes static, with a float ``weight`` mask (1.0 =
-  real example) that the eval step uses to exclude the pad.
+  wraparound to keep shapes static. A batch that holds any pad — this
+  tail, or the sampler's wraparound duplicates of a dataset that does not
+  divide by the shard count — carries a float ``weight`` mask (1.0 = real
+  example) that the eval step uses to exclude it, so eval counts each
+  example once across the ranks.
 
 The JAX package's scan windows and its device-resident feed are not
 ported yet.
@@ -38,7 +44,8 @@ class DataPipeline:
 
     def __init__(self, dataset: ArrayDataset, batch_size: int, device,
                  shuffle: bool = True, seed: int = 0,
-                 drop_remainder: bool = True, prefetch: int = 2):
+                 drop_remainder: bool = True, prefetch: int = 2,
+                 num_shards: int = 1, shard_id: int = 0):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         if self.batch_size < 1:
@@ -46,8 +53,9 @@ class DataPipeline:
         self.device = torch.device(device)
         self.drop_remainder = drop_remainder
         self.prefetch = int(prefetch)
-        self.sampler = ShardedSampler(len(dataset), num_shards=1, shard_id=0,
-                                      shuffle=shuffle, seed=seed)
+        self.sampler = ShardedSampler(len(dataset), num_shards=num_shards,
+                                      shard_id=shard_id, shuffle=shuffle,
+                                      seed=seed)
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
@@ -62,19 +70,23 @@ class DataPipeline:
     def _host_batches(self):
         """Yield host-side batches (dicts of numpy index arrays and the
         optional weight mask) for the current epoch."""
-        idx = self.sampler.shard_indices()
+        smp = self.sampler
+        idx = smp.shard_indices()
+        # Position of each index in the padded global stream: past the
+        # dataset's end it is one of the sampler's wraparound duplicates.
+        real = (smp.shard_id + smp.num_shards * np.arange(len(idx))
+                < smp.num_examples).astype(np.float32)
         per_step = self.batch_size
         for s in range(len(self)):
             take = idx[s * per_step:(s + 1) * per_step]
-            weight = None
+            weight = real[s * per_step:(s + 1) * per_step]
             if len(take) < per_step:
                 # Pad-by-wraparound for a static shape; the weight mask
                 # zeroes the pad out of the eval counts and loss.
                 pad = per_step - len(take)
-                weight = np.concatenate(
-                    [np.ones(len(take), np.float32), np.zeros(pad, np.float32)])
+                weight = np.concatenate([weight, np.zeros(pad, np.float32)])
                 take = np.concatenate([take, np.resize(idx, pad)])
-            yield take, weight
+            yield take, (None if weight.all() else weight)
 
     def _place(self, take, weight):
         """Gather ``take`` into (pinned, on a card) host buffers and start

@@ -34,7 +34,8 @@ def build_model(name: str, num_classes: int = 10, **kwargs):
     """Construct a model by config name. ``kwargs`` go to the model:
     ``num_filters``, ``dtype`` (a torch dtype), ``fused_stages``,
     ``fused_bwd``, ``generator`` (a seeded `torch.Generator` for the
-    init) and ``device``."""
+    init), ``device`` and ``process_group`` (sync-BN over its ranks;
+    None: each process's own batch)."""
     try:
         factory = _REGISTRY[name.lower()]
     except KeyError:

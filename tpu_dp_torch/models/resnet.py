@@ -24,7 +24,12 @@ The forward follows ``module.training``: in train mode BatchNorm
 normalizes with the batch's statistics and updates its running ones
 (flax ``nn.BatchNorm(use_running_average=False, momentum=0.9)``), and the
 fused blocks run `fused_conv_bn`, whose kernel also emits each conv
-output's moments, so no pass re-reads y for them. Gradients reach every
+output's moments, so no pass re-reads y for them. With a
+``process_group`` of more than one rank BatchNorm is sync-BN: every
+train-mode BatchNorm (the kernel's moments and the plain path's: the stem,
+the shortcuts, unfused blocks) takes the mean of its ``[2, C]`` moments
+over the ranks, one differentiable all-reduce each way
+(`tpu_dp_torch.parallel.collectives.pmean`). Gradients reach every
 fused conv's weight through the autograd rule of `tpu_dp_torch.ops.
 conv_block`; ``fused_bwd`` routes its input-grad conv through the kernel.
 """
@@ -45,6 +50,7 @@ from tpu_dp_torch.ops.conv_block import (
     fused_conv_bn,
     pack_weight,
 )
+from tpu_dp_torch.parallel import collectives
 
 
 def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
@@ -91,12 +97,20 @@ class BatchNorm(nn.Module):
     use_running_average=False)``: batch mean and *biased* variance
     ``E[x²] - E[x]²`` in f32, clamped at 0, and running stats updated as
     ``0.9·old + 0.1·batch`` in place. (``F.batch_norm`` would update the
-    running variance with the unbiased estimate, so it is not used.)"""
+    running variance with the unbiased estimate, so it is not used.)
+
+    With a ``process_group`` of more than one rank, the batch moments
+    ``[E[x], E[x²]]`` are averaged over its ranks before use (the JAX
+    package's ``axis_name``): every rank normalizes with the global
+    batch's statistics, and its running stats stay identical to the
+    others'. Eval never syncs."""
 
     def __init__(self, c: int, zero_scale: bool = False, dtype=torch.float32,
-                 device=None, eps: float = 1e-5, momentum: float = 0.9):
+                 device=None, eps: float = 1e-5, momentum: float = 0.9,
+                 process_group=None):
         super().__init__()
         self.dtype, self.eps, self.momentum = dtype, eps, momentum
+        self.process_group = process_group
         self.weight = nn.Parameter(
             torch.zeros(c, device=device) if zero_scale
             else torch.ones(c, device=device))
@@ -107,17 +121,19 @@ class BatchNorm(nn.Module):
     def _moments(self, x, stats=None):
         """``(mean, var)`` per channel: running stats in eval; in train the
         batch's, from the kernel's ``stats = [sum, sum of squares]`` when
-        given (x is then read for its shape only), updating the running
-        stats."""
+        given (x is then read for its shape only), synced over the process
+        group, updating the running stats."""
         if not self.training:
             return self.running_mean, self.running_var
         if stats is not None:
             count = x.shape[0] * x.shape[1] * x.shape[2]
-            mean, mean2 = stats[0] / count, stats[1] / count
+            moments = stats / count
         else:
             xf = x.float()
-            mean = xf.mean(dim=(0, 1, 2))
-            mean2 = xf.square().mean(dim=(0, 1, 2))
+            moments = torch.stack([xf.mean(dim=(0, 1, 2)),
+                                   xf.square().mean(dim=(0, 1, 2))])
+        # One [2, C] all-reduce each way (identity without a group).
+        mean, mean2 = collectives.pmean(moments, self.process_group)
         var = torch.clamp(mean2 - mean.square(), min=0.0)
         with torch.no_grad():
             m = self.momentum
@@ -146,18 +162,19 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
                  dtype=torch.float32, generator=None, device=None,
-                 fused_bwd: bool = False):
+                 fused_bwd: bool = False, process_group=None):
         super().__init__()
         self.fused_bwd = fused_bwd
         kw = dict(dtype=dtype, device=device)
+        bn = dict(kw, process_group=process_group)
         self.Conv_0 = Conv(cin, filters, 3, stride, generator=generator, **kw)
-        self.BatchNorm_0 = BatchNorm(filters, **kw)
+        self.BatchNorm_0 = BatchNorm(filters, **bn)
         self.Conv_1 = Conv(filters, filters, 3, generator=generator, **kw)
-        self.BatchNorm_1 = BatchNorm(filters, zero_scale=True, **kw)
+        self.BatchNorm_1 = BatchNorm(filters, zero_scale=True, **bn)
         if stride != 1 or cin != filters:
             self.shortcut_conv = Conv(cin, filters, 1, stride,
                                       generator=generator, **kw)
-            self.shortcut_norm = BatchNorm(filters, **kw)
+            self.shortcut_norm = BatchNorm(filters, **bn)
         else:
             self.shortcut_conv = self.shortcut_norm = None
         self._packed = {}
@@ -220,13 +237,14 @@ class ResNet(nn.Module):
     """CIFAR-variant ResNet over NHWC inputs: 3x3 stride-1 stem, no pool,
     stages ``num_filters * [1, 2, 4, 8]`` with stride 2 from stage 1 on,
     global average pool, f32 classifier. ``fused_bwd`` sends the fused
-    convs' backward input-grad through the kernel too."""
+    convs' backward input-grad through the kernel too; ``process_group``
+    makes every BatchNorm sync-BN over its ranks."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 10, num_filters: int = 64,
                  dtype=torch.float32, fused_stages: Sequence[int] = (),
                  generator: torch.Generator | None = None, device=None,
-                 fused_bwd: bool = False):
+                 fused_bwd: bool = False, process_group=None):
         super().__init__()
         self.dtype = dtype
         self.num_classes = int(num_classes)
@@ -234,7 +252,8 @@ class ResNet(nn.Module):
         self.fused_stages = frozenset(fused_stages)
         kw = dict(dtype=dtype, device=device)
         self.stem_conv = Conv(3, num_filters, 3, generator=generator, **kw)
-        self.stem_norm = BatchNorm(num_filters, **kw)
+        self.stem_norm = BatchNorm(num_filters, process_group=process_group,
+                                   **kw)
         cin = num_filters
         self._plan = []  # (block name, stage, fusable)
         idx = 0
@@ -245,7 +264,9 @@ class ResNet(nn.Module):
                 name = f"BasicBlock_{idx}"
                 self.add_module(name, BasicBlock(cin, filters, stride,
                                                  generator=generator,
-                                                 fused_bwd=fused_bwd, **kw))
+                                                 fused_bwd=fused_bwd,
+                                                 process_group=process_group,
+                                                 **kw))
                 fusable = (i in self.fused_stages and stride == 1
                            and cin == filters)
                 self._plan.append((name, i, fusable))

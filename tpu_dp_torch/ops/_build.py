@@ -17,6 +17,12 @@ kernels include) and the flags: an edited source or header is rebuilt, an
 unchanged one is loaded as it is. ``ptxas`` reports (registers, shared
 memory, spills) are kept beside the library as ``<name>-<hash>.log``.
 
+Builds are serialized across processes by an exclusive ``flock`` on
+``build/kernels/build.lock`` (and across threads by a lock): when N ranks
+start on a cold cache, one runs nvcc and the others wait, then load its
+library. The kernel drops the lock when a process dies, so a lock file
+left behind blocks nobody.
+
 Nothing here runs at import time: the CPU tests import every module of
 the package, and this machine-dependent work happens only when a kernel
 is first launched (or `build_all` is called).
@@ -24,7 +30,9 @@ is first launched (or `build_all` is called).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -44,7 +52,8 @@ SOURCES = {"conv_block": "conv_block.cu", "xent": "xent.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: kernel name -> {"seconds": build wall time, "log": ptxas report, "cached"}
+#: kernel name -> {"seconds": build wall time, "log": ptxas report,
+#: "cached", "waited_s": time spent waiting for another process's build}
 build_info: dict[str, dict] = {}
 
 
@@ -102,15 +111,30 @@ def _finish(name: str, proc, so: Path, tmp: Path | None, t0: float) -> None:
                         "cached": False, "log": out}
 
 
+@contextlib.contextmanager
+def _process_lock():
+    """Exclusive across the processes that share ``BUILD_DIR``; yields the
+    seconds spent waiting for it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(BUILD_DIR / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield time.perf_counter() - t0
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=None) -> dict[str, dict]:
     """Build every kernel (or ``names``), one nvcc per source, all started
     together; returns `build_info`. Loading still happens in `load`."""
     names = list(SOURCES if names is None else names)
-    with _lock:
+    with _lock, _process_lock() as waited:
         t0 = time.perf_counter()
         started = [(n, *_start(n)) for n in names]
         for n, proc, so, tmp in started:
             _finish(n, proc, so, tmp, t0)
+            build_info[n]["waited_s"] = round(waited, 3)
     return {n: build_info[n] for n in names}
 
 

@@ -1,1 +1,2 @@
-"""Device resolution for the port (one process drives one card)."""
+"""Process groups, device resolution and cross-rank reductions of the port
+(one process drives one device)."""

@@ -7,16 +7,27 @@ running-statistics forward with a masked tail; `make_serve_step` is the
 serving hot path, one step per padded bucket size. Steps return device
 tensors and never wait on the device, so the host runs ahead of the card
 until the caller fetches a value.
+
+Data parallel (the JAX package's GSPMD ``make_train_step`` over the
+``data`` mesh): each rank runs the train step on its shard of the global
+batch through `data_parallel`'s ``DistributedDataParallel`` (the gradient
+mean across ranks, from autograd hooks) with the model's BatchNorms synced
+over the same group; the step's metrics are global, one all-reduce of
+``[loss·count, correct, count]`` per step; the eval step sums ``correct``,
+``count`` and the weighted loss across ranks the same way. With no group
+(one process) none of these collectives exists.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import torch
 
 from tpu_dp_torch.data.cifar import normalize
+from tpu_dp_torch.parallel import collectives
 
 
 def cross_entropy_loss(logits, labels, weight=None):
@@ -60,24 +71,64 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
+def data_parallel(model, ctx):
+    """``model`` wrapped in ``DistributedDataParallel`` over ``ctx``'s group
+    (`tpu_dp_torch.parallel.dist.DistContext`): the gradient mean across
+    ranks, bucketed and booked by `collectives.counting_allreduce_hook`.
+
+    Buffers are not broadcast (``broadcast_buffers=False``): the running
+    statistics come out of the synced moments, identical on every rank,
+    and a broadcast would add 40 collectives a step. Every parameter takes
+    part in the loss, fused path included (``find_unused_parameters=
+    False``)."""
+    dev = ctx.device
+    with warnings.catch_warnings():
+        # Newer torch deprecates the name; its replacement still syncs
+        # buffers at init and does not exist in older releases.
+        warnings.filterwarnings("ignore", message=".*broadcast_buffers",
+                                category=FutureWarning)
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[dev.index] if dev.type == "cuda" else None,
+            broadcast_buffers=False, find_unused_parameters=False)
+    ddp.register_comm_hook(None, collectives.counting_allreduce_hook)
+    return ddp
+
+
+def _global_metrics(loss, correct, count, group):
+    """``(loss, correct, count)`` over every rank's batch from this rank's
+    mean ``loss`` and its ``correct`` and ``count`` tensors, in one
+    all-reduce of ``[loss·count, correct, count]``. Under NCCL the
+    all-reduce orders the streams and does not wait on the host."""
+    total = collectives.psum(torch.stack(
+        [loss * count, correct.to(loss.dtype), count.to(loss.dtype)]), group)
+    correct, count = total[1:].to(torch.int64).unbind()
+    return total[0] / total[2].clamp(min=1.0), correct, count
+
+
 def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
-                    augment_fn=None, device=None) -> Callable:
+                    augment_fn=None, device=None,
+                    process_group=None) -> Callable:
     """Build ``step(state, batch) -> metrics`` for ``model``/``optimizer``.
 
     ``batch`` is ``{"image": uint8 or float [B,H,W,3], "label": int [B]}``
     on ``device``. The learning rate of update k is ``schedule(k)``, read
     before ``state.step`` advances. Metrics: ``loss`` (f32 scalar tensor),
-    ``correct`` (int tensor), ``count`` and ``lr`` (numbers).
+    ``correct`` (int tensor), ``count`` and ``lr`` (numbers). ``model``
+    may be `data_parallel`'s wrapper; with a ``process_group`` of more
+    than one rank the metrics are the global batch's (``count`` = the
+    rank's batch times the world).
     """
     loss_impl = _select_loss_impl(use_pallas_xent)
     device = None if device is None else torch.device(device)
+    world = collectives.world_of(process_group)
+    inner = getattr(model, "module", model)  # DDP's wrapped module
 
     def step(state: TrainState, batch):
         images, labels = batch["image"], batch["label"]
         if device is not None and images.device != device:
             raise ValueError(f"train step on {device} got a batch on "
                              f"{images.device}")
-        if not model.training:
+        if not inner.training:
             model.train()
         images = _maybe_normalize(images)
         if augment_fn is not None:
@@ -91,17 +142,26 @@ def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
             group["lr"] = lr
         optimizer.step()
         state.step += 1
+        loss = loss.detach()
         correct = (logits.detach().argmax(dim=-1) == labels).sum()
-        return {"loss": loss.detach(), "correct": correct,
-                "count": int(labels.shape[0]), "lr": lr}
+        count = int(labels.shape[0])
+        if world > 1:
+            # The ranks' batches are equal: the global count is known here.
+            loss, correct, _ = _global_metrics(
+                loss, correct, torch.full_like(loss, count), process_group)
+        return {"loss": loss, "correct": correct, "count": count * world,
+                "lr": lr}
 
     return step
 
 
-def make_eval_step(model) -> Callable:
+def make_eval_step(model, process_group=None) -> Callable:
     """Build ``step(batch) -> {loss, correct, count}`` (device tensors): the
     running-statistics forward; an optional ``batch["weight"]`` (1.0 = real
-    example) masks a padded tail out of all three."""
+    example) masks padded rows out of all three. With a ``process_group``
+    of more than one rank all three are summed over its ranks' batches
+    (``loss`` the weighted mean of the union)."""
+    world = collectives.world_of(process_group)
 
     @torch.no_grad()
     def step(batch):
@@ -116,8 +176,11 @@ def make_eval_step(model) -> Callable:
         else:
             correct = (hit * weight).sum().to(torch.int64)
             count = weight.sum().to(torch.int64)
-        return {"loss": cross_entropy_loss(logits, labels, weight),
-                "correct": correct, "count": count}
+        loss = cross_entropy_loss(logits, labels, weight)
+        if world > 1:
+            loss, correct, count = _global_metrics(loss, correct, count,
+                                                   process_group)
+        return {"loss": loss, "correct": correct, "count": count}
 
     return step
 
