@@ -59,7 +59,8 @@ Phases, in order; any failure exits non-zero before the last line:
    reduce kernel) and 10 per eval forward, the first 5 losses within
    0.05 of the same init and batches run unfused without kernels, a
    number for the accuracy; step time, device-busy share, top kernels and
-   peak memory;
+   peak memory (its epoch save and final export go to a temporary
+   directory);
 7. data parallel (`tpu_dp_torch.parallel`), full width, f32, B=128 per
    rank, against one process on the concatenated batch (per-step global
    loss within 0.05, the fused bound of phase 6) with the ranks'
@@ -73,7 +74,26 @@ Phases, in order; any failure exits non-zero before the last line:
    and, in turns on one model, the step with and without DDP's wrapper;
    (c) with two or more cards, NCCL with one rank per card (two, and every
    visible card), else ``ddp_nccl_multi_card: not run, 1 card visible``;
-8. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+8. checkpoint (run between phases 6 and 7): the same fused full-width
+   path, f32, cuDNN deterministic, B=128, 10 steps an epoch: 3 epochs
+   uninterrupted; the same run interrupted at the start of epoch 3 and resumed by a fresh
+   `Trainer` with ``--resume``: the restored state bit-identical to the
+   interrupted run's and to the uninterrupted run's epoch-2 state, epoch
+   3's losses, the final state and the eval bit-identical to the
+   uninterrupted run's, 20 conv + 1 + 1 xent launches every step; the
+   costs (the save's blocking ms on the training thread, its background
+   write ms, the payload MB, a verified load, the first resumed step
+   against a steady one); `InferenceEngine.from_checkpoint` of the
+   epoch-3 save with buckets 1..32 and 50 Poisson requests (audited books,
+   10 conv launches per forward, bucket-32 logits bit-identical to the
+   trained model's eval forward); the reference workload (`Net`, batch 4,
+   ``python -m tpu_dp_torch.train`` with synthetic data, 200 steps an
+   epoch, 2 epochs) as a subprocess on the card (exit 0, falling finite
+   losses, ``Finished Training``, its final params loaded back), a
+   card-vs-CPU `Net` forward and gradient from one seed within 1e-4 of
+   max|.|, and 1 + 1 xent launches a step with ``--train.pallas_xent=
+   true``; every save goes to a temporary directory;
+9. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only ddp_nccl_world1,ddp_nccl_multi_card`` runs
 the header, the build and the named phases alone (a four-card machine's
@@ -97,6 +117,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -142,6 +163,20 @@ TRAIN_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
               f"--data.synthetic_train_size={TRAIN_STEPS * TRAIN_B}",
               f"--data.synthetic_test_size={2 * TRAIN_B}",
               "--train.epochs=1", "--train.log_every=10"]
+#: phase 8: the resume runs (B=128, 10 steps an epoch, 3 epochs; the
+#: interrupted run stops before step 20, at the start of epoch 3), the
+#: served requests and the reference workload's sizes.
+CKPT_EPOCHS, CKPT_SPE = 3, 10
+CKPT_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
+             "--model.fused_bwd=true", "--train.pallas_xent=true",
+             "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
+             f"--data.synthetic_train_size={CKPT_SPE * TRAIN_B}",
+             f"--data.synthetic_test_size={2 * TRAIN_B}",
+             f"--train.epochs={CKPT_EPOCHS}", "--train.log_every=100"]
+CKPT_SERVE_REQUESTS = 50
+REF_ARGS = ["--data.dataset=synthetic", "--data.synthetic_train_size=800",
+            "--data.synthetic_test_size=200", "--train.epochs=2",
+            "--train.log_every=50"]
 
 
 def bf16_ulp(mag: float) -> float:
@@ -1072,7 +1107,10 @@ def phase_train(out):
     from tpu_dp_torch.ops import xent as tx
     from tpu_dp_torch.train.trainer import Trainer
 
-    trainer = Trainer(parse_cli(TRAIN_ARGS), device="cuda")
+    # The epoch save and the final export go to a temporary directory.
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    args = TRAIN_ARGS + [f"--train.ckpt_dir={ckpt.name}"]
+    trainer = Trainer(parse_cli(args), device="cuda")
     steps, evals = len(trainer.train_pipe), len(trainer.test_pipe)
     held = torch.cuda.memory_allocated()  # by the earlier phases
     torch.cuda.reset_peak_memory_stats()
@@ -1080,6 +1118,7 @@ def phase_train(out):
     tx.reset_launches()
     result = trainer.fit()
     torch.cuda.synchronize()
+    ckpt.cleanup()
     counts = {"conv": dict(cb.launches_by_role), "conv_total": cb.launches,
               "xent": dict(tx.launches)}
     peak = torch.cuda.max_memory_allocated()
@@ -1101,7 +1140,7 @@ def phase_train(out):
     }
     # The same init, batches, augmentation and schedule, unfused and
     # without kernels (cuDNN convs, cross_entropy_loss, TF32 off).
-    ref = Trainer(parse_cli(TRAIN_ARGS + [
+    ref = Trainer(parse_cli(args + [
         "--model.fused_stages=", "--model.fused_bwd=false",
         "--train.pallas_xent=false"]), device="cuda")
     before = (cb.launches, dict(tx.launches))
@@ -1172,6 +1211,301 @@ def phase_train(out):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"train checks failed: {failed}")
+
+
+class _Stop(Exception):
+    """Phase 8's simulated interruption."""
+
+
+def _ckpt_trainer(ckpt_dir, extra=(), stop_at=None):
+    """A phase-8 `Trainer` whose train step records, per step, the
+    kernel launches (the wrappers' counters, set to 0 just before the
+    step and read just after) and the step's wall ms (synchronized); with
+    ``stop_at`` the step before global step ``stop_at`` raises `_Stop`."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+    from tpu_dp_torch.train.trainer import Trainer
+
+    trainer = Trainer(parse_cli(CKPT_ARGS + [f"--train.ckpt_dir={ckpt_dir}",
+                                             *extra]), device="cuda")
+    real = trainer.train_step
+    trainer.books, trainer.step_ms = [], []
+
+    def step(state, batch):
+        if stop_at is not None and state.step == stop_at:
+            raise _Stop
+        torch.cuda.synchronize()
+        cb.reset_launches()
+        tx.reset_launches()
+        t0 = time.perf_counter()
+        m = real(state, batch)
+        torch.cuda.synchronize()
+        trainer.step_ms.append(1e3 * (time.perf_counter() - t0))
+        trainer.books.append({"conv": dict(cb.launches_by_role),
+                              "xent": dict(tx.launches)})
+        return m
+
+    trainer.train_step = step
+    return trainer
+
+
+def _flat_state(trainer) -> dict:
+    from tpu_dp_torch.checkpoint import _walk_state_dict, state_dict_of
+
+    return dict(_walk_state_dict(state_dict_of(trainer.state)))
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def _books_ok(books) -> bool:
+    return all(b == {"conv": {"eval": 0, "stats": 10, "input_grad": 10},
+                     "xent": {"forward": 1, "backward": 1}} for b in books)
+
+
+def phase_checkpoint(out):
+    """8: checkpoints on the card. (a) the fused full-width main path, f32,
+    cuDNN deterministic: 3 epochs uninterrupted; the same run interrupted
+    at the start of epoch 3, then resumed by a fresh `Trainer` with
+    ``--resume``: the restored state equals the interrupted run's (and the
+    uninterrupted run's epoch-2 state) bit for bit, epoch 3's losses, the
+    final state and the eval equal the uninterrupted run's, 20 conv + 1 + 1
+    xent launches each step; (b) the save's blocking and background ms,
+    the payload, a verified load and the first resumed step against a
+    steady one; (c) `InferenceEngine.from_checkpoint` of the epoch-3 save:
+    audited books, 10 conv launches per forward, bucket-32 logits equal to
+    the trained model's eval forward; (d) the reference workload (`Net`,
+    batch 4) through ``python -m tpu_dp_torch.train`` on the card, its
+    final params loaded back, a card-vs-CPU `Net` forward and gradient
+    within 1e-4 of max|.|, and 1 + 1 xent launches a step with
+    ``--train.pallas_xent=true``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_dp_torch import checkpoint as ck
+    from tpu_dp_torch.models import build_model
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.serve import InferenceEngine, run_load
+    from tpu_dp_torch.train.step import _maybe_normalize
+    from tpu_dp_torch.train.trainer import Trainer
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    checks, rec = {}, {"card": out["card"]}
+    stop = (CKPT_EPOCHS - 1) * CKPT_SPE
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            # (a) uninterrupted; the state at the end of epoch 2 kept.
+            full = _ckpt_trainer(os.path.join(tmp, "full"))
+            epoch2 = {}
+            real_epoch = full.train_epoch
+
+            def train_epoch(epoch, start_step=0):
+                stats = real_epoch(epoch, start_step)
+                if epoch == CKPT_EPOCHS - 2:
+                    epoch2.update(_flat_state(full))
+                return stats
+
+            full.train_epoch = train_epoch
+            res_full = full.fit()
+            part = _ckpt_trainer(os.path.join(tmp, "part"), stop_at=stop)
+            try:
+                part.fit()
+            except _Stop:
+                pass
+            part.ckpt_mgr.wait()
+            at_stop = _flat_state(part)
+            resumed = _ckpt_trainer(os.path.join(tmp, "part"), ["--resume"])
+            restored = _flat_state(resumed)
+            res_resumed = resumed.fit()
+            torch.cuda.synchronize()
+            # Each run's newest epoch save: the epoch-3 saves waited for
+            # the epoch-2 write still in flight, if any (wait_ms).
+            saves = {"full_epoch_3": full.ckpt_mgr.last_save,
+                     "interrupted_epoch_2": part.ckpt_mgr.last_save,
+                     "resumed_epoch_3": resumed.ckpt_mgr.last_save}
+            checks.update({
+                "resumed_at_epoch_3": (resumed.start_epoch,
+                                       resumed.start_step) == (2, 0),
+                "restored_eq_interrupted_state": _same_state(restored,
+                                                             at_stop),
+                "restored_step": int(restored["step"]) == stop,
+                "interrupted_eq_uninterrupted_epoch_2": _same_state(
+                    at_stop, epoch2),
+                "epoch_3_losses_bit_identical": resumed.step_losses
+                == full.step_losses[stop:],
+                "final_state_bit_identical": _same_state(
+                    _flat_state(resumed), _flat_state(full)),
+                "eval_identical": res_resumed["eval"] == res_full["eval"],
+                "books_20_conv_1_1_xent_every_step": _books_ok(
+                    full.books + part.books + resumed.books)
+                and len(resumed.books) == CKPT_SPE,
+                "losses_finite": all(math.isfinite(v)
+                                     for v in full.step_losses),
+            })
+            # (b) costs: the save that blocks the training thread, its
+            # background write, a verified load into a fresh state.
+            step_dir = ck.CheckpointManager(
+                os.path.join(tmp, "full")).latest_dir()
+            target = _ckpt_trainer(os.path.join(tmp, "probe")).state
+            torch.cuda.synchronize()
+            load_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ck.load_checkpoint(step_dir, target)
+                torch.cuda.synchronize()
+                load_ms.append(1e3 * (time.perf_counter() - t0))
+            steady = statistics.median(full.step_ms[2:])
+            rec.update({
+                "saves": saves,
+                "payload_mb": saves["full_epoch_3"]["payload_bytes"] / 1e6,
+                "load_verified_ms": load_ms,
+                "first_step_ms_fresh": full.step_ms[0],
+                "first_resumed_step_ms": resumed.step_ms[0],
+                "steady_step_ms": steady,
+                "steady_step_ms_resumed": statistics.median(
+                    resumed.step_ms[2:]),
+                "losses_full": full.step_losses,
+                "losses_resumed": resumed.step_losses,
+                "eval": res_full["eval"],
+            })
+
+            # (c) serve the epoch-3 save: the model rebuilt from its meta.
+            engine = InferenceEngine.from_checkpoint(
+                step_dir, device="cuda", buckets=(1, 2, 4, 8, 16, 32),
+                slo_ms=250.0)
+            cb.reset_launches()
+            engine.start()
+            rq = _Recorder(engine)
+            try:
+                report = run_load(rq, n_requests=CKPT_SERVE_REQUESTS,
+                                  pattern="poisson", rate_rps=400.0,
+                                  sizes=(1, 2, 3, 4), seed=3)
+            finally:
+                engine.stop()
+            served_launches = cb.launches_by_role["eval"]
+            forwards = len(engine.replica.warmup_ms) + report["batches"]
+            truth, dev = report["ground_truth"], report["device_stats"]
+            imgs = torch.from_numpy(np.random.default_rng(4).integers(
+                0, 256, (32, 32, 32, 3), dtype=np.uint8)).cuda()
+            full.model.eval()
+            with torch.inference_mode():
+                x = _maybe_normalize(imgs)
+                served = engine.model(x)
+                trained = full.model(x)
+            checks.update({
+                "serve_consistent": report["consistent"],
+                "serve_served_eq_images":
+                    dev["served"] == truth["images_served"],
+                "serve_10_launches_per_forward":
+                    served_launches == 10 * forwards,
+                "serve_b32_logits_bit_identical_to_trained": torch.equal(
+                    served, trained),
+            })
+            rec["serve"] = {"batches": report["batches"],
+                            "forwards": forwards,
+                            "conv_launches": served_launches,
+                            "p50_ms": (report["latency_ms"] or {}).get(
+                                "p50_ms"),
+                            "images_served": truth["images_served"]}
+            del engine, full, part, resumed, target
+
+            # (d) the reference workload, the system's default command.
+            ref_dir = os.path.join(tmp, "ref")
+            run = subprocess.run(
+                [sys.executable, "-m", "tpu_dp_torch.train", *REF_ARGS,
+                 f"--train.ckpt_dir={ref_dir}"], cwd=HERE,
+                capture_output=True, text=True, timeout=600)
+            lines = run.stdout.strip().splitlines()
+            step_losses = [float(ln.rpartition(":")[2]) for ln in lines
+                           if ln.startswith("[")]
+            summary = json.loads(lines[-1]) if run.returncode == 0 else {}
+            net = ck.load_params(os.path.join(ref_dir, "final_params.msgpack"),
+                                 build_model("net"))
+            checks.update({
+                "reference_exit_0": run.returncode == 0,
+                "reference_losses_finite_and_fall": bool(step_losses)
+                and all(math.isfinite(v) for v in step_losses)
+                and statistics.mean(step_losses[-2:])
+                < statistics.mean(step_losses[:2]),
+                "reference_finished": "Finished Training" in lines
+                and any(ln.startswith("Accuracy of the network on the 200")
+                        for ln in lines),
+                "reference_model_net": summary.get("model") == "net",
+                "reference_final_params_load": sum(
+                    p.numel() for p in net.parameters()) == 62006,
+            })
+            rec["reference"] = {"returncode": run.returncode,
+                                "step_losses": step_losses,
+                                "summary": summary,
+                                "stderr_tail": run.stderr[-2000:]}
+            # Card vs CPU, one seeded Net, forward and gradient.
+            gen = torch.Generator().manual_seed(0)
+            cpu = build_model("net", generator=gen)
+            card = build_model("net").cuda()
+            card.load_state_dict(cpu.state_dict())
+            rng = np.random.default_rng(5)
+            xb = torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(
+                np.float32))
+            yb = torch.from_numpy(rng.integers(0, 10, 4))
+            errs = {}
+            for name, m in (("cpu", cpu), ("card", card)):
+                where = next(m.parameters()).device
+                logits = m(xb.to(where))
+                torch.nn.functional.cross_entropy(
+                    logits, yb.to(where)).backward()
+                errs[name] = [logits.detach().cpu()] + [
+                    p.grad.cpu() for p in m.parameters()]
+            rel = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(errs["card"], errs["cpu"]))
+            checks["net_card_vs_cpu_within_1e-4"] = rel <= 1e-4
+            rec["net_card_vs_cpu_rel_err"] = rel
+            # --train.pallas_xent=true: 1 + 1 xent launches each step.
+            from tpu_dp_torch.config import parse_cli
+            from tpu_dp_torch.ops import xent as tx
+
+            xt = Trainer(parse_cli(REF_ARGS + [
+                "--train.epochs=1", "--train.pallas_xent=true",
+                "--train.eval_at_end=false",
+                f"--train.ckpt_dir={os.path.join(tmp, 'ref_xent')}"]),
+                device="cuda")
+            tx.reset_launches()
+            xt.fit()
+            torch.cuda.synchronize()
+            n = len(xt.train_pipe)
+            checks["reference_xent_1_and_1_per_step"] = dict(
+                tx.launches) == {"forward": n, "backward": n}
+            rec["reference_xent_launches"] = dict(tx.launches)
+            rec["reference_xent_steps"] = n
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+    rec["checks"] = checks
+    out["checkpoint"] = rec
+    print("[checkpoint] " + json.dumps(rec, default=str))
+    last = saves["full_epoch_3"]
+    print(f"[checkpoint] {out['card']}: ResNet-18 save "
+          f"{rec['payload_mb']:.1f} MB, blocking the training thread "
+          f"{last['blocking_ms']:.1f} ms (of which snapshot "
+          f"{last['snapshot_ms']:.1f} ms, waiting for the previous write "
+          f"{last['wait_ms']:.1f} ms), background write "
+          f"{last['write_ms']:.1f} ms; verified load "
+          f"{statistics.median(load_ms):.1f} ms; first resumed step "
+          f"{rec['first_resumed_step_ms']:.2f} ms vs steady "
+          f"{rec['steady_step_ms']:.2f} ms (fresh run's first step "
+          f"{rec['first_step_ms_fresh']:.2f} ms)")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"checkpoint checks failed: {failed}")
 
 
 def _ddp_batches(world: int):
@@ -1425,8 +1759,10 @@ def phase_ddp_nccl_world1(out):
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_")
     try:
-        trainer = Trainer(parse_cli(TRAIN_ARGS))
+        trainer = Trainer(parse_cli(TRAIN_ARGS + [
+            f"--train.ckpt_dir={ckpt.name}"]))
         ctx = trainer.ctx
         steps = len(trainer.train_pipe)
         cb.reset_launches()
@@ -1456,6 +1792,7 @@ def phase_ddp_nccl_world1(out):
                                             "device_ops_per_step": ops})
     finally:
         shutdown()
+        ckpt.cleanup()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -1607,7 +1944,7 @@ def kernels_line(out):
 
 
 PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
-          phase_serve, phase_train, phase_ddp_gloo_one_card,
+          phase_serve, phase_train, phase_checkpoint, phase_ddp_gloo_one_card,
           phase_ddp_nccl_world1, phase_ddp_nccl_multi_card)
 
 

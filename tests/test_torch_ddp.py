@@ -35,8 +35,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import jax_resnet18_variables
+from torch_port_util import jax_resnet18_variables, run_worker_ranks
+from tpu_dp.data.cifar import ArrayDataset as JaxArrayDataset
 from tpu_dp.data.cifar import make_synthetic
+from tpu_dp.data.pipeline import DataPipeline as JaxPipeline
 from tpu_dp.data.sampler import ShardedSampler as JaxSampler
 from tpu_dp.models import build_model as jax_build
 from tpu_dp.parallel import dist as jax_dist
@@ -44,9 +46,10 @@ from tpu_dp.train import SGD as JaxSGD
 from tpu_dp.train import make_schedule as jax_schedule
 from tpu_dp.train import make_train_step as jax_train_step
 from tpu_dp.train.state import TrainState as JaxState
+from tpu_dp_torch import checkpoint as ck
 from tpu_dp_torch.compat import load_jax_variables
 from tpu_dp_torch.config import NotPortedError, parse_cli
-from tpu_dp_torch.data.cifar import ArrayDataset
+from tpu_dp_torch.data.cifar import ArrayDataset, load_dataset, normalize
 from tpu_dp_torch.data.pipeline import DataPipeline
 from tpu_dp_torch.models import build_model
 from tpu_dp_torch.parallel import collectives
@@ -62,7 +65,6 @@ pytestmark = pytest.mark.port
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-WORKER = Path(__file__).resolve().parent / "torch_ddp_worker.py"
 SCHED = ("cosine", 0.1, 10, 1, 0.0)  # name, lr, total, warmup, final
 STEPS, B, WORLD, FILTERS = 3, 4, 2, 8
 
@@ -92,31 +94,10 @@ def _run_ranks(tmp_path, variables, batches, fused, mutate=False,
     with open(var_path, "wb") as f:
         pickle.dump(variables, f)
     np.savez(data_path, images=batches[0], labels=batches[1])
-    procs, outs = [], []
-    for rank in range(world):
-        spec = {"rank": rank, "world": world,
-                "init": f"file://{tmp_path / 'rendezvous'}",
-                "variables": str(var_path), "batches": str(data_path),
-                "fused": fused, "mutate": mutate, "schedule": SCHED,
-                "num_filters": FILTERS,
-                "out": str(tmp_path / f"rank{rank}.pkl")}
-        path = tmp_path / f"spec{rank}.json"
-        path.write_text(json.dumps(spec))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(WORKER), str(path)], cwd=ROOT, env=_env(),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    try:
-        for rank, p in enumerate(procs):
-            log, _ = p.communicate(timeout=240)
-            assert p.returncode == 0, f"rank {rank}:\n{log}"
-            with open(tmp_path / f"rank{rank}.pkl", "rb") as f:
-                outs.append(pickle.load(f))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-    return outs
+    spec = {"variables": str(var_path), "batches": str(data_path),
+            "fused": fused, "mutate": mutate, "schedule": SCHED,
+            "num_filters": FILTERS}
+    return run_worker_ranks(tmp_path, spec, world)
 
 
 def _single_run(variables, batches, fused=False):
@@ -262,7 +243,7 @@ def _trainer_cli(args, nproc, timeout=300):
     return out
 
 
-def test_torchrun_two_ranks_match_world_one_at_twice_the_batch():
+def test_torchrun_two_ranks_match_world_one_at_twice_the_batch(tmp_path):
     b, test_size = 4, 21  # 21 divides by neither 2 nor 2b
     common = ["--device", "cpu", "--preset=resnet18_cifar10",
               "--model.fused_stages=all", "--model.fused_bwd=true",
@@ -270,8 +251,12 @@ def test_torchrun_two_ranks_match_world_one_at_twice_the_batch():
               "--data.augment=false", "--data.synthetic_train_size=16",
               f"--data.synthetic_test_size={test_size}", "--train.epochs=1",
               "--train.log_every=1"]
-    two = _trainer_cli(common + [f"--data.batch_size={b}"], nproc=2)
-    one = _trainer_cli(common + [f"--data.batch_size={2 * b}"], nproc=0)
+    two = _trainer_cli(common + [f"--data.batch_size={b}",
+                                 f"--train.ckpt_dir={tmp_path / 'two'}"],
+                       nproc=2)
+    one = _trainer_cli(common + [f"--data.batch_size={2 * b}",
+                                 f"--train.ckpt_dir={tmp_path / 'one'}"],
+                       nproc=0)
 
     def parse(out):
         lines = out.stdout.strip().splitlines()
@@ -288,9 +273,50 @@ def test_torchrun_two_ranks_match_world_one_at_twice_the_batch():
     assert abs(s2["final_train_loss"] - s1["final_train_loss"]) <= 1e-3
     assert (s2["world"], s2["backend"], s2["devices"]) == (2, "gloo", 2)
     assert (s1["world"], s1["backend"]) == (1, None)
-    assert s2["eval"]["count"] == s1["eval"]["count"] == test_size
-    assert s2["eval"]["accuracy"] == s1["eval"]["accuracy"]
-    assert abs(s2["eval"]["loss"] - s1["eval"]["loss"]) <= 1e-3
+    # The JAX package's count: world 2 counts the sampler's wraparound
+    # duplicate (22), world 1 counts each image once (21).
+    assert (s2["eval"]["count"], s1["eval"]["count"]) == (22, test_size)
+    # Each world's accuracy is the JAX package's for that world: its
+    # sampler and pipeline weights over the trained model's predictions.
+    for summary, world, ckpt in ((s2, 2, "two"), (s1, 1, "one")):
+        want = _jax_weighted_eval(tmp_path / ckpt, test_size, world)
+        assert summary["eval"]["count"] == want["count"]
+        assert summary["eval"]["accuracy"] == want["correct"] / want["count"]
+        assert abs(summary["eval"]["loss"] - want["loss"]) <= 1e-3
+
+
+def _jax_weighted_eval(ckpt_dir, n, world):
+    """count, correct and mean loss of the JAX package's eval at ``world``
+    (`tpu_dp.data` sampler shards and pipeline weights) over the
+    predictions of the model a CLI run saved in ``ckpt_dir``."""
+    model = build_model("resnet18", fused_stages=(0, 1, 2, 3),
+                        fused_bwd=True)
+    target = TrainState(step=0, model=model, optimizer=make_sgd(model))
+    ck.CheckpointManager(ckpt_dir).restore(target)
+    model.eval()
+    ds = load_dataset("synthetic", "./data", train=False,
+                      synthetic_num_examples=n, seed=0)
+    jds = JaxArrayDataset(ds.images, ds.labels.astype(np.int32), ds.name,
+                          ds.num_classes, ds.synthetic)
+    mesh = jax_dist.data_mesh(num_devices=1)
+    count = correct = loss_sum = 0.0
+    for rank in range(world):
+        pipe = JaxPipeline(jds, 4, mesh, shuffle=False, drop_remainder=False,
+                           prefetch=0, sampler=JaxSampler(
+                               n, num_shards=world, shard_id=rank,
+                               shuffle=False))
+        for batch in pipe._host_batches():
+            w = batch.get("weight", np.ones(len(batch["label"]), np.float32))
+            with torch.no_grad():
+                logits = model(normalize(torch.from_numpy(batch["image"])))
+            labels = torch.from_numpy(batch["label"]).long()
+            per = torch.nn.functional.cross_entropy(logits, labels,
+                                                    reduction="none")
+            count += w.sum()
+            correct += (w * (logits.argmax(-1) == labels).numpy()).sum()
+            loss_sum += (w * per.numpy()).sum()
+    return {"count": int(count), "correct": int(correct),
+            "loss": loss_sum / count}
 
 
 def test_initialize_reads_the_env_contract(monkeypatch):
@@ -388,7 +414,7 @@ def test_parallel_overrides_parse_and_refuse_devices():
 def test_pipeline_shards_equal_jax_sampler(world, n, batch, shuffle):
     ds = ArrayDataset(np.zeros((n, 32, 32, 3), np.uint8),
                       np.arange(n, dtype=np.int32), "t", 10)
-    seen = []
+    seen, streams = [], []
     for rank in range(world):
         pipe = DataPipeline(ds, batch, "cpu", shuffle=shuffle, seed=5,
                             drop_remainder=False, prefetch=0,
@@ -407,8 +433,13 @@ def test_pipeline_shards_equal_jax_sampler(world, n, batch, shuffle):
                                     if wt is None else wt
                                     for _, wt in takes])
                 seen.extend(np.concatenate([t for t, _ in takes])[w > 0])
-    # Weighted, the ranks' eval batches hold every example exactly once.
-    assert sorted(seen) == list(range(n))
+                streams.extend(want)
+    # Weighted, the ranks' eval batches hold the sampler's streams, as the
+    # JAX package weights them: every example, and the wraparound
+    # duplicates of a set that does not divide by the world (only the
+    # final batch's pad weighs 0).
+    assert sorted(seen) == sorted(streams)
+    assert set(seen) == set(range(n))
 
 
 def test_collectives_are_the_identity_without_a_group():

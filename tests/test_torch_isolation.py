@@ -1,5 +1,6 @@
-"""The port (`tpu_dp_torch`) and `chip_smoke.py` never reach JAX or the JAX
-package, and its entry points refuse to fall back to the CPU.
+"""The port (`tpu_dp_torch`) and `chip_smoke.py` never reach JAX, the JAX
+package, flax or msgpack, and its entry points refuse to fall back to the
+CPU.
 
 tests/conftest.py imports jax into every test process, so the runtime
 check runs in a fresh subprocess."""
@@ -24,7 +25,9 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "tpu_dp_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_dp")
+# msgpack too: the machine with the card has no msgpack package, so the
+# port carries its own codec (tpu_dp_torch/serialization.py).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_dp", "msgpack")
 
 
 def _modules() -> list[str]:
@@ -41,7 +44,9 @@ def test_every_module_imports_without_jax_or_tpu_dp():
     for m in ("tpu_dp_torch.ops.conv_block", "tpu_dp_torch.ops.xent",
               "tpu_dp_torch.serve.__main__", "tpu_dp_torch.train.trainer",
               "tpu_dp_torch.train.__main__", "tpu_dp_torch.parallel.dist",
-              "tpu_dp_torch.parallel.collectives"):
+              "tpu_dp_torch.parallel.collectives",
+              "tpu_dp_torch.checkpoint", "tpu_dp_torch.serialization",
+              "tpu_dp_torch.resilience.preempt", "tpu_dp_torch.models.net"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"

@@ -181,12 +181,12 @@ def test_augmentation_statistics():
 
 @pytest.mark.parametrize("knob", [
     "--train.update_sharding=sharded", "--train.steps_per_call=4",
-    "--optim.grad_accum_steps=2", "--train.resume=true",
+    "--optim.grad_accum_steps=2", "--resilience.snapshot_every_steps=5",
     "--guard.enabled=true", "--resilience.elastic=true",
-    "--obs.run_dir=x", "--train.obs=basic", "--train.ckpt_dir=/tmp/c",
+    "--obs.run_dir=x", "--train.obs=basic", "--train.profile_dir=p",
     "--model.fused_block_b=4", "--data.device_resident=on",
-    "--model.name=resnet50", "--resume", "--profile=t.json",
-    "--config=m.json", "--parallel.num_devices=2"])
+    "--model.name=resnet50", "--train.bucket_mb=4", "--profile=t.json",
+    "--data.sync_placement=true", "--parallel.num_devices=2"])
 def test_cli_refuses_unported_knobs(knob):
     with pytest.raises(NotPortedError):
         parse_cli(["--preset=resnet18_cifar10", knob])
@@ -201,8 +201,10 @@ def test_cli_presets_defaults_and_errors():
             cfg.optim.warmup_epochs, cfg.data.augment) == (
         "resnet18", 128, 0.1, 5e-4, "cosine", 1.0, True)
     assert cfg.model.fused_stages == "all" and cfg.model.fused_bwd
-    with pytest.raises(NotPortedError, match="model.name='net'"):
-        parse_cli(["--preset=reference"])
+    ref = parse_cli(["--preset=reference"])
+    assert (ref.model.name, ref.data.batch_size, ref.train.epochs,
+            ref.optim.lr) == ("net", 4, 2, 0.001)
+    assert parse_cli([]) == ref
     assert parse_cli(["--preset=reference",
                       "--model.name=resnet18"]).data.batch_size == 4
     with pytest.raises(ValueError, match="no field"):

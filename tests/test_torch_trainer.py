@@ -31,8 +31,8 @@ def _run(args, timeout=240):
         capture_output=True, text=True, timeout=timeout, env=env)
 
 
-def test_cli_trains_and_evaluates_on_cpu():
-    out = _run(["--device", "cpu", *SLICE,
+def test_cli_trains_and_evaluates_on_cpu(tmp_path):
+    out = _run(["--device", "cpu", *SLICE, f"--train.ckpt_dir={tmp_path}",
                 "--data.synthetic_train_size=16",
                 "--data.synthetic_test_size=16", "--data.batch_size=8",
                 "--train.epochs=1", "--train.log_every=1"])
@@ -49,12 +49,15 @@ def test_cli_trains_and_evaluates_on_cpu():
     assert math.isfinite(summary["final_train_loss"])
     assert 0.0 <= summary["eval"]["accuracy"] <= 1.0
     assert math.isfinite(summary["eval"]["loss"])
+    assert (tmp_path / "step_0000000002" / "meta.json").exists()
+    assert (tmp_path / "final_params.msgpack").exists()
 
 
-def test_cli_refuses_without_a_card_or_cpu_flag():
+def test_cli_refuses_without_a_card_or_cpu_flag(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the CLI would run on it")
-    out = _run(SLICE + ["--data.synthetic_train_size=16"], timeout=120)
+    out = _run(SLICE + ["--data.synthetic_train_size=16",
+                        f"--train.ckpt_dir={tmp_path}"], timeout=120)
     assert out.returncode == 2
     assert "no CUDA device" in out.stderr
     assert "Finished Training" not in out.stdout
@@ -73,8 +76,8 @@ def test_meter_counts_images_after_warmup_to_the_fence(monkeypatch):
     assert m.images_per_sec == 16 / 4
 
 
-def test_cli_refuses_an_unported_knob():
-    out = _run(["--device", "cpu", *SLICE, "--train.steps_per_call=8"],
-               timeout=120)
+def test_cli_refuses_an_unported_knob(tmp_path):
+    out = _run(["--device", "cpu", *SLICE, "--train.steps_per_call=8",
+                f"--train.ckpt_dir={tmp_path}"], timeout=120)
     assert out.returncode == 2
     assert "not ported" in out.stderr

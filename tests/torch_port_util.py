@@ -1,10 +1,53 @@
 """Shared inputs of the port's parity tests (tests/test_torch_*.py): JAX
-ResNet variables with randomized BatchNorm, as nested numpy dicts."""
+ResNet variables with randomized BatchNorm, as nested numpy dicts; and
+`run_worker_ranks`, which runs gloo ranks of `torch_ddp_worker.py`."""
 
 from __future__ import annotations
 
+import json
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+WORKER = Path(__file__).resolve().parent / "torch_ddp_worker.py"
+
+
+def run_worker_ranks(tmp_path, spec: dict, world: int, timeout=240) -> list:
+    """Run ``world`` ranks of torch_ddp_worker.py on ``spec`` (plus each
+    rank's ``rank``, ``world``, ``init`` — a ``file://`` rendezvous in
+    ``tmp_path`` — and ``out``), each under ``timeout``; returns each
+    rank's unpickled output."""
+    tmp_path = Path(tmp_path)
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    procs, outs = [], []
+    for rank in range(world):
+        full = dict(spec, rank=rank, world=world,
+                    init=f"file://{tmp_path / 'rendezvous'}",
+                    out=str(tmp_path / f"rank{rank}.pkl"))
+        path = tmp_path / f"spec{rank}.json"
+        path.write_text(json.dumps(full))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(WORKER), str(path)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        for rank, p in enumerate(procs):
+            log, _ = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"rank {rank}:\n{log[-4000:]}"
+            with open(tmp_path / f"rank{rank}.pkl", "rb") as f:
+                outs.append(pickle.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return outs
 
 
 def randomize_bn(tree, rng, _path=()):

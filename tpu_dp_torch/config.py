@@ -2,11 +2,14 @@
 
 Training: the `ModelConfig` / `DataConfig` / `OptimConfig` /
 `TrainConfig` / `ParallelConfig` fields the trainer implements, the presets and `parse_cli`
-(``--preset=name``, then ``--section.field=value``), with the JAX
-package's defaults and preset values. Every other field the JAX package
-knows is listed in `NOT_PORTED` with its default: setting one away from
-its default raises `NotPortedError`, and so does any field of a section
-the trainer does not read — a knob is never silently ignored.
+(``--preset=name`` or ``--config=file``, ``--resume``, then
+``--section.field=value``), with the JAX package's defaults and preset
+values. Every other field the JAX package knows is listed in `NOT_PORTED`
+or `NOT_PORTED_SECTIONS` with its default: setting one away from its
+default raises `NotPortedError` — a knob is never silently ignored.
+`Config.to_dict` writes every section of the JAX package's config (the
+unported fields at their defaults), so a checkpoint's ``meta.json`` loads
+in either package, and `Config.from_dict` reads one.
 
 Serving: the `ServeConfig` fields `InferenceEngine` takes and the two
 SLO-class parsers.
@@ -15,7 +18,9 @@ SLO-class parsers.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Sequence
 
 
@@ -25,7 +30,7 @@ class NotPortedError(ValueError):
 
 @dataclass
 class ModelConfig:
-    name: str = "net"  # the port trains resnet18 only
+    name: str = "net"  # net | resnet18
     num_classes: int | None = None  # None = derive from dataset; set = must agree
     bf16: bool = False  # compute dtype bfloat16 (params stay f32)
     # Stages whose stride-1 blocks run on the fused conv kernel: "" (off),
@@ -72,6 +77,10 @@ class TrainConfig:
     eval_at_end: bool = True
     eval_every_epochs: int = 0  # 0 = only at end
     pallas_xent: bool = False  # the fused softmax-xent kernels
+    ckpt_dir: str = "./checkpoints"
+    ckpt_keep: int = 3  # retained epoch checkpoints (0 = keep all)
+    ckpt_async: bool = True  # write checkpoints on a worker thread
+    resume: bool = False  # continue from the newest usable save
 
 
 @dataclass
@@ -122,13 +131,89 @@ class Config:
         setattr(section, field_name, _coerce(value, current))
 
     def to_dict(self) -> dict[str, Any]:
-        return dataclasses.asdict(self)
+        """Every section and field of the JAX package's config: the port's
+        values, the unported fields at their defaults."""
+        out = dataclasses.asdict(self)
+        for dotted, default in NOT_PORTED.items():
+            section, _, name = dotted.partition(".")
+            out[section][name] = default
+        for section, fields in NOT_PORTED_SECTIONS.items():
+            out[section] = dict(fields)
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Config":
+        """Rebuild from a `to_dict` dump of either package (a checkpoint's
+        meta ``config``). Unknown sections and fields raise `ValueError`;
+        an unported field away from its default raises `NotPortedError`;
+        values are coerced to and checked against the field's type."""
+        cfg = cls()
+        for section_name, fields in d.items():
+            if not isinstance(fields, dict):
+                raise ValueError(f"config section {section_name!r} must be "
+                                 f"an object, got {type(fields).__name__}")
+            if section_name in NOT_PORTED_SECTIONS:
+                known = NOT_PORTED_SECTIONS[section_name]
+                for name, value in fields.items():
+                    if name not in known:
+                        raise ValueError(
+                            f"unknown field {name!r} in {section_name}")
+                    _require_default(f"{section_name}.{name}", value,
+                                     known[name])
+                continue
+            if section_name not in _SECTIONS:
+                raise ValueError(f"unknown config section {section_name!r}")
+            section = getattr(cfg, section_name)
+            for name, value in fields.items():
+                dotted = f"{section_name}.{name}"
+                if dotted in NOT_PORTED:
+                    _require_default(dotted, value, NOT_PORTED[dotted])
+                    continue
+                if not hasattr(section, name):
+                    raise ValueError(
+                        f"unknown field {name!r} in {section_name}")
+                current = getattr(section, name)
+                setattr(section, name, _typed(dotted, value, current))
+        return cfg
 
 
 _SECTIONS = ("model", "data", "optim", "train", "parallel")
 
-#: Sections of the JAX package's config the trainer does not read yet.
-NOT_PORTED_SECTIONS = ("resilience", "guard", "obs", "serve")
+#: Sections of the JAX package's config the trainer does not read yet,
+#: with the JAX package's defaults (a meta.json carries them).
+NOT_PORTED_SECTIONS: dict[str, dict[str, Any]] = {
+    "resilience": {
+        "snapshot_every_steps": 0, "snapshot_keep": 2, "snapshot_dir": "",
+        "handle_signals": True, "max_retries": 2, "retry_base_delay_s": 0.05,
+        "fault": "", "io_retry_s": 3.1, "elastic": False,
+        "membership_dir": "", "regroup_timeout_s": 60.0,
+        "elastic_poll_every_steps": 1, "elastic_min_world": 1,
+        "elastic_coordinator_host": "", "elastic_verify_fingerprint": True,
+        "elastic_join": "auto", "elastic_join_timeout_s": 0.0,
+        "elastic_max_world": 0,
+    },
+    "guard": {
+        "enabled": False, "action": "skip", "spike_window": 64,
+        "spike_z": 8.0, "spike_min_steps": 16, "device_cap": True,
+        "max_rollbacks": 3, "lr_ease_steps": 0, "lr_ease_start": 0.1,
+        "sdc_every_steps": 0, "sdc_action": "halt", "quarantine_path": "",
+    },
+    "obs": {
+        "run_dir": "", "span_capacity": 4096, "heartbeat_every_steps": 1,
+        "straggler_factor": 3.0, "stale_after_s": 60.0, "min_step_ms": 1.0,
+        "on_straggler": "warn", "perfetto_path": "",
+        "flightrec_capacity": 2048, "prom_path": "",
+        "peak_flops_override": 0.0, "measure_flops": False,
+        "comm_profile_steps": "", "comm_profile_dir": "",
+    },
+    "serve": {
+        "buckets": "1,2,4,8,16,32", "max_wait_ms": 5.0, "max_queue": 256,
+        "slo_ms": 50.0, "shed_headroom_ms": 0.0, "obs_dir": "",
+        "replicas": 1, "run_dir": "", "stale_after_s": 2.0,
+        "max_retries": 1, "class_slo_ms": "", "class_floors": "",
+        "profile_batches": "", "profile_dir": "",
+    },
+}
 
 #: Fields of the ported sections that the port does not implement yet,
 #: with the JAX package's defaults (the only values that run).
@@ -140,10 +225,6 @@ NOT_PORTED: dict[str, Any] = {
     "data.sync_placement": False,
     "optim.grad_accum_steps": 1,
     "train.steps_per_call": 1,
-    "train.ckpt_dir": "./checkpoints",
-    "train.ckpt_keep": 3,
-    "train.ckpt_async": True,
-    "train.resume": False,
     "train.profile_dir": None,
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
@@ -175,19 +256,53 @@ def _coerce(value: str, current: Any):
     return value
 
 
+def _typed(dotted: str, value: Any, current: Any):
+    """``value`` from a JSON config, coerced to ``current``'s type (a
+    string as from the command line, an integral float as an int) and
+    checked against it."""
+    if isinstance(value, str) and current is not None and not isinstance(
+            current, str):
+        value = _coerce(value, current)
+    elif (isinstance(current, int) and not isinstance(current, bool)
+          and isinstance(value, float) and value.is_integer()):
+        value = int(value)
+    if current is None or value is None:
+        ok = value is None or isinstance(value, (str, int, float, bool))
+    elif isinstance(current, bool):
+        ok = isinstance(value, bool)
+    elif isinstance(current, float):
+        ok = isinstance(value, (int, float)) and not isinstance(value, bool)
+        value = float(value) if ok else value
+    elif isinstance(current, int):
+        ok = isinstance(value, int) and not isinstance(value, bool)
+    else:
+        ok = isinstance(value, type(current))
+    if not ok:
+        raise ValueError(f"{dotted}: {value!r} is not a "
+                         f"{type(current).__name__}")
+    return value
+
+
+def _require_default(dotted: str, value: Any, default: Any) -> None:
+    if _typed(dotted, value, default) != default:
+        raise NotPortedError(
+            f"{dotted}={value!r}: not ported to tpu_dp_torch yet (only the "
+            f"default {default!r} runs; ROADMAP.md)")
+
+
 def check_ported(cfg: Config) -> Config:
     """Raise `NotPortedError` for a configuration the port cannot run
-    (a model other than resnet18, the device-resident feed, more than one
-    device per process)."""
+    (a model other than net and resnet18, the device-resident feed, more
+    than one device per process)."""
     if cfg.parallel.num_devices not in (None, 1):
         raise NotPortedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: one "
             f"tpu_dp_torch process drives one device; run one process per "
             f"device (torchrun --nproc_per_node)")
-    if cfg.model.name.lower() != "resnet18":
+    if cfg.model.name.lower() not in ("net", "resnet18"):
         raise NotPortedError(
-            f"model.name={cfg.model.name!r}: tpu_dp_torch trains resnet18 "
-            f"only so far (ROADMAP.md)")
+            f"model.name={cfg.model.name!r}: tpu_dp_torch trains net and "
+            f"resnet18 only so far (ROADMAP.md)")
     if cfg.data.device_resident not in ("auto", "off", "on"):
         raise ValueError(f"data.device_resident must be auto|on|off, got "
                          f"{cfg.data.device_resident!r}")
@@ -199,8 +314,7 @@ def check_ported(cfg: Config) -> Config:
 
 
 def _preset_reference_single() -> Config:
-    """The reference's `Net`, batch 4, 2 epochs (``model.name=net`` is not
-    ported: pass ``--model.name=resnet18``)."""
+    """The reference's `Net`, batch 4, 2 epochs (reference parity)."""
     return Config()
 
 
@@ -224,31 +338,58 @@ PRESETS = {
 
 
 def parse_cli(argv: Sequence[str]) -> Config:
-    """``--preset=name``, then ``--section.field=value`` overrides, then
-    `check_ported`. ``--config``, ``--resume`` and ``--profile`` of the
-    JAX package's CLI raise `NotPortedError`."""
+    """``--preset=name`` or ``--config=file.json``, ``--resume``, then
+    ``--section.field=value`` overrides, then `check_ported`.
+
+    ``--config`` takes a bare `Config.to_dict` dump or a checkpoint's
+    ``meta.json`` (its ``config``), of either package; the ``parallel``
+    section is dropped (it describes the launch it came from). From a
+    meta, an explicit ``--train.ckpt_dir`` or ``--train.resume=true`` is
+    required: a reproduction must not write into the run it reproduces.
+    ``--resume`` (``=auto|true|latest``) sets ``train.resume``. The JAX
+    package's ``--profile`` raises `NotPortedError`."""
     cfg: Config | None = None
+    from_meta = False
     overrides: list[tuple[str, str]] = []
     for arg in argv:
         if not arg.startswith("--"):
             raise ValueError(f"unexpected argument {arg!r}")
         key, _, value = arg[2:].partition("=")
-        if key in ("config", "resume", "profile"):
+        if key in ("preset", "config") and cfg is not None:
+            raise ValueError("give at most one of --preset / --config")
+        if key == "profile":
             raise NotPortedError(f"--{key}: not ported to tpu_dp_torch yet")
         if key == "preset":
-            if cfg is not None:
-                raise ValueError("give at most one --preset")
             if value not in PRESETS:
                 raise ValueError(
                     f"unknown preset {value!r}; available: {sorted(PRESETS)}")
             cfg = PRESETS[value]()
+        elif key == "config":
+            payload = json.loads(Path(value).read_text())
+            if isinstance(payload.get("config"), dict):
+                payload = payload["config"]  # a checkpoint's meta.json
+                from_meta = True
+            payload.pop("parallel", None)  # environment, not experiment
+            cfg = Config.from_dict(payload)
+        elif key == "resume":
+            if value not in ("", "auto", "true", "1", "latest"):
+                raise ValueError(
+                    f"--resume takes auto|true|latest, got {value!r}")
+            overrides.append(("train.resume", "true"))
         else:
             overrides.append((key, value))
+    resume_on = any(k == "train.resume" and _coerce(v, False)
+                    for k, v in overrides)
+    new_ckpt_dir = any(k == "train.ckpt_dir" for k, _ in overrides)
+    if from_meta and not (new_ckpt_dir or resume_on):
+        raise ValueError(
+            "reproducing from checkpoint meta.json writes checkpoints; pass "
+            "--train.ckpt_dir=<new dir> (fresh reproduction) or "
+            "--train.resume=true (continue in place) explicitly")
     cfg = cfg or Config()
     for key, value in overrides:
         cfg.override(key, value)
     return check_ported(cfg)
-
 
 
 @dataclass

@@ -15,11 +15,16 @@ part of `tpu_dp.data.pipeline`).
 - A background thread keeps ``prefetch`` placed batches ahead of the
   consumer.
 - The final partial batch (eval, ``drop_remainder=False``) is padded by
-  wraparound to keep shapes static. A batch that holds any pad — this
-  tail, or the sampler's wraparound duplicates of a dataset that does not
-  divide by the shard count — carries a float ``weight`` mask (1.0 = real
-  example) that the eval step uses to exclude it, so eval counts each
-  example once across the ranks.
+  wraparound to keep shapes static, and carries a float ``weight`` mask
+  (1.0 = real example, then 0.0 for the pad) that the eval step uses to
+  exclude that pad from its counts and loss. The sampler's own wraparound
+  duplicates (a dataset that does not divide by the shard count) are real
+  examples here and count, as in the JAX package and in the reference's
+  ``DistributedSampler`` + torchmetrics eval: at world 2 a 21-image test
+  set counts 22.
+- ``skip_steps`` starts the epoch at a later step (the mid-epoch resume
+  position): step ``s`` always draws ``idx[s*B:(s+1)*B]``, wherever
+  iteration starts, so no batch is replayed and none is skipped.
 
 The JAX package's scan windows and its device-resident feed are not
 ported yet.
@@ -67,26 +72,23 @@ class DataPipeline:
             return shard // self.batch_size
         return -(-shard // self.batch_size)  # ceil
 
-    def _host_batches(self):
-        """Yield host-side batches (dicts of numpy index arrays and the
-        optional weight mask) for the current epoch."""
-        smp = self.sampler
-        idx = smp.shard_indices()
-        # Position of each index in the padded global stream: past the
-        # dataset's end it is one of the sampler's wraparound duplicates.
-        real = (smp.shard_id + smp.num_shards * np.arange(len(idx))
-                < smp.num_examples).astype(np.float32)
+    def _host_batches(self, skip_steps: int = 0):
+        """Yield host-side batches (numpy index arrays and the optional
+        weight mask) for the current epoch, from step ``skip_steps``."""
+        idx = self.sampler.shard_indices()
         per_step = self.batch_size
-        for s in range(len(self)):
+        for s in range(int(skip_steps), len(self)):
             take = idx[s * per_step:(s + 1) * per_step]
-            weight = real[s * per_step:(s + 1) * per_step]
+            weight = None
             if len(take) < per_step:
                 # Pad-by-wraparound for a static shape; the weight mask
-                # zeroes the pad out of the eval counts and loss.
+                # zeroes the pad out of the eval counts and loss. np.resize
+                # tiles the shard if the pad exceeds its length.
                 pad = per_step - len(take)
-                weight = np.concatenate([weight, np.zeros(pad, np.float32)])
+                weight = np.concatenate([np.ones(len(take), np.float32),
+                                         np.zeros(pad, np.float32)])
                 take = np.concatenate([take, np.resize(idx, pad)])
-            yield take, (None if weight.all() else weight)
+            yield take, weight
 
     def _place(self, take, weight):
         """Gather ``take`` into (pinned, on a card) host buffers and start
@@ -157,6 +159,7 @@ class DataPipeline:
             stop.set()
             t.join(timeout=5.0)
 
-    def __iter__(self):
+    def __iter__(self, skip_steps: int = 0):
         return self._prefetched(
-            self._place(take, w) for take, w in self._host_batches())
+            self._place(take, w)
+            for take, w in self._host_batches(skip_steps))

@@ -1,14 +1,16 @@
-"""Model zoo of the port: the CIFAR ResNet-18 (this slice).
+"""Model zoo of the port: the reference's `Net` and the CIFAR ResNet-18.
 
 `build_model` and `parse_fused_stages` keep the JAX package's names and
-contracts (`tpu_dp.models`); `Net` and ResNet-50 come in a later slice.
+contracts (`tpu_dp.models`); ResNet-50 comes in a later slice.
 """
 
 from __future__ import annotations
 
+from tpu_dp_torch.models.net import Net
 from tpu_dp_torch.models.resnet import ResNet, ResNet18
 
-_REGISTRY = {"resnet18": ResNet18}
+_REGISTRY = {"net": Net, "resnet18": ResNet18}
+_RESNETS = {"resnet18"}
 
 
 def parse_fused_stages(spec: str | None) -> tuple[int, ...]:
@@ -35,14 +37,19 @@ def build_model(name: str, num_classes: int = 10, **kwargs):
     ``num_filters``, ``dtype`` (a torch dtype), ``fused_stages``,
     ``fused_bwd``, ``generator`` (a seeded `torch.Generator` for the
     init), ``device`` and ``process_group`` (sync-BN over its ranks;
-    None: each process's own batch)."""
+    None: each process's own batch). `Net` takes no fused options: they
+    are dropped for it, as in the JAX package."""
+    key = name.lower()
     try:
-        factory = _REGISTRY[name.lower()]
+        factory = _REGISTRY[key]
     except KeyError:
         raise ValueError(
             f"unknown model {name!r}; available: {sorted(_REGISTRY)}"
         ) from None
+    if key not in _RESNETS:
+        for k in ("fused_stages", "fused_bwd"):
+            kwargs.pop(k, None)
     return factory(num_classes=num_classes, **kwargs)
 
 
-__all__ = ["ResNet", "ResNet18", "build_model", "parse_fused_stages"]
+__all__ = ["Net", "ResNet", "ResNet18", "build_model", "parse_fused_stages"]

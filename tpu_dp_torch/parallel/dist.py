@@ -208,6 +208,28 @@ def barrier() -> None:
         dist.barrier()
 
 
+def broadcast_one_to_all(x, group=None):
+    """Rank 0's ``x`` on every rank; the identity without a group.
+
+    ``x`` is a list of tensors (broadcast in place, one ``broadcast``
+    each: NCCL for CUDA tensors, gloo for CPU ones, as the group's backend
+    says) or any picklable object (``broadcast_object_list``, through the
+    rank's device under NCCL). Every rank passes the same kind of ``x``,
+    tensors of equal shapes and dtypes."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return x
+    if isinstance(x, list) and x and all(
+            isinstance(t, torch.Tensor) for t in x):
+        for t in x:
+            dist.broadcast(t, src=0, group=group)
+        return x
+    box = [x]
+    dev = (_ctx.device if _ctx is not None and _ctx.backend == "nccl"
+           else None)
+    dist.broadcast_object_list(box, src=0, group=group, device=dev)
+    return box[0]
+
+
 def describe(device=None) -> dict:
     """Topology summary for the run header: what this process drives, and
     its place in the group."""

@@ -3,7 +3,9 @@ port (of `python -m tpu_dp.serve`, single replica).
 
 Builds a freshly initialized f32 model from ``--seed`` (the fused
 ResNet-18, full width by default: every stride-1 BasicBlock conv on the
-hand-written CUDA kernel), serves ``--requests`` synthetic requests
+hand-written CUDA kernel), or with ``--ckpt=DIR`` serves a training
+checkpoint of either package (a ``step_*`` dir or a checkpoint root; the
+model comes from its meta), serves ``--requests`` synthetic requests
 through the whole pipeline on the CUDA card (``--device cpu`` runs it on
 the CPU with the kernels' plain versions) and prints the audited report
 JSON. f32 means f32: TF32 is switched off for cuDNN and matmuls.
@@ -45,6 +47,10 @@ def main(argv=None) -> int:
     ap.add_argument("--slo-ms", type=float, default=250.0,
                     help="per-request latency target")
     ap.add_argument("--model", default="resnet18")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve params from this checkpoint dir "
+                         "(from_checkpoint, params-only) instead of a "
+                         "fresh init")
     ap.add_argument("--num-filters", type=int, default=64)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -91,14 +97,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     def fresh(seed):
         gen = torch.Generator().manual_seed(seed)
-        return build_model(args.model, num_filters=args.num_filters,
-                           fused_stages=(0, 1, 2, 3), generator=gen)
+        width = ({} if args.model.lower() == "net"
+                 else {"num_filters": args.num_filters})
+        return build_model(args.model, fused_stages=(0, 1, 2, 3),
+                           generator=gen, **width)
 
-    engine = InferenceEngine(
-        fresh(args.seed), device=device, buckets=buckets,
-        max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
-        slo_ms=args.slo_ms, class_slo_ms=class_slo_ms,
-    )
+    common = dict(device=device, buckets=buckets,
+                  max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+                  slo_ms=args.slo_ms, class_slo_ms=class_slo_ms)
+    if args.ckpt:
+        try:
+            engine = InferenceEngine.from_checkpoint(args.ckpt, **common)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"serve: {e}", file=sys.stderr)
+            return 2
+    else:
+        engine = InferenceEngine(fresh(args.seed), **common)
     events = []
     if args.swap_at is not None:
         events.append((args.swap_at, "swap",

@@ -17,9 +17,10 @@ serve.shed[.reason] / serve.completed / serve.deadline_missed /
 serve.batches`` (+ per-class ``.c<k>`` twins) and the
 ``serve.batch_occupancy`` gauge in the process-wide registry.
 
-Checkpoint loading waits for the checkpoint port: the engine serves the
-weights the model holds (`tpu_dp_torch.compat.load_jax_variables` loads
-the JAX package's variables into it).
+`InferenceEngine.from_checkpoint` serves a training checkpoint of either
+package, params-only (`tpu_dp_torch.checkpoint.load_params_only`: the
+payload is verified, the optimizer state never converted); otherwise the
+engine serves the weights the model holds.
 """
 
 from __future__ import annotations
@@ -180,6 +181,33 @@ class InferenceEngine:
         return out
 
     # -- constructors ----------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir, model=None, **kwargs):
+        """Serve a training checkpoint: ``ckpt_dir`` is one ``step_*``
+        directory or a `CheckpointManager` root (its newest complete
+        save). Without ``model`` the model is rebuilt from the meta's
+        ``config``: ``resnet18`` with every stage on the fused kernel (the
+        port's serve path), ``net`` as it is. ``kwargs`` go to the
+        engine."""
+        from tpu_dp_torch.checkpoint import load_params_only, resolve_ckpt_dir
+        from tpu_dp_torch.compat import load_jax_variables
+        from tpu_dp_torch.models import build_model
+
+        ckpt_dir = resolve_ckpt_dir(ckpt_dir)
+        params, batch_stats, meta = load_params_only(ckpt_dir)
+        if model is None:
+            cfg = meta.get("config", {})
+            model_cfg = cfg.get("model", {})
+            name = model_cfg.get("name", "net")
+            num_classes = model_cfg.get("num_classes") or (
+                100 if cfg.get("data", {}).get("dataset") == "cifar100"
+                else 10)
+            model = build_model(name, num_classes=num_classes,
+                                fused_stages=(0, 1, 2, 3))
+        load_jax_variables(model, {"params": params,
+                                   "batch_stats": batch_stats})
+        return cls(model, **kwargs)
 
     @classmethod
     def from_serve_config(cls, model, serve_cfg, **kwargs):

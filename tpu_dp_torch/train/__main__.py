@@ -11,14 +11,20 @@ CPU (gloo) with ``--device cpu``:
     python -m torch.distributed.run --nproc_per_node=N \\
         -m tpu_dp_torch.train --device cpu --preset=... [...]
 
+With no arguments it is the reference preset (`Net`, batch 4, 2 epochs).
 ``data.batch_size`` is per rank. Any ported config field is overridable as
-``--section.field=value`` (`tpu_dp_torch.config`); a knob the port does
-not implement yet exits 2 with its `NotPortedError`. Each rank runs on
+``--section.field=value`` (`tpu_dp_torch.config`); ``--config=FILE`` (a
+dump or a checkpoint's ``meta.json``) and ``--resume`` work as in the
+repository's ``train.py``; a knob the port does not implement yet exits 2
+with its `NotPortedError`. Rank 0 saves a checkpoint after every epoch
+into ``train.ckpt_dir`` (default ``./checkpoints``) and the final params
+into ``final_params.msgpack`` there. Each rank runs on
 ``cuda:LOCAL_RANK`` unless ``--device`` names another device; without a
 card and without ``--device cpu`` it exits 2. Rank 0 ends with one JSON
 line: model, dataset, synthetic, devices, world, backend,
 images_per_sec (global), images_per_sec_per_card, wall_time_s,
-final_train_loss, eval.
+final_train_loss, eval, start_epoch and resumed_from (null on a fresh
+run).
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ def main(argv=None) -> int:
         try:
             cfg = parse_cli(rest)
             trainer = Trainer(cfg, device=device)
-        except (ValueError, RuntimeError) as e:
+        except (ValueError, RuntimeError, OSError) as e:
             print(f"train: {e}", file=sys.stderr)
             return 2
         result = trainer.fit()
@@ -72,6 +78,8 @@ def main(argv=None) -> int:
             "final_train_loss": round(result["history"][-1]["loss"], 4)
             if result["history"] else None,
             "eval": result.get("eval"),
+            "start_epoch": result["start_epoch"],
+            "resumed_from": result["resumed_from"],
         }
         print(json.dumps(summary), flush=True)
         return 0

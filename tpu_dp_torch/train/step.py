@@ -3,7 +3,9 @@
 `make_train_step` is the training hot path: normalize → augment keyed by
 the step → forward/backward → SGD update with the schedule's learning rate
 for this update, on a batch already on the device. `make_eval_step` is the
-running-statistics forward with a masked tail; `make_serve_step` is the
+running-statistics forward with a masked tail (the final batch's
+static-shape pad weighs 0; the sampler's wraparound duplicates count, as
+in the JAX package); `make_serve_step` is the
 serving hot path, one step per padded bucket size. Steps return device
 tensors and never wait on the device, so the host runs ahead of the card
 until the caller fetches a value.

@@ -4,37 +4,59 @@ Trainer.fit`, one process per device, data-parallel across processes.
 `Trainer(cfg, device)` joins the process group (`parallel.dist.
 initialize`: the launcher's env contract or the ``parallel`` section;
 alone when neither is there), builds the data (train and test
-`DataPipeline`s on this rank's shard), the ResNet-18 (seeded init, sync-BN
-over the group), SGD and the schedule — total steps = steps per epoch ×
-epochs, warmup = ``warmup_epochs`` × steps per epoch — and the train and
-eval steps. With a group the model trains under `step.data_parallel`'s
-DDP, and every metric is global: the batch is ``data.batch_size`` per
-rank, the global batch that times the world (`global_batch_size`).
+`DataPipeline`s on this rank's shard), the model (`Net` or ResNet-18;
+seeded init, sync-BN over the group), SGD and the schedule — total
+steps = steps per epoch × epochs, warmup = ``warmup_epochs`` × steps per
+epoch — and the train and eval steps. With a group the model trains
+under `step.data_parallel`'s DDP, and every metric is global: the batch
+is ``data.batch_size`` per rank, the global batch that times the world
+(`global_batch_size`).
 `fit` runs the epochs, prints the reference-format ``[epoch, step]
 loss:`` line every ``train.log_every`` steps and a line per epoch,
 evaluates at the end and prints ``Finished Training`` and the accuracy
 line; rank 0 alone prints.
 
+Checkpoints (`tpu_dp_torch.checkpoint`, the JAX package's format): rank 0
+saves after every epoch into ``train.ckpt_dir`` (``step_<n>`` dirs, meta
+``{"epoch", "config", "seed"}``, the host snapshot taken on the training
+thread and written on a worker thread), and exports ``final_params.
+msgpack`` at the end; a failed write is logged and training goes on. With
+``train.resume`` the newest usable save (epoch checkpoints, and snapshot-
+kind saves under ``<ckpt_dir>/snapshots``) is restored before training:
+rank 0 reads it and broadcasts the state and the position, every rank
+then holds bit-identical parameters, buffers, momentum and step (checked),
+and `fit` starts at the saved position: the next epoch after an epoch
+checkpoint, the step after a snapshot's ``steps_done`` (the sampler skips
+the steps already taken). The restored step drives the schedule and the
+augmentation key (seed, step, rank).
+
 The loop never waits on the device inside an epoch: losses and correct
 counts stay device tensors until a log line or the epoch's end fetches
-them. Checkpoints, resume, guardrails, elastic world size and telemetry
-are not ported yet.
+them. The snapshot cadence, preemption, guardrails, elastic world size
+and telemetry are not ported yet.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import time
+from pathlib import Path
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
+from tpu_dp_torch import checkpoint as ckpt_lib
+from tpu_dp_torch.compat import export_params
 from tpu_dp_torch.config import Config, check_ported
 from tpu_dp_torch.data.augment import make_augment_fn
 from tpu_dp_torch.data.cifar import load_dataset
 from tpu_dp_torch.data.pipeline import DataPipeline
 from tpu_dp_torch.models import build_model, parse_fused_stages
-from tpu_dp_torch.parallel.dist import initialize
+from tpu_dp_torch.obs.counters import counters as _counters
+from tpu_dp_torch.parallel.dist import broadcast_one_to_all, initialize
+from tpu_dp_torch.resilience import resume_latest
 from tpu_dp_torch.train.optim import make_sgd
 from tpu_dp_torch.train.schedule import make_schedule
 from tpu_dp_torch.train.step import (
@@ -125,6 +147,18 @@ class Trainer:
         #: every update's global loss, fetched once per epoch (host floats).
         self.step_losses: list[float] = []
 
+        self.ckpt_mgr = ckpt_lib.CheckpointManager(
+            cfg.train.ckpt_dir, keep=cfg.train.ckpt_keep,
+            async_save=cfg.train.ckpt_async)
+        # The JAX package's snapshot root (`resilience.snapshot_dir`'s
+        # default): read on resume; the port writes no snapshots yet.
+        self.snapshot_dir = str(Path(cfg.train.ckpt_dir) / "snapshots")
+        self.start_epoch = 0
+        self.start_step = 0  # step within start_epoch (mid-epoch resume)
+        self.resumed_from: str | None = None
+        if cfg.train.resume:
+            self._maybe_resume()
+
     @property
     def num_devices(self) -> int:
         """Devices in the run: one per rank."""
@@ -139,12 +173,121 @@ class Trainer:
         if self.ctx.is_main_process:
             print(msg, flush=True)
 
-    def train_epoch(self, epoch: int) -> dict[str, float]:
+    # -- checkpoints and resume ----------------------------------------
+
+    def _resume_position(self, meta: dict) -> tuple[int, int]:
+        """(start_epoch, start_step) a restored save's meta encodes: the
+        next epoch after an epoch checkpoint; the same epoch at
+        ``steps_done`` after a snapshot (the next epoch when it was taken
+        at the epoch's end)."""
+        if meta.get("kind") == "snapshot":
+            epoch = int(meta.get("epoch", 0))
+            step = int(meta.get("steps_done", 0))
+            spe = len(self.train_pipe)
+            if spe and step >= spe:
+                return epoch + 1, 0
+            return epoch, step
+        return int(meta.get("epoch", -1)) + 1, 0
+
+    def _maybe_resume(self) -> None:
+        """Restore the newest usable save, agreed across the ranks: rank 0
+        reads it (`resume_latest`: a corrupt candidate is quarantined and
+        the next older one restores) and broadcasts the state and the
+        position. Nothing to resume from, or every candidate unreadable:
+        a fresh start, logged."""
+        cfg = self.cfg
+        info = None
+        if self.ctx.is_main_process:
+            try:
+                _, meta, source = resume_latest(
+                    self.state, cfg.train.ckpt_dir, self.snapshot_dir)
+                info = (self._resume_position(meta), str(source))
+            except FileNotFoundError:
+                pass
+            except RuntimeError:
+                log.warning("resume: every candidate unreadable — starting "
+                            "fresh", exc_info=True)
+        if self.ctx.world > 1:
+            info = broadcast_one_to_all(info)
+            if info is not None:
+                self._broadcast_state()
+        if info is None:
+            return
+        (self.start_epoch, self.start_step), self.resumed_from = info
+        log.info("resumed from %s at epoch %d step-in-epoch %d (global "
+                 "step %d)", self.resumed_from, self.start_epoch,
+                 self.start_step, self.state.step)
+
+    def _replica_tensors(self) -> list[torch.Tensor]:
+        """Parameters, buffers and momentum buffers, in one fixed order."""
+        out = list(self.model.state_dict().values())
+        if any(g.get("momentum", 0.0) for g in self.optimizer.param_groups):
+            for p in self.model.parameters():
+                st = self.optimizer.state[p]
+                if st.get("momentum_buffer") is None:
+                    st["momentum_buffer"] = torch.zeros_like(p)
+                out.append(st["momentum_buffer"])
+        return out
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's restored state on every rank (in place), then a check
+        that every rank holds the same bytes and step."""
+        tensors = broadcast_one_to_all(self._replica_tensors())
+        self.state.step = broadcast_one_to_all(self.state.step)
+        h = hashlib.sha256(str(self.state.step).encode())
+        for t in tensors:
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+        digests = [None] * self.ctx.world
+        dist.all_gather_object(digests, h.hexdigest())
+        if len(set(digests)) != 1:
+            raise RuntimeError("resume: the ranks' states differ after the "
+                               "broadcast")
+
+    def _ckpt_write_error(self, err: BaseException) -> None:
+        """A failed checkpoint or export write costs durability, loudly —
+        never the run."""
+        _counters.inc("ckpt.write_errors")
+        log.warning("checkpoint write failed (%s) — training continues; "
+                    "resume falls back to the newest earlier complete save",
+                    err)
+
+    def _save_epoch(self, epoch: int) -> None:
+        """The epoch checkpoint (rank 0 writes; the unwrapped module, so no
+        ``module.`` reaches the file)."""
+        meta = {"epoch": epoch, "config": self.cfg.to_dict(),
+                "seed": self.cfg.train.seed}
+        try:
+            self.ckpt_mgr.save(self.state, meta)
+        except (RuntimeError, OSError) as e:
+            self._ckpt_write_error(e)
+
+    def _export_final(self) -> None:
+        """Join the last epoch save, then write ``final_params.msgpack``."""
+        try:
+            self.ckpt_mgr.wait()
+        except RuntimeError as e:
+            self._ckpt_write_error(e)
+        try:
+            ckpt_lib.save_params(
+                Path(self.cfg.train.ckpt_dir) / "final_params.msgpack",
+                export_params({k: p.detach().cpu() for k, p in
+                               self.model.named_parameters()}))
+        except OSError as e:
+            self._ckpt_write_error(e)
+
+    # -- training --------------------------------------------------------
+
+    def train_epoch(self, epoch: int, start_step: int = 0
+                    ) -> dict[str, float]:
+        """One epoch; ``start_step`` > 0 resumes it after that many steps
+        (no batch replayed, none skipped)."""
         cfg = self.cfg
         self.train_pipe.set_epoch(epoch)
         run_loss, run_steps = None, 0  # device-side running-loss sum
         losses, correct, count = [], None, 0
-        for i, batch in enumerate(self.train_pipe):
+        batches = self.train_pipe.__iter__(skip_steps=start_step)
+        for i, batch in enumerate(batches, start=start_step):
             m = self.train_step(self.state, batch)
             losses.append(m["loss"])
             correct = m["correct"] if correct is None else correct + m[
@@ -170,7 +313,9 @@ class Trainer:
 
     def evaluate(self) -> dict[str, float]:
         """Test accuracy, loss and example count over every rank's shard,
-        with one fetch from the device."""
+        with one fetch from the device. The count is the JAX package's: the
+        sampler's wraparound duplicates (a test set that does not divide by
+        the world) count, the final batch's static-shape pad does not."""
         correct = count = loss_sum = None
         for batch in self.test_pipe:
             m = self.eval_step(batch)
@@ -199,20 +344,25 @@ class Trainer:
                  cfg.train.epochs)
         t0 = time.perf_counter()
         history = []
-        for epoch in range(cfg.train.epochs):
-            stats = self.train_epoch(epoch)
+        for epoch in range(self.start_epoch, cfg.train.epochs):
+            stats = self.train_epoch(
+                epoch, self.start_step if epoch == self.start_epoch else 0)
             history.append(stats)
             self._print("epoch %d: train loss %.4f acc %.4f (%.1f img/s)"
                         % (epoch + 1, stats["loss"], stats["accuracy"],
                            self.meter.images_per_sec))
+            self._save_epoch(epoch)
             every = cfg.train.eval_every_epochs
             if every and (epoch + 1) % every == 0:
                 ev = self.evaluate()
                 self._print("epoch %d: eval loss %.4f acc %.4f"
                             % (epoch + 1, ev["loss"], ev["accuracy"]))
         self._print("Finished Training")
+        self._export_final()
         result: dict[str, Any] = {
             "history": history,
+            "start_epoch": self.start_epoch,
+            "resumed_from": self.resumed_from,
             "wall_time_s": time.perf_counter() - t0,
             # The meter counts global images (every rank's batch).
             "images_per_sec": self.meter.images_per_sec,
