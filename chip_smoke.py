@@ -93,7 +93,25 @@ Phases, in order; any failure exits non-zero before the last line:
    card-vs-CPU `Net` forward and gradient from one seed within 1e-4 of
    max|.|, and 1 + 1 xent launches a step with ``--train.pallas_xent=
    true``; every save goes to a temporary directory;
-9. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+9. windows (``train.steps_per_call``) and ``optim.grad_accum_steps``, run
+   last: (f) the xent kernels' one-CTA route at [128, 10] within 1e-6 of
+   the plain versions, the mean bit-identical across 100 launches and 3
+   CUDA-graph replays, an empty kernel's device time (the launch floor),
+   and both routes' device time by batch; on the fused full-width
+   ResNet-18, f32, B=128, cuDNN deterministic: (a) 40 eager updates against
+   windows of 10 (an eager warm-up window, then one capture replayed 3
+   times), per-update losses, final state (parameters, BN statistics,
+   momentum) and eval bit-identical, the books per update from the captured
+   counts × replays and per replay by kernel name under the profiler; (c)
+   eager step ms against windowed ms per update, images/s by the fenced
+   meter, device busy share and ops per update, host ms per window, the
+   capture's ms and bytes; at world 1 on NCCL: (d) phase 7b's run with
+   windows of 10, bit-identical to its eager run, and DDP's added ms per
+   update both ways; (b) ``grad_accum_steps=2`` at B=64, eager against
+   windowed, bit-identical, 2 × (20 + 1 + 1) launches and one DDP
+   all-reduce set per update; (e) phase 8's interrupted and resumed run with
+   windows of 5, bit-identical to the uninterrupted one;
+10. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only ddp_nccl_world1,ddp_nccl_multi_card`` runs
 the header, the build and the named phases alone (a four-card machine's
@@ -147,8 +165,9 @@ RAGGED_B = (1, 3, 127)
 #: one train step's 10 input-grad launches, by stage.
 INPUT_GRAD_STAGES = (0, 0, 0, 0, 1, 1, 2, 2, 3, 3)
 XENT_CLASSES = (10, 100)
-#: batches of the xent batch-mean checks (C = 10); timed at TRAIN_B.
-XENT_MEAN_B = (1, 7, TRAIN_B, 1000)
+#: batches of the xent batch-mean checks (C = 10; the last above the
+#: one-CTA route's rows); timed at TRAIN_B.
+XENT_MEAN_B = (1, 7, TRAIN_B, 1000, 4096)
 TRAIN_STEPS = 30
 #: phase 7: updates of the two-rank parity runs, their ranks, and the
 #: schedule of the preset's first steps (cosine, 1 warmup step of 30).
@@ -280,10 +299,30 @@ def phase_build(out):
     out["conv_instances"] = conv_instances(info["conv_block"]["log"])
     for inst in out["conv_instances"]:
         print("[build] " + json.dumps(inst))
+    out["xent_ptxas"] = ptxas_lines(info["xent"]["log"], "xent_")
+    for name, lines in out["xent_ptxas"].items():
+        print(f"[build] {name}: {' | '.join(lines)}")
     spills = [i for i in out["conv_instances"] if i["spill_bytes"]]
     print(f"[build] total {out['build_s']} s; "
           f"{len(out['conv_instances'])} conv instances, "
           f"{len(spills)} with spills")
+
+
+def ptxas_lines(log: str, key: str) -> dict:
+    """ptxas's report lines (registers, stack frame, spills) of each entry
+    function whose name holds ``key``."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1) if key in m.group(1) else None
+            if cur:
+                out[cur] = []
+        elif cur and ("registers" in line or "stack frame" in line):
+            out[cur].append(line.split("ptxas info    :")[-1].strip())
+    return out
 
 
 def conv_instances(log: str) -> list:
@@ -1868,6 +1907,518 @@ def phase_ddp_nccl_multi_card(out):
     print("[ddp_nccl_multi_card] " + json.dumps(out["ddp_nccl_multi_card"]))
 
 
+def _first_window(pipe, k):
+    """The first ``(n, pool)`` of ``pipe.windows(k)``, its prefetcher
+    stopped."""
+    it = pipe.windows(k)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def _fit_books(trainer) -> tuple[dict, dict]:
+    """``trainer.fit()`` with every book set to 0 just before; returns the
+    result and the launches and collectives that RAN: the wrappers'
+    counts, which tick at capture, less the capture's own ticks, plus the
+    captured window's books once per replay (`MultiStep`)."""
+    import torch
+
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+    from tpu_dp_torch.parallel import collectives
+    from tpu_dp_torch.train.step import launch_books
+
+    cb.reset_launches()
+    tx.reset_launches()
+    collectives.reset_counts()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    ran = launch_books()
+    ms = trainer.multi_step
+    if ms is not None and ms.captured is not None:
+        for k, v in ms.captured.items():
+            ran[k] += v * (ms.replays - 1)
+    return result, ran
+
+
+def _per_update_ok(ran, updates, evals, accum=1) -> bool:
+    """The launches that ran equal ``updates`` updates' books: 20 conv
+    (10 ``emit_stats`` + 10 input-grad) and 1 + 1 xent per microbatch, 10
+    conv per eval forward."""
+    want = {"conv.stats": 10 * accum * updates,
+            "conv.input_grad": 10 * accum * updates,
+            "xent.forward": accum * updates,
+            "xent.backward": accum * updates, "conv.eval": 10 * evals}
+    return all(ran[k] == v for k, v in want.items())
+
+
+def _profiled_books(fn, books, n=2):
+    """Kernels by name per call of ``fn`` under the profiler (CUDA activity
+    alone), in up to three sessions while a count falls below ``books``
+    (the profiler loses records now and then, never adds them)."""
+    sessions = []
+    for _ in range(3):
+        p = profile_forward(fn, n, cuda_only=True, keep_all=True)
+        by_name = {k: sum(v["count_per_call"] for name, v in p["all"].items()
+                          if k in name.lower()) for k in books}
+        sessions.append({"by_name": by_name,
+                         "nccl_per_call": sum(
+                             v["count_per_call"] for name, v in
+                             p["all"].items() if "nccl" in name.lower()),
+                         "device_ops_per_call": p["kernel_launches_per_call"],
+                         "device_busy_share": p["device_busy_share"],
+                         "wall_us_per_call": p["wall_us_per_call"],
+                         "device_busy_us_per_call":
+                             p["device_busy_us_per_call"]})
+        if by_name == books or any(by_name[k] > v for k, v in books.items()):
+            break
+    return by_name == books, sessions
+
+
+def _windows_xent(out, rec, checks):
+    """9(f): the xent kernels' one-CTA route at [128, 10]: within 1e-6 of
+    the plain versions, the mean bit-identical across 100 launches and 3
+    replays of a CUDA graph of forward + backward, the launch floor (an
+    empty kernel's device time), and forward and backward device time by
+    batch on both routes (the one-CTA threshold)."""
+    import ctypes
+
+    import torch
+
+    from tpu_dp_torch.ops import _build
+    from tpu_dp_torch.ops import xent as tx
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, c = TRAIN_B, XENT_CLASSES[0]
+    lg = 3.0 * torch.randn(b, c, generator=gen, device="cuda")
+    lb = torch.randint(0, c, (b,), generator=gen, device="cuda")
+    ct = torch.tensor(1.3, device="cuda")
+    loss, d = tx._fwd(lg, lb, True), tx._bwd(lg, lb, ct, True)
+    losses = [tx._fwd(lg, lb, True) for _ in range(100)]
+    grads = [tx._bwd(lg, lb, ct, True) for _ in range(100)]
+    rl = tx._plain_fwd(lg, lb).mean()
+    rd = tx._plain_bwd(lg, lb, (ct / b).expand(b))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tx._fwd(lg, lb, True)
+        tx._bwd(lg, lb, ct, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        g_loss = tx._fwd(lg, lb, True)
+        g_d = tx._bwd(lg, lb, ct, True)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(torch.equal(g_loss, loss) and torch.equal(g_d, d))
+    torch.cuda.synchronize()
+    lib = _build.load("xent")
+    empty = lib.tpu_dp_empty_kernel
+    empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+
+    def floor():
+        # One block of the one-CTA launches' size at [128, 10].
+        if empty(b, torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("empty kernel launch failed")
+
+    x = {"shape": [b, c],
+         "fwd_rel_err": ((loss - rl).abs() / rl.abs()).item(),
+         "bwd_rel_err": ((d - rd).abs().max() / rd.abs().max()).item(),
+         "fwd_bit_identical_100_launches": all(torch.equal(v, loss)
+                                               for v in losses),
+         "bwd_bit_identical_100_launches": all(torch.equal(v, d)
+                                               for v in grads),
+         "graph_replays_bit_identical": replays,
+         "floor_ms": device_ms(floor), "floor_launch_loop_ms":
+             cuda_loop_ms(floor),
+         "fwd_ms": device_ms(lambda: tx._fwd(lg, lb, True)),
+         "bwd_ms": device_ms(lambda: tx._bwd(lg, lb, ct, True))}
+    sweep = {}
+    saved = tx.ONE_CTA_MAX_ROWS
+    try:
+        for nb in (128, 256, 512, 1024, 4096):
+            lgb = 3.0 * torch.randn(nb, c, generator=gen, device="cuda")
+            lbb = torch.randint(0, c, (nb,), generator=gen, device="cuda")
+            row = {}
+            for route, limit in (("one_cta", 1 << 30), ("multi_block", 0)):
+                tx.ONE_CTA_MAX_ROWS = limit
+                row[route] = {
+                    "fwd_ms": device_ms(lambda: tx._fwd(lgb, lbb, True)),
+                    "bwd_ms": device_ms(lambda: tx._bwd(lgb, lbb, ct,
+                                                        True))}
+            sweep[nb] = row
+    finally:
+        tx.ONE_CTA_MAX_ROWS = saved
+    x["by_batch"] = sweep
+    # The ticket counters refuse to be made inside a capture (a fresh
+    # stream has none yet).
+    from tpu_dp_torch.ops import _tickets
+
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(),
+                              stream=torch.cuda.Stream()):
+            _tickets.tickets(torch.device("cuda", 0), 1)
+        x["tickets_refused_inside_capture"] = False
+    except RuntimeError as e:
+        x["tickets_refused_inside_capture"] = (
+            "inside a CUDA graph capture" in str(e))
+    rec["xent"] = x
+    out["xent_floor_ms"] = x["floor_ms"]
+    checks.update({
+        "xent_one_cta_within_1e-6": x["fwd_rel_err"] <= 1e-6
+        and x["bwd_rel_err"] <= 1e-6,
+        "xent_mean_bit_identical_100_launches":
+            x["fwd_bit_identical_100_launches"]
+            and x["bwd_bit_identical_100_launches"],
+        "xent_bit_identical_3_graph_replays": all(replays),
+        "tickets_refused_inside_capture":
+            x["tickets_refused_inside_capture"],
+    })
+    print("[windows] xent " + json.dumps(x))
+
+
+def _win_args(updates, batch=TRAIN_B, k=1, extra=()):
+    return ["--preset=resnet18_cifar10", "--model.fused_stages=all",
+            "--model.fused_bwd=true", "--train.pallas_xent=true",
+            "--data.dataset=synthetic", f"--data.batch_size={batch}",
+            f"--data.synthetic_train_size={updates * TRAIN_B}",
+            f"--data.synthetic_test_size={2 * TRAIN_B}",
+            "--train.epochs=1", "--train.log_every=10",
+            f"--train.steps_per_call={k}", *extra]
+
+
+def phase_windows(out):
+    """9: ``train.steps_per_call`` as CUDA-graph windows, and
+    ``optim.grad_accum_steps``, on the fused full-width ResNet-18 (Train
+    configuration, f32, B=128, cuDNN deterministic): (f) the xent kernels'
+    one-CTA route; (a) 40 eager updates against windows of 10 (one eager
+    warm-up window, then one capture replayed 3 times) from the same init:
+    per-update losses, final parameters, BN statistics, momentum and the
+    eval bit-identical, the books per update from the captured counts ×
+    replays, and by kernel name under the profiler per replay; (c) speed in
+    the same call: eager step ms and windowed ms per update (CUDA events
+    over whole windows), images/s by the fenced meter, device busy share
+    and ops per update under the profiler, host ms per window, capture ms
+    and the bytes it holds; then at world 1 on NCCL through `initialize()`
+    and the env contract: (d) phase 7b's `Trainer` with windows of 10
+    against its eager run, bit-identical, and DDP's added ms per update
+    eager and windowed; (b) ``grad_accum_steps=2`` at B=64, eager against
+    windowed, bit-identical, 2 × (20 + 1 + 1) launches and one DDP
+    all-reduce set per update; (e) phase 8's interrupted and resumed run
+    with windows of 5, bit-identical to the uninterrupted one."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.parallel.dist import shutdown
+    from tpu_dp_torch.train.step import make_multi_step, make_train_step
+    from tpu_dp_torch.train.trainer import Trainer
+    from tpu_dp_torch.utils.meter import ThroughputMeter
+
+    k, updates = 10, 40
+    checks, rec = {}, {"card": out["card"], "k": k}
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_windows_")
+    try:
+        _windows_xent(out, rec, checks)
+        # (a) parity and books, one card, no group.
+        torch.cuda.reset_peak_memory_stats()
+        peak0 = torch.cuda.max_memory_allocated()
+        win = Trainer(parse_cli(_win_args(updates, k=k) + [
+            f"--train.ckpt_dir={os.path.join(tmp.name, 'win')}"]),
+            device="cuda")
+        res_w, ran_w = _fit_books(win)
+        peak_w = torch.cuda.max_memory_allocated()
+        eager = Trainer(parse_cli(_win_args(updates) + [
+            f"--train.ckpt_dir={os.path.join(tmp.name, 'eager')}"]),
+            device="cuda")
+        res_e, ran_e = _fit_books(eager)
+        ms = win.multi_step
+        evals = len(win.test_pipe)
+        checks.update({
+            "a_windowed": ms is not None and ms.graph is not None
+            and ms.eager_windows == 1 and ms.replays == updates // k - 1,
+            "a_losses_bit_identical": win.step_losses == eager.step_losses
+            and len(win.step_losses) == updates,
+            "a_state_bit_identical": _same_state(_flat_state(win),
+                                                 _flat_state(eager)),
+            "a_eval_identical": res_w["eval"] == res_e["eval"],
+            "a_losses_finite_and_fall": all(math.isfinite(v)
+                                            for v in win.step_losses)
+            and statistics.mean(win.step_losses[-5:])
+            < statistics.mean(win.step_losses[:5]),
+            "a_books_windowed": _per_update_ok(ran_w, updates, evals),
+            "a_books_eager": _per_update_ok(ran_e, updates, evals),
+            "a_captured_is_one_window": ms.captured is not None and {
+                n: ms.captured[n] for n in ("conv.stats", "conv.input_grad",
+                                            "xent.forward", "xent.backward")}
+            == {"conv.stats": 10 * k, "conv.input_grad": 10 * k,
+                "xent.forward": k, "xent.backward": k},
+        })
+        rec["a"] = {"losses": win.step_losses, "eval": res_w["eval"],
+                    "ran_windowed": ran_w, "ran_eager": ran_e,
+                    "captured": ms.captured, "replays": ms.replays,
+                    "eager_windows": ms.eager_windows}
+        # Books per replay by kernel name, and (c) speed, same model.
+        _, pool = _first_window(win.train_pipe, k)
+        batch = next(iter(eager.train_pipe))
+        books = {"conv_block_kernel": 20 * k, "xent_fwd": k, "xent_bwd": k}
+        ok, sessions = _profiled_books(
+            lambda: win.multi_step(win.state, pool), books)
+        checks["a_profiled_books_per_replay"] = ok
+        eager_prof = profile_forward(
+            lambda: eager.train_step(eager.state, batch), 5, cuda_only=True)
+        win_prof = sessions[-1]
+        eager_ms = cuda_median_ms(
+            lambda: eager.train_step(eager.state, batch), reps=20)
+        win_ms = cuda_median_ms(lambda: win.multi_step(win.state, pool),
+                                reps=10) / k
+        host = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            win.multi_step(win.state, pool)
+            host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        meters = {}
+        for name, fn, n, imgs in (
+                ("eager", lambda: eager.train_step(eager.state, batch), 22,
+                 TRAIN_B),
+                ("windowed", lambda: win.multi_step(win.state, pool), 5,
+                 k * TRAIN_B)):
+            meter = ThroughputMeter(warmup_steps=2, device="cuda")
+            for _ in range(n):
+                fn()
+                meter.step(imgs)
+            meter.mark()
+            meters[name] = meter.images_per_sec
+        rec["c"] = {
+            "eager_step_ms": eager_ms, "windowed_ms_per_update": win_ms,
+            "images_per_s_meter": meters,
+            "fit_images_per_s": {"eager": res_e["images_per_sec"],
+                                 "windowed": res_w["images_per_sec"]},
+            "eager_device_busy_share": eager_prof["device_busy_share"],
+            "eager_device_ops_per_update":
+                eager_prof["kernel_launches_per_call"],
+            "windowed_device_busy_share": win_prof["device_busy_share"],
+            "windowed_device_ops_per_update":
+                win_prof["device_ops_per_call"] / k,
+            "windowed_device_busy_us_per_update":
+                win_prof["device_busy_us_per_call"] / k,
+            "eager_device_busy_us_per_update":
+                eager_prof["device_busy_us_per_call"],
+            "host_ms_per_window": statistics.median(host),
+            "host_ms_per_window_all": host,
+            "capture_ms": ms.capture_ms, "capture_bytes": ms.capture_bytes,
+            "max_memory_allocated_before_fit": peak0,
+            "max_memory_allocated_after_windowed_fit": peak_w,
+            "profiled_sessions": sessions,
+        }
+        print("[windows] (c) " + json.dumps(rec["c"]))
+        del win, eager, pool, batch
+        # (d) and (b): world 1 on NCCL through initialize() and the env
+        # contract (the env var before the group, as the Trainer sets it).
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+               "TORCH_NCCL_ASYNC_ERROR_HANDLING": "0"}
+        saved = {n: os.environ.get(n) for n in env}
+        os.environ.update(env)
+        try:
+            dw = Trainer(parse_cli(TRAIN_ARGS + [
+                "--train.steps_per_call=10",
+                f"--train.ckpt_dir={os.path.join(tmp.name, 'dw')}"]))
+            res_dw, ran_dw = _fit_books(dw)
+            de = Trainer(parse_cli(TRAIN_ARGS + [
+                f"--train.ckpt_dir={os.path.join(tmp.name, 'de')}"]))
+            res_de, ran_de = _fit_books(de)
+            steps = len(de.train_pipe)
+            dms = dw.multi_step
+            buckets = dms.captured["ddp_buckets"] // k
+            checks.update({
+                "d_nccl_world_1": (dw.ctx.backend, dw.ctx.world) == (
+                    "nccl", 1),
+                "d_windowed": dms.graph is not None and dms.replays >= 1,
+                "d_losses_bit_identical": dw.step_losses == de.step_losses,
+                "d_state_bit_identical": _same_state(_flat_state(dw),
+                                                     _flat_state(de)),
+                "d_eval_identical": res_dw["eval"] == res_de["eval"],
+                # DDP's first update reduces in its first bucket layout;
+                # the windowed run reduces as often as the eager one, and
+                # a replay as many buckets per update as the capture saw.
+                "d_books": _per_update_ok(ran_dw, steps, len(dw.test_pipe))
+                and ran_dw["ddp_buckets"] == ran_de["ddp_buckets"]
+                and buckets >= 1 and dms.captured["ddp_buckets"]
+                == buckets * k,
+            })
+            _, dpool = _first_window(dw.train_pipe, k)
+            dbatch = next(iter(de.train_pipe))
+            dbooks = {"conv_block_kernel": 20 * k, "xent_fwd": k,
+                      "xent_bwd": k}
+            ok, dsessions = _profiled_books(
+                lambda: dw.multi_step(dw.state, dpool), dbooks)
+            # NCCL's one-rank all-reduce in place may launch no kernel at
+            # all; where it does, one per bucket per update.
+            checks["d_profiled_books_per_replay"] = ok and dsessions[-1][
+                "nccl_per_call"] in (0, buckets * k)
+            # DDP's cost per update, eager and windowed, in turns on one
+            # model (plain, DDP, DDP, plain): the same step without the
+            # wrapper, per step and in its own windows.
+            plain = make_train_step(dw.model, dw.optimizer, dw.schedule,
+                                    use_pallas_xent=True, device=dw.device)
+            plain_win = make_multi_step(plain, k)
+            calls = {
+                "plain_eager": (lambda: plain(dw.state, dbatch), 1),
+                "ddp_eager": (lambda: dw.train_step(dw.state, dbatch), 1),
+                "plain_windowed": (lambda: plain_win(dw.state, dpool), k),
+                "ddp_windowed": (lambda: dw.multi_step(dw.state, dpool), k)}
+            turns = {}
+            for name in ("plain_eager", "ddp_eager", "ddp_eager",
+                         "plain_eager", "plain_windowed", "ddp_windowed",
+                         "ddp_windowed", "plain_windowed"):
+                fn, per = calls[name]
+                turns.setdefault(name, []).append(
+                    cuda_median_ms(fn, reps=20 if per == 1 else 8) / per)
+            de_ms, dw_ms = min(turns["ddp_eager"]), min(turns["ddp_windowed"])
+            rec["d"] = {"losses": dw.step_losses, "eval": res_dw["eval"],
+                        "ran_windowed": ran_dw, "buckets_per_update": buckets,
+                        "replays": dms.replays,
+                        "eager_windows": dms.eager_windows,
+                        "ms_per_update_in_turns": turns,
+                        "ddp_eager_step_ms": de_ms,
+                        "ddp_windowed_ms_per_update": dw_ms,
+                        "ddp_added_ms_eager":
+                            de_ms - min(turns["plain_eager"]),
+                        "ddp_added_ms_windowed":
+                            dw_ms - min(turns["plain_windowed"]),
+                        "profiled_sessions": dsessions}
+            print("[windows] (d) " + json.dumps(rec["d"]))
+            dw.multi_step.close()
+            plain_win.close()
+            del dw, de, dpool, dbatch, plain, plain_win, calls
+            # (b) accumulation: 2 microbatches of 64 per update.
+            acc = ["--optim.grad_accum_steps=2"]
+            aw = Trainer(parse_cli(_win_args(30, 64, k, acc) + [
+                f"--train.ckpt_dir={os.path.join(tmp.name, 'aw')}"]))
+            res_aw, ran_aw = _fit_books(aw)
+            ae = Trainer(parse_cli(_win_args(30, 64, 1, acc) + [
+                f"--train.ckpt_dir={os.path.join(tmp.name, 'ae')}"]))
+            res_ae, ran_ae = _fit_books(ae)
+            n_up = len(ae.train_pipe)
+            checks.update({
+                "b_updates": n_up == 30 and aw.global_batch_size == 128,
+                "b_windowed": aw.multi_step.graph is not None,
+                "b_losses_bit_identical": aw.step_losses == ae.step_losses,
+                "b_state_bit_identical": _same_state(_flat_state(aw),
+                                                     _flat_state(ae)),
+                # One gradient all-reduce set per update: as many bucket
+                # all-reduces as (d)'s 30 updates of one microbatch.
+                "b_books": _per_update_ok(ran_aw, n_up, len(aw.test_pipe),
+                                          accum=2)
+                and _per_update_ok(ran_ae, n_up, len(ae.test_pipe), accum=2)
+                and ran_aw["ddp_buckets"] == ran_ae["ddp_buckets"]
+                == ran_de["ddp_buckets"]
+                and aw.multi_step.captured["ddp_buckets"] == buckets * k,
+            })
+            _, apool = _first_window(aw.train_pipe, k)
+            abatch = next(iter(ae.train_pipe))
+            rec["b"] = {"losses": aw.step_losses, "ran_windowed": ran_aw,
+                        "ran_eager": ran_ae, "eval": res_aw["eval"],
+                        "eager_ms_per_update": cuda_median_ms(
+                            lambda: ae.train_step(ae.state, abatch),
+                            reps=10),
+                        "windowed_ms_per_update": cuda_median_ms(
+                            lambda: aw.multi_step(aw.state, apool),
+                            reps=5) / k}
+            print("[windows] (b) " + json.dumps(
+                {n: rec["b"][n] for n in ("eager_ms_per_update",
+                                          "windowed_ms_per_update")}))
+            for t in (aw, ae):
+                if t.multi_step is not None:
+                    t.multi_step.close()
+            del aw, ae, apool, abatch
+        finally:
+            shutdown()
+            for n, v in saved.items():
+                if v is None:
+                    os.environ.pop(n, None)
+                else:
+                    os.environ[n] = v
+        # (e) phase 8's interrupted and resumed run, windows of 5.
+        ck_args = CKPT_ARGS + ["--train.steps_per_call=5"]
+        runs = {}
+        for name in ("full", "part", "resumed"):
+            extra = ["--resume"] if name == "resumed" else []
+            where = os.path.join(tmp.name, "e_full" if name == "full"
+                                 else "e_part")
+            t = Trainer(parse_cli(ck_args + extra + [
+                f"--train.ckpt_dir={where}"]), device="cuda")
+            if name == "part":
+                real = t.train_epoch
+
+                def train_epoch(epoch, start_step=0, _real=real):
+                    if epoch == CKPT_EPOCHS - 1:
+                        raise _Stop
+                    return _real(epoch, start_step)
+
+                t.train_epoch = train_epoch
+            try:
+                res, ran = _fit_books(t)
+            except _Stop:
+                t.ckpt_mgr.wait()
+                res, ran = None, None
+            runs[name] = (t, res, ran)
+        full, part, resumed = (runs[n][0] for n in ("full", "part",
+                                                    "resumed"))
+        stop = (CKPT_EPOCHS - 1) * CKPT_SPE
+        checks.update({
+            "e_resumed_at_epoch_3": (resumed.start_epoch,
+                                     resumed.start_step) == (2, 0),
+            "e_epoch_3_losses_bit_identical":
+                resumed.step_losses == full.step_losses[stop:],
+            "e_final_state_bit_identical": _same_state(
+                _flat_state(resumed), _flat_state(full)),
+            "e_eval_identical": runs["resumed"][1]["eval"]
+            == runs["full"][1]["eval"],
+            "e_windowed": full.multi_step.graph is not None
+            and resumed.multi_step.graph is not None,
+            "e_books": _per_update_ok(runs["full"][2], CKPT_EPOCHS * CKPT_SPE,
+                                      len(full.test_pipe))
+            and _per_update_ok(runs["resumed"][2], CKPT_SPE,
+                               len(resumed.test_pipe)),
+        })
+        rec["e"] = {"losses_full": full.step_losses,
+                    "losses_resumed": resumed.step_losses,
+                    "ran_full": runs["full"][2],
+                    "ran_resumed": runs["resumed"][2]}
+        del runs, full, part, resumed
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+        tmp.cleanup()
+    rec["checks"] = checks
+    out["windows"] = rec
+    c = rec["c"]
+    print(f"[windows] {out['card']}: windows of {k}: eager step "
+          f"{c['eager_step_ms']:.3f} ms, windowed {c['windowed_ms_per_update']:.3f} "
+          f"ms per update; images/s {json.dumps(c['images_per_s_meter'])}; "
+          f"device busy {100 * c['eager_device_busy_share']:.1f}% eager, "
+          f"{100 * c['windowed_device_busy_share']:.1f}% windowed; ops per "
+          f"update {c['eager_device_ops_per_update']:.0f} / "
+          f"{c['windowed_device_ops_per_update']:.0f}; host "
+          f"{c['host_ms_per_window']:.3f} ms per window; capture "
+          f"{c['capture_ms']:.1f} ms holding {c['capture_bytes'] / 2**20:.1f} "
+          f"MiB; DDP added {rec['d']['ddp_added_ms_eager']:.3f} ms eager, "
+          f"{rec['d']['ddp_added_ms_windowed']:.3f} ms windowed")
+    failed = [n for n, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"windows checks failed: {failed}")
+
+
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     """One kernels-line entry whose times sum ``recs`` (one per launch of
     a step or forward)."""
@@ -1939,13 +2490,15 @@ def kernels_line(out):
             "max_abs_err": max(x["max_abs_err"] for x in every),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]}))
+            "library_ms": r["library_ms"],
+            # An empty kernel's device time: the floor of any launch.
+            "floor_ms": out.get("xent_floor_ms")}))
     return {"kernels": entries}
 
 
 PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
           phase_serve, phase_train, phase_checkpoint, phase_ddp_gloo_one_card,
-          phase_ddp_nccl_world1, phase_ddp_nccl_multi_card)
+          phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows)
 
 
 def main(argv=None) -> int:

@@ -180,8 +180,8 @@ def test_augmentation_statistics():
 
 
 @pytest.mark.parametrize("knob", [
-    "--train.update_sharding=sharded", "--train.steps_per_call=4",
-    "--optim.grad_accum_steps=2", "--resilience.snapshot_every_steps=5",
+    "--train.update_sharding=sharded", "--train.collective_dtype=bf16",
+    "--train.recompile_guard=raise", "--resilience.snapshot_every_steps=5",
     "--guard.enabled=true", "--resilience.elastic=true",
     "--obs.run_dir=x", "--train.obs=basic", "--train.profile_dir=p",
     "--model.fused_block_b=4", "--data.device_resident=on",

@@ -77,7 +77,19 @@ def test_meter_counts_images_after_warmup_to_the_fence(monkeypatch):
 
 
 def test_cli_refuses_an_unported_knob(tmp_path):
-    out = _run(["--device", "cpu", *SLICE, "--train.steps_per_call=8",
+    out = _run(["--device", "cpu", *SLICE, "--train.update_sharding=sharded",
                 f"--train.ckpt_dir={tmp_path}"], timeout=120)
     assert out.returncode == 2
     assert "not ported" in out.stderr
+
+
+@pytest.mark.parametrize("knob,message", [
+    ("--train.steps_per_call=-1", "train.steps_per_call must be >= 0"),
+    ("--optim.grad_accum_steps=0", "optim.grad_accum_steps must be >= 1")])
+def test_cli_refuses_an_invalid_window_or_accumulation(tmp_path, knob,
+                                                       message):
+    out = _run(["--device", "cpu", *SLICE, knob,
+                f"--train.ckpt_dir={tmp_path}"], timeout=120)
+    assert out.returncode == 2
+    assert message in out.stderr
+    assert "Finished Training" not in out.stdout

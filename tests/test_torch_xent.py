@@ -206,7 +206,7 @@ def test_mean_kernels_match_plain_on_card():
     # route it replaces (per-example kernel, torch mean, MeanBackward).
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    for b in (1, 7, 128, 1000):
+    for b in (1, 7, 128, 1000, 4096):  # the last: the multi-block route
         for dtype in (torch.float32, torch.bfloat16):
             logits, labels, _ = _inputs(b, 10, seed=b)
             lg = torch.from_numpy(logits).cuda().to(dtype)

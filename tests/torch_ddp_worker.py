@@ -8,12 +8,13 @@ pytest process, so the ranks run as plain subprocesses). SPEC holds
 ``rank``, ``world``, ``init`` (a ``file://`` rendezvous), ``variables``
 (a pickle of JAX-layout numpy variables), ``batches`` (an ``.npz`` of the
 GLOBAL batches, ``images [steps, W*B, 32, 32, 3]`` uint8 and ``labels``),
-``fused``, ``schedule``, ``num_filters``, ``out`` (a pickle path) and
-``mutate``: with it, sync-BN's backward skips the cross-rank reduce of the
-cotangent (a deliberate fault the tests must be able to see). The rank
-trains on rows ``[rank*B, (rank+1)*B)`` of each global batch through the
-port's DDP step and writes its per-step global metrics, the collective
-books and its final state dict.
+``fused``, ``schedule``, ``num_filters``, ``out`` (a pickle path),
+``accum_steps`` (optional; the batches are then ``[steps, a, W*B, ...]``)
+and ``mutate``: with it, sync-BN's backward skips the cross-rank reduce
+of the cotangent (a deliberate fault the tests must be able to see). The
+rank trains on rows ``[rank*B, (rank+1)*B)`` of each global (micro)batch
+through the port's DDP step and writes its per-step global metrics, the
+collective books and its final state dict.
 
 With ``"job": "trainer"`` the rank instead runs the port's `Trainer` on
 the CLI arguments ``args`` (`run_trainer`), and with ``"job": "eval"`` it
@@ -159,16 +160,18 @@ def main(spec_path: str) -> int:
         opt = make_sgd(model, momentum=0.9, weight_decay=5e-4)
         step = make_train_step(ddp, opt, make_schedule(*spec["schedule"]),
                                use_pallas_xent=spec["fused"], device="cpu",
-                               process_group=ctx.process_group)
+                               process_group=ctx.process_group,
+                               accum_steps=spec.get("accum_steps", 1))
         state = TrainState(step=0, model=model, optimizer=opt)
         data = np.load(spec["batches"])
-        b = data["images"].shape[1] // ctx.world
+        b = data["labels"].shape[-1] // ctx.world
         rows = slice(ctx.rank * b, (ctx.rank + 1) * b)
         metrics, books = [], []
         for images, labels in zip(data["images"], data["labels"]):
             collectives.reset_counts()
-            m = step(state, {"image": torch.from_numpy(images[rows]),
-                             "label": torch.from_numpy(labels[rows]).long()})
+            m = step(state, {
+                "image": torch.from_numpy(images[..., rows, :, :, :]),
+                "label": torch.from_numpy(labels[..., rows]).long()})
             metrics.append((float(m["loss"]), int(m["correct"]),
                             m["count"], m["lr"]))
             books.append(dict(collectives.counts))

@@ -25,10 +25,11 @@ the other.
   `load_params_only` reads a training checkpoint's params and statistics
   for serving without restoring the optimizer.
 
-torch's SGD has no momentum buffer before its first step, where the JAX
-opt state starts at zeros; both give ``buf = g`` at the first update. A
-missing buffer is written as zeros, and a restore sets every buffer
-(``0.9·0 + g`` is bit-identical to torch's own first step).
+The port's SGD (`tpu_dp_torch.train.optim`) makes its momentum buffers
+as zeros when it is built, as the JAX opt state starts; an optimizer
+without a buffer has it written as zeros. A restore copies into the live
+buffers in place (a captured CUDA graph of the step keeps their
+addresses), making a buffer only where there is none.
 
 The IO-retry budget and the storage-fault shim of the JAX package's
 resilience section are not ported yet (ROADMAP Queue 1 item 9).
@@ -177,9 +178,16 @@ def restore_state(target, raw: Any):
                 raise ValueError(f"momentum of {k}: shape {tuple(v.shape)}")
     step = int(np.asarray(raw["step"]))
     model.load_state_dict(state, strict=True)
-    for name, buf in bufs.items():
-        p = named[name]
-        opt.state[p]["momentum_buffer"] = buf.to(p.device, p.dtype)
+    with torch.no_grad():
+        for name, buf in bufs.items():
+            # In place: a captured CUDA graph of the step holds the live
+            # buffer's address.
+            p = named[name]
+            live = opt.state[p].get("momentum_buffer")
+            if live is None:
+                opt.state[p]["momentum_buffer"] = buf.to(p.device, p.dtype)
+            else:
+                live.copy_(buf)
     target.step = step
     return target
 

@@ -67,6 +67,8 @@ class OptimConfig:
     schedule: str = "constant"  # constant | cosine
     warmup_epochs: float = 0.0
     final_lr: float = 0.0
+    # Microbatches per optimizer update (needs data.drop_remainder).
+    grad_accum_steps: int = 1
 
 
 @dataclass
@@ -77,6 +79,9 @@ class TrainConfig:
     eval_at_end: bool = True
     eval_every_epochs: int = 0  # 0 = only at end
     pallas_xent: bool = False  # the fused softmax-xent kernels
+    # Updates per dispatch: on a card a replayed CUDA graph of K updates;
+    # 0 = auto (min(24, steps per epoch) with data.drop_remainder, else 1).
+    steps_per_call: int = 1
     ckpt_dir: str = "./checkpoints"
     ckpt_keep: int = 3  # retained epoch checkpoints (0 = keep all)
     ckpt_async: bool = True  # write checkpoints on a worker thread
@@ -223,8 +228,6 @@ NOT_PORTED: dict[str, Any] = {
     "model.fused_block_b": 0,
     "data.resident_max_bytes": 512 * 1024 * 1024,
     "data.sync_placement": False,
-    "optim.grad_accum_steps": 1,
-    "train.steps_per_call": 1,
     "train.profile_dir": None,
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
@@ -293,7 +296,9 @@ def _require_default(dotted: str, value: Any, default: Any) -> None:
 def check_ported(cfg: Config) -> Config:
     """Raise `NotPortedError` for a configuration the port cannot run
     (a model other than net and resnet18, the device-resident feed, more
-    than one device per process)."""
+    than one device per process), `ValueError` for one that is invalid
+    (gradient accumulation below 1, a negative window, either with a
+    ragged final batch)."""
     if cfg.parallel.num_devices not in (None, 1):
         raise NotPortedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: one "
@@ -310,6 +315,18 @@ def check_ported(cfg: Config) -> Config:
         raise NotPortedError(
             "data.device_resident=on: the device-resident feed is not "
             "ported yet (auto means off in tpu_dp_torch)")
+    if cfg.optim.grad_accum_steps < 1:
+        raise ValueError(f"optim.grad_accum_steps must be >= 1, got "
+                         f"{cfg.optim.grad_accum_steps}")
+    if cfg.optim.grad_accum_steps > 1 and not cfg.data.drop_remainder:
+        raise ValueError("optim.grad_accum_steps > 1 requires "
+                         "data.drop_remainder=true")
+    if cfg.train.steps_per_call < 0:
+        raise ValueError(f"train.steps_per_call must be >= 0 (0 = auto), "
+                         f"got {cfg.train.steps_per_call}")
+    if cfg.train.steps_per_call > 1 and not cfg.data.drop_remainder:
+        raise ValueError("train.steps_per_call > 1 requires "
+                         "data.drop_remainder=true")
     return cfg
 
 

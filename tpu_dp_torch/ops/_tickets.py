@@ -9,9 +9,12 @@ when made, and made again, larger, when a launch needs more; the kernels
 allocate nothing. Launches on one stream run one after another, so the conv
 and xent kernels share a stream's buffer; launches on two streams may
 overlap, so two streams never share one. A buffer that is zero at rest lets
-a launch be captured in a CUDA graph and replayed: make one call on the
-capturing stream before the capture, so the buffer is not allocated inside
-the graph's memory pool.
+a launch be captured in a CUDA graph and replayed, as long as it exists
+before the capture: made inside one, its zeroing would be recorded in the
+graph and its memory taken from the graph's pool. So `tickets` raises
+instead of allocating on a stream that is capturing; a launch on the
+capturing stream before the capture (the trainer's warm-up) makes the
+buffer.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ def tickets(device: torch.device, n: int) -> torch.Tensor:
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _buffers.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"ticket counters for {n} would be allocated inside a CUDA "
+                f"graph capture (stream {key[1]} of {device}): run the "
+                f"launch once on the capturing stream before the capture")
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _buffers[key] = buf
     return buf

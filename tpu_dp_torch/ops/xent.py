@@ -12,10 +12,14 @@ replacing the TPU kernels `_fwd_kernel` and `_bwd_kernel` in
 `mean_softmax_xent(logits, labels)` is the batch mean — the training
 loss — in one launch each way: the forward kernel's mean variant sums the
 rows in a fixed order and divides by B in the same launch (no ``.mean()``
-launch after it), and the backward kernel reads the scalar cotangent with
-stride 0 and scales it by 1/B itself (no ``MeanBackward`` launch before
-it). The weighted mean stays the per-example kernel and torch ops, as in
-the JAX package.
+launch after it), and the backward kernel reads the scalar cotangent from
+the device and scales it by 1/B itself (no ``MeanBackward`` launch before
+it). Up to ``ONE_CTA_MAX_ROWS`` rows (C at most ``ONE_CTA_MAX_CLASSES``)
+each is one block: no scratch, no ticket, nothing allocated but the output,
+so a CUDA graph captures it as one kernel node; above that the forward
+sums across blocks with the last block's ordered fold (`_tickets`). The
+weighted mean stays the per-example kernel and torch ops, as in the JAX
+package.
 
 Dispatch is by where the tensor lies: CPU tensors go to the plain versions
 `_plain_fwd` / `_plain_bwd` (the ports of `_jnp_fwd` / `_jnp_bwd`), CUDA
@@ -42,7 +46,13 @@ launches = {"forward": 0, "backward": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_DTYPES = {torch.int32: 0, torch.int64: 1}
-_ROWS_PER_BLOCK = 8  # the kernels' warps per block: one row each
+_ROWS_PER_BLOCK = 8  # the multi-block kernels' warps: one row each
+#: the batch mean runs as one block up to this many rows (at C = 10 on an
+#: H100 the one-block forward + backward pair is the faster up to 256-512
+#: rows: `chip_smoke.py` phase 9's ``by_batch``) ...
+ONE_CTA_MAX_ROWS = 256
+#: ... and this many classes (a thread holds its row in registers).
+ONE_CTA_MAX_CLASSES = 32
 _fns = None
 
 
@@ -91,10 +101,10 @@ def _kernels():
         lib = _build.load("xent")
         fwd, bwd = lib.tpu_dp_xent_fwd, lib.tpu_dp_xent_bwd
         fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
                         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fwd.restype = bwd.restype = ctypes.c_int
         _fns = fwd, bwd
     return _fns
@@ -118,6 +128,11 @@ def _check(logits, labels):
         raise ValueError(f"xent runs on cpu or cuda, got {logits.device}")
 
 
+def _one_cta(b, c) -> bool:
+    """Whether the batch mean of ``[b, c]`` runs as one block."""
+    return b <= ONE_CTA_MAX_ROWS and c <= ONE_CTA_MAX_CLASSES
+
+
 def _fwd(logits, labels, mean=False):
     """Per-example losses ``(B,)``, or with ``mean`` their mean (a 0-dim
     f32 tensor) from the kernel's mean variant, on the CPU
@@ -130,7 +145,10 @@ def _fwd(logits, labels, mean=False):
     b, c = logits.shape
     dev = logits.device
     partials = ticket = out = None
-    if mean:
+    one_cta = mean and _one_cta(b, c)
+    if one_cta:
+        out, loss = torch.empty((), dtype=torch.float32, device=dev), None
+    elif mean:
         # out[0] is the loss, out[1:] the blocks' partials.
         nblk = -(-b // _ROWS_PER_BLOCK)
         buf = torch.empty(1 + nblk, dtype=torch.float32, device=dev)
@@ -146,7 +164,8 @@ def _fwd(logits, labels, mean=False):
             None if loss is None else loss.data_ptr(),
             None if partials is None else partials.data_ptr(),
             None if ticket is None else ticket.data_ptr(),
-            None if out is None else out.data_ptr(), b, c, stream)
+            None if out is None else out.data_ptr(), int(one_cta), b, c,
+            stream)
     if rc != 0:
         raise RuntimeError(f"xent forward kernel launch failed: error {rc}")
     launches["forward"] += 1
@@ -174,7 +193,8 @@ def _bwd(logits, labels, ct, mean=False):
         rc = _kernels()[1](_DTYPES[logits.dtype], _LABEL_DTYPES[labels.dtype],
                            logits.data_ptr(), labels.data_ptr(),
                            ct.data_ptr(), 0 if mean else 1, b if mean else 1,
-                           d.data_ptr(), b, c, stream)
+                           d.data_ptr(), int(mean and _one_cta(b, c)), b, c,
+                           stream)
     if rc != 0:
         raise RuntimeError(f"xent backward kernel launch failed: error {rc}")
     launches["backward"] += 1

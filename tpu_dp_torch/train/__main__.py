@@ -11,6 +11,11 @@ CPU (gloo) with ``--device cpu``:
     python -m torch.distributed.run --nproc_per_node=N \\
         -m tpu_dp_torch.train --device cpu --preset=... [...]
 
+``--train.steps_per_call=0`` trains in windows of min(24, steps per epoch)
+updates, each a replayed CUDA graph on a card (K > 0 sets the window);
+``--optim.grad_accum_steps=a`` makes each update from a microbatches of
+``data.batch_size``.
+
 With no arguments it is the reference preset (`Net`, batch 4, 2 epochs).
 ``data.batch_size`` is per rank. Any ported config field is overridable as
 ``--section.field=value`` (`tpu_dp_torch.config`); ``--config=FILE`` (a
@@ -54,6 +59,7 @@ def main(argv=None) -> int:
     # f32 means f32: no TF32 in cuDNN's convs or in matmuls.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = None
     try:
         try:
             cfg = parse_cli(rest)
@@ -84,6 +90,9 @@ def main(argv=None) -> int:
         print(json.dumps(summary), flush=True)
         return 0
     finally:
+        if trainer is not None and trainer.multi_step is not None:
+            # The windows' graph goes before the group its collectives use.
+            trainer.multi_step.close()
         shutdown()
 
 

@@ -22,14 +22,19 @@ over the same group; the step's metrics are global, one all-reduce of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import time
 import warnings
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from tpu_dp_torch.data.cifar import normalize
 from tpu_dp_torch.parallel import collectives
+from tpu_dp_torch.train.schedule import lr_table
 
 
 def cross_entropy_loss(logits, labels, weight=None):
@@ -107,54 +112,304 @@ def _global_metrics(loss, correct, count, group):
     return total[0] / total[2].clamp(min=1.0), correct, count
 
 
-def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
-                    augment_fn=None, device=None,
-                    process_group=None) -> Callable:
-    """Build ``step(state, batch) -> metrics`` for ``model``/``optimizer``.
+def launch_books() -> dict[str, int]:
+    """The host-side books of the train step's device work, flat: the
+    kernel wrappers' launch counts (conv by role, xent by direction) and
+    `collectives.counts`. They tick where the host calls a wrapper or
+    issues a collective, so under a CUDA graph they tick at capture only
+    (`MultiStep.captured`, `MultiStep.replays`)."""
+    from tpu_dp_torch.ops import conv_block, xent
 
-    ``batch`` is ``{"image": uint8 or float [B,H,W,3], "label": int [B]}``
-    on ``device``. The learning rate of update k is ``schedule(k)``, read
-    before ``state.step`` advances. Metrics: ``loss`` (f32 scalar tensor),
-    ``correct`` (int tensor), ``count`` and ``lr`` (numbers). ``model``
-    may be `data_parallel`'s wrapper; with a ``process_group`` of more
-    than one rank the metrics are the global batch's (``count`` = the
-    rank's batch times the world).
-    """
-    loss_impl = _select_loss_impl(use_pallas_xent)
-    device = None if device is None else torch.device(device)
-    world = collectives.world_of(process_group)
-    inner = getattr(model, "module", model)  # DDP's wrapped module
+    out = {f"conv.{k}": v for k, v in conv_block.launches_by_role.items()}
+    out.update({f"xent.{k}": v for k, v in xent.launches.items()})
+    out.update(collectives.counts)
+    return out
 
-    def step(state: TrainState, batch):
-        images, labels = batch["image"], batch["label"]
-        if device is not None and images.device != device:
-            raise ValueError(f"train step on {device} got a batch on "
-                             f"{images.device}")
-        if not inner.training:
-            model.train()
-        images = _maybe_normalize(images)
-        if augment_fn is not None:
-            images = augment_fn(state.step, images)
-        logits = model(images)
-        loss = loss_impl(logits, labels)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        lr = schedule(state.step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        state.step += 1
-        loss = loss.detach()
-        correct = (logits.detach().argmax(dim=-1) == labels).sum()
-        count = int(labels.shape[0])
-        if world > 1:
+
+class TrainStep:
+    """``step(state, batch) -> metrics``: one optimizer update (see
+    `make_train_step`). `update` is its device body, which `MultiStep`
+    runs K times in a window, eagerly or captured in a CUDA graph: one
+    body for both, so a window's updates are the per-step path's.
+
+    The body reads no host state that changes from update to update: the
+    update counter lives on the device (``step_t``, int64), the learning
+    rate is looked up in the device table `lr_table` at that counter
+    (clamped at the table's end, from where the schedule is constant), and
+    the augmentation is keyed by it. The host's ``state.step`` stays the
+    truth for checkpoints and logs; `sync_counter` writes it to the device
+    when the two part (a new state, a restore)."""
+
+    def __init__(self, model, optimizer, schedule, use_pallas_xent=False,
+                 augment_fn=None, device=None, process_group=None,
+                 accum_steps=1):
+        if int(accum_steps) < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        self.model, self.optimizer, self.schedule = model, optimizer, schedule
+        self.loss_impl = _select_loss_impl(use_pallas_xent)
+        self.augment_fn = augment_fn
+        self.process_group = process_group
+        self.world = collectives.world_of(process_group)
+        self.accum_steps = int(accum_steps)
+        self.inner = getattr(model, "module", model)  # DDP's wrapped module
+        self.ddp = model if model is not self.inner else None
+        self.device = torch.device(device) if device is not None else next(
+            self.inner.parameters()).device
+        self.lr_table = lr_table(schedule, self.device)
+        self.step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._step_host = 0  # what step_t holds, as the host knows it
+
+    def sync_counter(self, state: TrainState) -> None:
+        """Make the device counter ``state.step`` (a write only when the
+        host's step moved without it)."""
+        if state.step != self._step_host:
+            self.step_t.fill_(state.step)
+            self._step_host = state.step
+
+    def advance(self, state: TrainState, n: int) -> None:
+        """The host's side of ``n`` updates the device has been given."""
+        state.step += n
+        self._step_host += n
+
+    def count(self, labels: torch.Tensor) -> int:
+        """Examples an update counts: ``accum_steps`` microbatches of
+        ``labels``' last dim, on every rank."""
+        return self.accum_steps * int(labels.shape[-1]) * self.world
+
+    def check_batch(self, images: torch.Tensor, lead: tuple) -> None:
+        want = lead + ((self.accum_steps,) if self.accum_steps > 1 else ())
+        if images.device != self.device or tuple(
+                images.shape[:len(want)]) != want:
+            raise ValueError(
+                f"train step on {self.device} wants batches led by {want}, "
+                f"got {tuple(images.shape)} on {images.device}")
+
+    def update(self, images: torch.Tensor, labels: torch.Tensor):
+        """One optimizer update on the device: ``(loss, correct)``, 0-dim
+        device tensors (the global batch's under a group). With
+        ``accum_steps`` a > 1 the batch is ``[a, B, ...]``: the
+        microbatches run in order, augmentation keyed by ``step·a + i``,
+        BatchNorm's running statistics carried from one to the next,
+        gradients summed (DDP reduces only the last microbatch's backward:
+        the earlier ones run under ``no_sync``, so one gradient all-reduce
+        per update) and then divided by a; the loss is the microbatches'
+        mean, ``correct`` their sum."""
+        a = self.accum_steps
+        if not self.inner.training:
+            self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss_sum = correct = None
+        for i in range(a):
+            x, y = (images[i], labels[i]) if a > 1 else (images, labels)
+            x = _maybe_normalize(x)
+            if self.augment_fn is not None:
+                x = self.augment_fn(self.step_t * a + i if a > 1
+                                    else self.step_t, x)
+            last = i == a - 1
+            with (contextlib.nullcontext() if self.ddp is None or last
+                  else self.ddp.no_sync()):
+                logits = self.model(x)
+                loss = self.loss_impl(logits, y)
+                loss.backward()
+            hit = (logits.detach().argmax(dim=-1) == y).sum()
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            correct = hit if correct is None else correct + hit
+        if a > 1:
+            torch._foreach_div_([p.grad for p in self.inner.parameters()
+                                 if p.grad is not None], float(a))
+            loss_sum = loss_sum / a
+        at = self.step_t.clamp(max=self.lr_table.numel() - 1).view(1)
+        self.optimizer.step(self.lr_table.index_select(0, at).view(()))
+        self.step_t.add_(1)
+        if self.world > 1:
             # The ranks' batches are equal: the global count is known here.
-            loss, correct, _ = _global_metrics(
-                loss, correct, torch.full_like(loss, count), process_group)
-        return {"loss": loss, "correct": correct, "count": count * world,
+            n = a * int(labels.shape[-1])
+            loss_sum, correct, _ = _global_metrics(
+                loss_sum, correct, torch.full_like(loss_sum, n),
+                self.process_group)
+        return loss_sum, correct
+
+    def __call__(self, state: TrainState, batch) -> dict:
+        images, labels = batch["image"], batch["label"]
+        self.check_batch(images, ())
+        self.sync_counter(state)
+        lr = self.schedule(state.step)
+        loss, correct = self.update(images, labels)
+        self.advance(state, 1)
+        return {"loss": loss, "correct": correct, "count": self.count(labels),
                 "lr": lr}
 
-    return step
+
+def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
+                    augment_fn=None, device=None, process_group=None,
+                    accum_steps=1) -> TrainStep:
+    """Build ``step(state, batch) -> metrics`` for ``model``/``optimizer``
+    (`TrainStep`; ``optimizer`` is `tpu_dp_torch.train.optim.SGD`).
+
+    ``batch`` is ``{"image": uint8 or float [B,H,W,3], "label": int [B]}``
+    on ``device`` (the model's by default), with a leading
+    ``accum_steps`` axis when that is above 1 (`_make_accum_body`'s
+    microbatch stack). The learning rate of update k is ``schedule(k)``
+    (a schedule from `make_schedule`), read on the device before the
+    counter advances. Metrics: ``loss`` (f32 scalar tensor), ``correct``
+    (int tensor), ``count`` and ``lr`` (numbers). ``model`` may be
+    `data_parallel`'s wrapper; with a ``process_group`` of more than one
+    rank the metrics are the global batch's (``count`` = the rank's
+    examples times the world).
+    """
+    return TrainStep(model, optimizer, schedule, use_pallas_xent,
+                     augment_fn, device, process_group, accum_steps)
+
+
+#: eager updates before a window is captured: torch's CUDA-graph notes
+#: ask DistributedDataParallel for 11 iterations (its first ones build
+#: buckets and time themselves with host syncs; it counts an iteration
+#: per synced forward, so per update, not per microbatch); without it,
+#: enough for cuDNN's plans, the kernels' first loads and the allocator.
+DDP_WARMUP_ITERS = 11
+WARMUP_UPDATES = 3
+
+
+class MultiStep:
+    """``loop(state, pool) -> metrics``: ``num_steps`` updates in one
+    dispatch (the port of `make_multi_step`'s window). ``pool`` is
+    ``{"image": [K, (a,) B, ...], "label": [K, (a,) B]}`` on the device;
+    metrics come back stacked per update (``loss`` and ``correct`` [K]
+    tensors, ``lr`` a list, ``count`` per update), equal to K calls of
+    the train step.
+
+    On a card, with NCCL or no group, the window is a CUDA graph of
+    ``train_step.update`` K times, reading slot i of static input
+    buffers: the first windows run eagerly on the capture stream
+    (`WARMUP_UPDATES`, or `DDP_WARMUP_ITERS` under DDP: real updates),
+    then one window is captured there (cuDNN's
+    benchmark off, ``thread_local`` capture mode so the feed's thread may
+    allocate meanwhile) and every later window is the pool copied into the
+    static buffers on the capture stream, one replay, and a copy of the
+    [K] outputs. A capture that fails raises: there is no eager fallback
+    on a card. On the CPU or under gloo (which a graph cannot capture) a
+    window is the same K updates run eagerly.
+
+    The call is stream-transparent: the capture stream waits for the
+    caller's current stream first, and the caller's stream waits for the
+    window after. The wrappers' counters tick at capture only:
+    ``captured`` holds the books (`launch_books`) of the captured K
+    updates and ``replays`` the replays since, so the launches that ran
+    are the eager ones plus ``captured × replays``.
+    """
+
+    def __init__(self, train_step: TrainStep, num_steps: int, stream=None):
+        if int(num_steps) < 1:
+            raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+        self.step, self.k = train_step, int(num_steps)
+        dev = train_step.device
+        group = train_step.process_group
+        backend = None if group is None else dist.get_backend(group)
+        self.graphed = dev.type == "cuda" and backend in (None, "nccl")
+        self.stream = stream if stream is not None or not self.graphed else (
+            torch.cuda.Stream(dev))
+        need = (DDP_WARMUP_ITERS if train_step.ddp is not None
+                else WARMUP_UPDATES)
+        self.warmup_windows = math.ceil(need / self.k)
+        self.eager_windows = 0
+        self.graph = None
+        self.captured: dict[str, int] | None = None
+        self.replays = 0
+        self.capture_ms: float | None = None
+        self.capture_bytes: int | None = None
+        self._static = self._out = None
+
+    def _window(self, images, labels):
+        """K updates, slot i of the pool each: the body eager windows run
+        and the graph captures."""
+        out = [self.step.update(images[i], labels[i]) for i in range(self.k)]
+        return (torch.stack([loss for loss, _ in out]),
+                torch.stack([correct for _, correct in out]))
+
+    def _capture(self, images, labels) -> None:
+        dev = self.step.device
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # as the capture does first
+        held = torch.cuda.memory_reserved(dev)
+        self._static = (torch.empty_like(images), torch.empty_like(labels))
+        before = launch_books()
+        graph = torch.cuda.CUDAGraph()
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                self._out = self._window(*self._static)
+        finally:
+            torch.backends.cudnn.benchmark = bench
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        # What the capture holds on: the static inputs and the graph's
+        # private pool (reserved; its tensors are free between replays).
+        self.capture_bytes = torch.cuda.memory_reserved(dev) - held
+        after = launch_books()
+        self.captured = {k: after[k] - before[k] for k in after}
+        self.graph = graph
+
+    def _replay(self, images, labels):
+        self._static[0].copy_(images)
+        self._static[1].copy_(labels)
+        self.graph.replay()
+        self.replays += 1
+        # The graph updated these in place where the host did not look:
+        # bump their versions, as the eager ops would (the model's packed
+        # eval weights are cached by parameter version).
+        for p in self.step.inner.parameters():
+            torch.autograd.graph.increment_version(p)
+        return self._out[0].clone(), self._out[1].clone()
+
+    def close(self) -> None:
+        """Release the graph (and its pool) once the device is done with
+        it; a window after this captures anew. Call before the process
+        group is destroyed: a graph holds the NCCL collectives it
+        captured."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.step.device)
+            self.graph.reset()
+        self.graph = self._static = self._out = None
+
+    def __call__(self, state: TrainState, pool) -> dict:
+        images, labels = pool["image"], pool["label"]
+        self.step.check_batch(images, (self.k,))
+        lrs = [self.step.schedule(state.step + i) for i in range(self.k)]
+        if not self.graphed:
+            self.step.sync_counter(state)
+            loss, correct = self._window(images, labels)
+        else:
+            cur = torch.cuda.current_stream(self.step.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                self.step.sync_counter(state)
+                if self.graph is None and (
+                        self.eager_windows < self.warmup_windows):
+                    loss, correct = self._window(images, labels)
+                    self.eager_windows += 1
+                else:
+                    if self.graph is None:
+                        self._capture(images, labels)
+                    loss, correct = self._replay(images, labels)
+            if cur != self.stream:
+                cur.wait_stream(self.stream)
+                for t in (images, labels):
+                    t.record_stream(self.stream)
+                for t in (loss, correct):
+                    t.record_stream(cur)
+        self.step.advance(state, self.k)
+        return {"loss": loss, "correct": correct,
+                "count": self.step.count(labels), "lr": lrs}
+
+
+def make_multi_step(train_step: TrainStep, num_steps: int,
+                    stream=None) -> MultiStep:
+    """``num_steps`` updates of ``train_step`` per call (`MultiStep`);
+    ``stream`` is the capture stream on a card (a new one by default)."""
+    return MultiStep(train_step, num_steps, stream)
 
 
 def make_eval_step(model, process_group=None) -> Callable:

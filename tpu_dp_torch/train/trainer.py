@@ -30,16 +30,30 @@ checkpoint, the step after a snapshot's ``steps_done`` (the sampler skips
 the steps already taken). The restored step drives the schedule and the
 augmentation key (seed, step, rank).
 
+Gradient accumulation (``optim.grad_accum_steps`` = a): an update takes
+a microbatches of ``data.batch_size`` (`make_train_step`'s
+``accum_steps``), so the global batch and every count are a times larger
+and an epoch has a times fewer updates. Windows (``train.steps_per_call``
+= K, 0 = auto: min(24, steps per epoch)): an epoch runs as full windows of
+K updates, each one stacked host-to-device copy and one dispatch of
+`make_multi_step` (on a card a replayed CUDA graph on the trainer's
+capture stream, DDP built on that stream and the NCCL error handler's
+event polling off, as torch's CUDA-graph notes ask), then the trailing
+``len % K`` updates as single steps; losses, log lines and epoch stats
+are those of K single steps.
+
 The loop never waits on the device inside an epoch: losses and correct
 counts stay device tensors until a log line or the epoch's end fetches
-them. The snapshot cadence, preemption, guardrails, elastic world size
-and telemetry are not ported yet.
+them; the epoch's one fetch also checks the device's update counter
+against the host's. The snapshot cadence, preemption, guardrails,
+elastic world size and telemetry are not ported yet.
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Any
@@ -63,6 +77,7 @@ from tpu_dp_torch.train.step import (
     TrainState,
     data_parallel,
     make_eval_step,
+    make_multi_step,
     make_train_step,
 )
 from tpu_dp_torch.utils.meter import ThroughputMeter
@@ -75,6 +90,10 @@ class Trainer:
         check_ported(cfg)
         self.cfg = cfg
         par = cfg.parallel
+        if cfg.train.steps_per_call != 1:
+            # torch's CUDA-graph notes: a captured NCCL collective needs
+            # the error handler's event polling off, set before the group.
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
         addr = par.coordinator_address
         self.ctx = initialize(
             init_method=(None if not addr else addr if "://" in addr
@@ -103,11 +122,12 @@ class Trainer:
                 f"dataset {self.train_ds.name!r} ({num_classes} classes)")
 
         shard = dict(num_shards=self.ctx.world, shard_id=self.ctx.rank)
+        accum = cfg.optim.grad_accum_steps
         self.train_pipe = DataPipeline(
             self.train_ds, cfg.data.batch_size, self.device,
             shuffle=cfg.data.shuffle, seed=seed,
             drop_remainder=cfg.data.drop_remainder,
-            prefetch=cfg.data.prefetch, **shard)
+            prefetch=cfg.data.prefetch, accum_steps=accum, **shard)
         self.test_pipe = DataPipeline(
             self.test_ds, cfg.data.batch_size, self.device, shuffle=False,
             seed=seed, drop_remainder=False, prefetch=cfg.data.prefetch,
@@ -121,13 +141,36 @@ class Trainer:
             generator=torch.Generator().manual_seed(seed),
             process_group=group,
         ).to(self.device)
-        #: the module the train step runs: DDP's wrapper with a group.
-        self.ddp = (data_parallel(self.model, self.ctx)
-                    if self.ctx.backend is not None else None)
+        steps_per_epoch = len(self.train_pipe)
+        spc = cfg.train.steps_per_call
+        if spc == 0:
+            spc = min(24, steps_per_epoch) if cfg.data.drop_remainder else 1
+        #: updates per window (`make_multi_step`); 1: the per-step path.
+        self.steps_per_call = max(1, spc)
+        #: the capture stream of the windows' CUDA graphs, on a card.
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.steps_per_call > 1
+                       and self.device.type == "cuda"
+                       and self.ctx.backend in (None, "nccl") else None)
+        #: the module the train step runs: DDP's wrapper with a group,
+        #: built on the capture stream when there is one (torch's notes).
+        self.ddp = None
+        if self.ctx.backend is not None and self.stream is None:
+            self.ddp = data_parallel(self.model, self.ctx)
+        elif self.ctx.backend is not None:
+            # The model's copies to the card come first; its broadcast
+            # from rank 0 is done before the default stream reads it.
+            here = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(here)
+            with torch.cuda.stream(self.stream):
+                self.ddp = data_parallel(self.model, self.ctx)
+            here.wait_stream(self.stream)
+            # DDP times its first 10 iterations and every 100th with host
+            # syncs; none of them may fall in a capture.
+            self.ddp._set_ddp_runtime_logging_sample_rate(2**31 - 1)
         self.optimizer = make_sgd(
             self.model, cfg.optim.momentum, cfg.optim.weight_decay,
             cfg.optim.decay_exclude_bias_and_norm)
-        steps_per_epoch = len(self.train_pipe)
         self.schedule = make_schedule(
             cfg.optim.schedule, cfg.optim.lr,
             steps_per_epoch * cfg.train.epochs,
@@ -137,10 +180,18 @@ class Trainer:
                       if cfg.data.augment else None)
         self.state = TrainState(step=0, model=self.model,
                                 optimizer=self.optimizer)
-        self.train_step = make_train_step(
+        #: the update body both paths run (its device counter, its lr
+        #: table); `train_step` is the per-step call, which callers may
+        #: wrap.
+        self.step_body = make_train_step(
             self.ddp or self.model, self.optimizer, self.schedule,
             use_pallas_xent=cfg.train.pallas_xent, augment_fn=augment_fn,
-            device=self.device, process_group=group)
+            device=self.device, process_group=group, accum_steps=accum)
+        self.train_step = self.step_body
+        self.multi_step = (
+            make_multi_step(self.step_body, self.steps_per_call,
+                            stream=self.stream)
+            if self.steps_per_call > 1 else None)
         # Eval runs the unwrapped module: no gradient, nothing to reduce.
         self.eval_step = make_eval_step(self.model, process_group=group)
         self.meter = ThroughputMeter(warmup_steps=2, device=self.device)
@@ -166,8 +217,10 @@ class Trainer:
 
     @property
     def global_batch_size(self) -> int:
-        """Per-step batch over every rank: ``data.batch_size`` × world."""
-        return self.cfg.data.batch_size * self.ctx.world
+        """Examples per update over every rank: ``data.batch_size`` ×
+        world × ``optim.grad_accum_steps``."""
+        return (self.cfg.data.batch_size * self.ctx.world
+                * self.cfg.optim.grad_accum_steps)
 
     def _print(self, msg: str) -> None:
         if self.ctx.is_main_process:
@@ -281,30 +334,54 @@ class Trainer:
     def train_epoch(self, epoch: int, start_step: int = 0
                     ) -> dict[str, float]:
         """One epoch; ``start_step`` > 0 resumes it after that many steps
-        (no batch replayed, none skipped)."""
+        (no batch replayed, none skipped). Full windows of
+        ``steps_per_call`` updates go to `multi_step`, single steps to
+        `train_step`; a window's stacked metrics are booked update by
+        update, as K single steps would be."""
         cfg = self.cfg
+        every = cfg.train.log_every
         self.train_pipe.set_epoch(epoch)
-        run_loss, run_steps = None, 0  # device-side running-loss sum
+        # Device losses not yet logged (1-D pieces; the first `logged`
+        # values of their concatenation are), and updates since the log.
+        pending, logged, run_steps = [], 0, 0
         losses, correct, count = [], None, 0
-        batches = self.train_pipe.__iter__(skip_steps=start_step)
-        for i, batch in enumerate(batches, start=start_step):
-            m = self.train_step(self.state, batch)
-            losses.append(m["loss"])
-            correct = m["correct"] if correct is None else correct + m[
-                "correct"]
-            count += m["count"]
-            run_loss = m["loss"] if run_loss is None else run_loss + m["loss"]
-            run_steps += 1
-            self.meter.step(m["count"])
-            if i % cfg.train.log_every == cfg.train.log_every - 1:
-                # Reference print format; the float() is the only wait on
-                # the device per log interval.
-                self._print("[%d, %5d] loss: %.3f"
-                            % (epoch + 1, i + 1, float(run_loss) / run_steps))
-                run_loss, run_steps = None, 0
+        i = start_step
+        for n, item in self.train_pipe.windows(self.steps_per_call,
+                                               skip_steps=start_step):
+            if n == 1:
+                m = self.train_step(self.state, item)
+                c = m["correct"]
+            else:
+                m = self.multi_step(self.state, item)
+                c = m["correct"].sum()
+            loss = m["loss"].reshape(-1)
+            losses.append(loss)
+            pending.append(loss)
+            correct = c if correct is None else correct + c
+            count += n * m["count"]
+            self.meter.step(n * m["count"])
+            for _ in range(n):
+                i += 1
+                run_steps += 1
+                if i % every == 0:
+                    # Reference print format; the fetch is the only wait
+                    # on the device per log interval.
+                    flat = torch.cat(pending)
+                    vals = flat[logged:logged + run_steps].tolist()
+                    self._print("[%d, %5d] loss: %.3f"
+                                % (epoch + 1, i, sum(vals) / len(vals)))
+                    pending = [flat[logged + run_steps:]]
+                    logged = run_steps = 0
         if not losses:
             return {"loss": 0.0, "accuracy": 0.0}
-        epoch_losses = torch.stack(losses).tolist()  # one fetch
+        # One fetch: the epoch's losses and the device's update counter.
+        fetched = torch.cat([torch.cat(losses).double(),
+                             self.step_body.step_t.double().view(1)]
+                            ).tolist()
+        epoch_losses, device_step = fetched[:-1], int(fetched[-1])
+        if device_step != self.state.step:
+            raise RuntimeError(f"the device's update counter reads "
+                               f"{device_step}, the host's {self.state.step}")
         self.step_losses.extend(epoch_losses)
         stats = {"loss": sum(epoch_losses) / len(epoch_losses),
                  "accuracy": int(correct) / count}
@@ -338,10 +415,12 @@ class Trainer:
     def fit(self) -> dict[str, Any]:
         cfg = self.cfg
         log.info("training %s on %s (%s, rank %d of %d): batch %d per "
-                 "rank, %d global, %d epochs", cfg.model.name,
+                 "rank × %d microbatches, %d global, %d epochs, %d updates "
+                 "per call", cfg.model.name,
                  self.train_ds.name, self.device, self.ctx.rank,
-                 self.ctx.world, cfg.data.batch_size, self.global_batch_size,
-                 cfg.train.epochs)
+                 self.ctx.world, cfg.data.batch_size,
+                 cfg.optim.grad_accum_steps, self.global_batch_size,
+                 cfg.train.epochs, self.steps_per_call)
         t0 = time.perf_counter()
         history = []
         for epoch in range(self.start_epoch, cfg.train.epochs):
