@@ -70,8 +70,10 @@ Phases, in order; any failure exits non-zero before the last line:
    gloo on CUDA tensors (NCCL refuses two ranks on one card; a
    correctness run, its step time no DDP figure); (b) `Trainer` at world 1
    on NCCL through `initialize()` and the env contract, 30 steps and one
-   eval (falling loss, eval count = test set), its step beside phase 6's
-   and, in turns on one model, the step with and without DDP's wrapper;
+   eval, against the same run in one process (losses within 0.05, falling;
+   books per update; eval count = test set), its step beside the one
+   process's and, in turns on one model, the step with and without DDP's
+   wrapper;
    (c) with two or more cards, NCCL with one rank per card (two, and every
    visible card), else ``ddp_nccl_multi_card: not run, 1 card visible``;
 8. checkpoint (run between phases 6 and 7): the same fused full-width
@@ -111,12 +113,39 @@ Phases, in order; any failure exits non-zero before the last line:
    windowed, bit-identical, 2 × (20 + 1 + 1) launches and one DDP
    all-reduce set per update; (e) phase 8's interrupted and resumed run with
    windows of 5, bit-identical to the uninterrupted one;
-10. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+10. ResNet-50 on synthetic CIFAR-100 (``--preset=resnet50_cifar100
+   --model.fused_stages=all --model.fused_bwd=true
+   --train.pallas_xent=true``, f32, B=128; every stride-1 bottleneck's
+   3x3 on the conv kernel, 13 per forward): (a) ``resnet50_kernels``: the
+   conv kernel at the four bottleneck shapes with f32 x from a cuDNN 1x1
+   conv, no residual, no emit_z (eval and ``emit_stats`` variants, y one
+   ulp, stats bit-exact with ``ordered_stats_sum`` and across launches,
+   graph replays and a busy side stream; the input-grad, one ulp), each
+   timed beside its bound, plain version and cuDNN bf16; the xent mean
+   pair at [128, 100] on its multi-block route (1e-6, bit-identical over
+   100 launches and 3 graph replays, device time beside
+   ``F.cross_entropy``'s and the launch floor); (b) ``resnet50``:
+   `Trainer` for 30 steps and one eval (finite losses, 13 + 13 conv and
+   1 + 1 xent launches a step by counter and by kernel name, 13 per eval
+   forward, the first 5 losses and all 30 within 0.05 of the unfused run
+   without kernels, the eval count the test set, step ms, images/s, device busy
+   share, top kernels, peak memory), its epoch save served by
+   `InferenceEngine.from_checkpoint` (bucket-32 logits bit-identical to
+   the trained model's), the same 30 steps with augmentation off (the
+   loss falls), and phase 5's serve on the random-weight ResNet-50; (c)
+   ``resnet50_windows``: phase 9's (a) and (c) with augmentation off, 40
+   eager updates against windows of 10 bit-identical, losses falling,
+   books per replay by kernel name, ms per update both ways, host ms per
+   window, the capture's ms and bytes, and auto windows of 24; (d)
+   ``resnet50_ddp``: phase 7b's run, 5 steps with augmentation off, within
+   0.05 of one process, with its books;
+11. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only ddp_nccl_world1,ddp_nccl_multi_card`` runs
 the header, the build and the named phases alone (a four-card machine's
-multi-card check), without the kernels' line. ``--ddp-worker SPEC`` is
-phase 7's rank process.
+multi-card check), without the kernels' line; ``--only
+resnet50_kernels,resnet50,resnet50_windows,resnet50_ddp`` runs phase 10
+alone. ``--ddp-worker SPEC`` is phase 7's rank process.
 
 Every timed case also prints ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
@@ -129,6 +158,7 @@ version and in the unfused reference. The full record also goes to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -196,6 +226,13 @@ CKPT_SERVE_REQUESTS = 50
 REF_ARGS = ["--data.dataset=synthetic", "--data.synthetic_train_size=800",
             "--data.synthetic_test_size=200", "--train.epochs=2",
             "--train.log_every=50"]
+#: phase 10, ResNet-50 on synthetic CIFAR-100: its classes, the train
+#: run's steps, the windows' updates and window, and the stage of each of
+#: one forward's 13 kernel launches (every stride-1 bottleneck's 3x3).
+R50_CLASSES = 100
+R50_STEPS = 30
+R50_WIN_UPDATES, R50_K = 40, 10
+R50_FORWARD_STAGES = (0, 0, 0, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3)
 
 
 def bf16_ulp(mag: float) -> float:
@@ -1040,7 +1077,15 @@ class _Recorder:
         return getattr(self._engine, name)
 
 
-def phase_serve(out):
+def _serve_run(name: str, num_classes: int, per_forward: int,
+               card: str) -> dict:
+    """The fused full-width ``name`` (f32, random weights and BN statistics
+    from seed 0) behind `InferenceEngine` with buckets 1..32, 200 Poisson
+    requests of 1-4 images at 400/s: its record, with ``checks`` (audited
+    books, the device class histogram equal to the handles' predictions,
+    ``per_forward`` kernel launches per forward, bucket-32 logits equal to
+    the same weights run unfused on cuDNN within 1e-2 of their
+    magnitude)."""
     import numpy as np
     import torch
 
@@ -1050,10 +1095,10 @@ def phase_serve(out):
     from tpu_dp_torch.train.step import _maybe_normalize
 
     gen = torch.Generator().manual_seed(0)
-    model = build_model("resnet18", num_filters=64, num_classes=10,
+    model = build_model(name, num_filters=64, num_classes=num_classes,
                         fused_stages=(0, 1, 2, 3), generator=gen)
     _randomize_bn(model, gen)
-    plain = build_model("resnet18", num_filters=64, num_classes=10)
+    plain = build_model(name, num_filters=64, num_classes=num_classes)
     plain.load_state_dict(model.state_dict())
     plain = plain.to("cuda").eval()
 
@@ -1082,7 +1127,8 @@ def phase_serve(out):
         "served_eq_images": dev["served"] == truth["images_served"],
         "completed_eq_submitted": truth["completed"] == truth["submitted"],
         "histogram_eq_handles": dev["class_counts"] == hist.tolist(),
-        "launches_eq_10_per_forward": launches == 10 * forwards,
+        f"launches_eq_{per_forward}_per_forward":
+            launches == per_forward * forwards,
     }
 
     # Bucket-32 parity: the fused model (kernel) vs the same weights run
@@ -1097,7 +1143,7 @@ def phase_serve(out):
         torch.cuda.synchronize()
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item()
-        checks["logits_shape"] = tuple(got.shape) == (32, 10)
+        checks["logits_shape"] = tuple(got.shape) == (32, num_classes)
         checks["logits_finite"] = bool(torch.isfinite(got).all())
         checks["logits_match_unfused"] = err <= 1e-2 * scale
         fwd_ms = cuda_median_ms(lambda: engine.model(x), reps=20)
@@ -1105,7 +1151,8 @@ def phase_serve(out):
         breakdown = profile_forward(lambda: engine.model(x))
 
     lat = report["latency_ms"] or {}
-    out["serve"] = {
+    return {
+        "model": name, "num_classes": num_classes,
         "checks": checks, "launches": launches, "forwards": forwards,
         "warmup_ms": warm, "batches": report["batches"],
         "bucket_counts": report["bucket_counts"],
@@ -1119,21 +1166,30 @@ def phase_serve(out):
         "b32_forward_ms": fwd_ms, "b32_unfused_forward_ms": plain_fwd_ms,
         "b32_images_per_s": 32 / (fwd_ms / 1e3),
         "b32_profile": breakdown,
-        "card": out["card"],
+        "card": card,
     }
-    print("[serve] " + json.dumps(out["serve"]))
-    print(f"[serve] {out['card']}: p50 {lat.get('p50_ms')} ms, "
-          f"p95 {lat.get('p95_ms')} ms, "
-          f"{out['serve']['images_per_s']:.1f} images/s offered-load "
+
+
+def _print_serve(tag: str, rec: dict) -> None:
+    lat, breakdown = rec, rec["b32_profile"]
+    print(f"[{tag}] " + json.dumps(rec))
+    print(f"[{tag}] {rec['card']}: {rec['model']} p50 {lat['p50_ms']} ms, "
+          f"p95 {lat['p95_ms']} ms, "
+          f"{rec['images_per_s']:.1f} images/s offered-load "
           f"(200 Poisson requests at 400/s); bucket-32 forward "
-          f"{fwd_ms:.3f} ms = {out['serve']['b32_images_per_s']:.0f} "
+          f"{rec['b32_forward_ms']:.3f} ms = {rec['b32_images_per_s']:.0f} "
           f"images/s")
-    print(f"[serve] bucket-32 forward under the profiler: "
+    print(f"[{tag}] bucket-32 forward under the profiler: "
           f"{breakdown['wall_us_per_call']:.1f} us wall, device busy "
           f"{breakdown['device_busy_us_per_call']:.1f} us "
           f"({100 * breakdown['device_busy_share']:.1f}%), "
           f"{breakdown['kernel_launches_per_call']:.0f} device ops")
-    failed = [k for k, v in checks.items() if not v]
+
+
+def phase_serve(out):
+    out["serve"] = _serve_run("resnet18", 10, 10, out["card"])
+    _print_serve("serve", out["serve"])
+    failed = [k for k, v in out["serve"]["checks"].items() if not v]
     if failed:
         raise AssertionError(f"serve checks failed: {failed}")
 
@@ -1776,109 +1832,136 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_ddp_nccl_world1(out):
-    """7b: `Trainer` at world 1 on NCCL through `initialize()` and the env
-    contract (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT):
-    DDP's machinery on the card, 30 steps and one eval; its step beside
-    phase 6's single-process step, and, in turns on the same model and
-    batch (plain, DDP, DDP, plain; augmentation off in both), the step
-    without and with DDP's wrapper: what DDP adds, in ms and device ops
-    (CUDA activity alone under the profiler)."""
-    import torch
-
-    from tpu_dp_torch.config import parse_cli
-    from tpu_dp_torch.ops import conv_block as cb
-    from tpu_dp_torch.ops import xent as tx
-    from tpu_dp_torch.parallel import collectives
+@contextlib.contextmanager
+def _nccl_world1_env(**extra):
+    """One NCCL rank's env contract (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR, MASTER_PORT at a free port, and ``extra``) around a
+    block; after it the group is shut down and the env restored."""
     from tpu_dp_torch.parallel.dist import shutdown
-    from tpu_dp_torch.train.step import make_train_step
-    from tpu_dp_torch.train.trainer import Trainer
 
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           **extra}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_")
     try:
-        trainer = Trainer(parse_cli(TRAIN_ARGS + [
-            f"--train.ckpt_dir={ckpt.name}"]))
-        ctx = trainer.ctx
-        steps = len(trainer.train_pipe)
-        cb.reset_launches()
-        tx.reset_launches()
-        collectives.reset_counts()
-        result = trainer.fit()
-        torch.cuda.synchronize()
-        books = {"conv": dict(cb.launches_by_role),
-                 "xent": dict(tx.launches), **collectives.counts}
-        losses = trainer.step_losses
-        batch = next(iter(trainer.train_pipe))
-        step_ms = cuda_median_ms(
-            lambda: trainer.train_step(trainer.state, batch), reps=20)
-        prof = profile_forward(
-            lambda: trainer.train_step(trainer.state, batch), cuda_only=True,
-            keep_all=True)
-        ab = {}
-        for name in ("plain", "ddp", "ddp", "plain"):
-            fn = make_train_step(
-                trainer.ddp if name == "ddp" else trainer.model,
-                trainer.optimizer, trainer.schedule, use_pallas_xent=True,
-                device=trainer.device)
-            ms = cuda_median_ms(lambda: fn(trainer.state, batch), reps=20)
-            ops = profile_forward(lambda: fn(trainer.state, batch),
-                                  cuda_only=True)["kernel_launches_per_call"]
-            ab.setdefault(name, []).append({"step_ms": ms,
-                                            "device_ops_per_step": ops})
+        yield
     finally:
         shutdown()
-        ckpt.cleanup()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    ev = result["eval"]
-    plain_ms = out.get("train", {}).get("step_ms")
+
+
+def _world1_vs_one_process(out, key, args, steps, convs, turns=False):
+    """Phase 7b for one model: `Trainer` at world 1 on NCCL through
+    `initialize()` and the env contract against the same run in one
+    process without a group (``args``: the CLI arguments, ``steps``
+    updates and one eval): per-step losses within 0.05 of it, finite and
+    falling; the books per update (``convs`` + ``convs`` conv and 1 + 1
+    xent launches, ``convs`` a eval forward, DDP's buckets, and no sync-BN
+    all-reduce, which world 1 does not issue); the eval count the test
+    set; both steps' ms and the DDP step's device ops and busy share
+    (CUDA activity alone under the profiler). With ``turns``, also the
+    step without and with DDP's wrapper in turns on the same model and
+    batch (plain, DDP, DDP, plain): what DDP adds, in ms and device ops.
+    Records ``out[key]``."""
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.train.step import make_train_step
+    from tpu_dp_torch.train.trainer import Trainer
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_world1_")
+    try:
+        one = Trainer(parse_cli(args + [
+            f"--train.ckpt_dir={os.path.join(tmp.name, 'one')}"]),
+            device="cuda")
+        one.fit()
+        batch = next(iter(one.train_pipe))
+        one_ms = cuda_median_ms(lambda: one.train_step(one.state, batch),
+                                reps=20)
+        with _nccl_world1_env():
+            trainer = Trainer(parse_cli(args + [
+                f"--train.ckpt_dir={os.path.join(tmp.name, 'ddp')}"]))
+            ctx = trainer.ctx
+            result, ran = _fit_books(trainer)
+
+            def step():
+                return trainer.train_step(trainer.state, batch)
+
+            step_ms = cuda_median_ms(step, reps=20)
+            prof = profile_forward(step, cuda_only=True, keep_all=True)
+            ab = {}
+            for name in ("plain", "ddp", "ddp", "plain") if turns else ():
+                fn = make_train_step(
+                    trainer.ddp if name == "ddp" else trainer.model,
+                    trainer.optimizer, trainer.schedule,
+                    use_pallas_xent=True, device=trainer.device)
+                ms = cuda_median_ms(lambda: fn(trainer.state, batch), reps=20)
+                ops = profile_forward(lambda: fn(trainer.state, batch),
+                                      cuda_only=True)[
+                    "kernel_launches_per_call"]
+                ab.setdefault(name, []).append({"step_ms": ms,
+                                                "device_ops_per_step": ops})
+    finally:
+        tmp.cleanup()
+    losses, ev = trainer.step_losses, result["eval"]
+    diffs = [abs(a - b) for a, b in zip(losses, one.step_losses)]
+    h = max(1, min(5, len(losses) // 2))
     rec = {
         "backend": ctx.backend, "world": ctx.world, "device": str(ctx.device),
-        "steps": steps, "losses": losses, "eval": ev,
-        "launches": books, "step_ms": step_ms,
-        "single_process_step_ms": plain_ms,
-        "ddp_added_ms": None if plain_ms is None else step_ms - plain_ms,
+        "steps": len(losses), "losses": losses,
+        "single_losses": one.step_losses, "max_abs_diff": max(diffs),
+        "eval": ev, "books": ran,
+        "pmeans_per_update": {k: ran[k] / len(losses)
+                              for k in ("pmean_forward", "pmean_backward")},
+        "ddp_buckets_per_update": ran["ddp_buckets"] / len(losses),
+        "step_ms": step_ms, "single_process_step_ms": one_ms,
+        "ddp_added_ms": step_ms - one_ms,
         "device_ops_per_step": prof["kernel_launches_per_call"],
         "device_busy_share": prof["device_busy_share"],
         "nccl_kernels": {k: v for k, v in prof["all"].items()
                          if "nccl" in k.lower()},
         "plain_vs_ddp_in_turns": ab,
-        "fit_images_per_s": result["images_per_sec"],
-        "card": out["card"],
+        "fit_images_per_s": result["images_per_sec"], "card": out["card"],
     }
     rec["checks"] = {
         "nccl_world_1": (ctx.backend, ctx.world) == ("nccl", 1)
         and ctx.device.type == "cuda",
-        "steps": steps == TRAIN_STEPS and len(losses) == steps,
+        "steps": len(losses) == steps == len(one.step_losses),
         "losses_finite": all(math.isfinite(v) for v in losses),
-        "loss_falls": statistics.mean(losses[-5:])
-        < statistics.mean(losses[:5]),
+        "loss_falls": statistics.mean(losses[-h:])
+        < statistics.mean(losses[:h]),
+        "losses_track_one_process": max(diffs) <= DDP_LOSS_TOL,
         "eval_count_is_test_set": ev["count"] == len(trainer.test_ds),
-        "conv_20_per_step": books["conv"]["stats"] == 10 * steps
-        and books["conv"]["input_grad"] == 10 * steps,
-        "xent_1_and_1_per_step":
-            books["xent"] == {"forward": steps, "backward": steps},
-        "ddp_buckets_reduced": books["ddp_buckets"] >= steps,
-        "world_1_issues_no_sync_bn": books["pmean_forward"] == 0,
+        "books": _per_update_ok(ran, steps, len(trainer.test_pipe),
+                                convs=convs),
+        "ddp_buckets_reduced": ran["ddp_buckets"] >= steps,
+        "world_1_issues_no_sync_bn":
+            ran["pmean_forward"] == ran["pmean_backward"] == 0,
     }
-    out["ddp_nccl_world1"] = rec
-    print("[ddp_nccl_world1] " + json.dumps(rec))
-    print(f"[ddp_nccl_world1] {out['card']}: NCCL world 1 via initialize() "
-          f"and the env contract: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-          f"eval {ev['count']} images, step {step_ms:.3f} ms (single "
-          f"process, phase 6: {plain_ms}); "
-          f"{prof['kernel_launches_per_call']:.0f} device ops per step; in "
-          f"turns, plain vs DDP: " + json.dumps(ab))
+    out[key] = rec
+    print(f"[{key}] " + json.dumps(rec))
+    print(f"[{key}] {out['card']}: NCCL world 1 via initialize() and the "
+          f"env contract: loss {losses[0]:.4f} -> {losses[-1]:.4f} (one "
+          f"process within {max(diffs):.3g}), eval {ev['count']} images, "
+          f"step {step_ms:.3f} ms (one process {one_ms:.3f}); "
+          f"{prof['kernel_launches_per_call']:.0f} device ops per step"
+          + ("; in turns, plain vs DDP: " + json.dumps(ab) if turns else ""))
+    del one, trainer, batch
     failed = [k for k, v in rec["checks"].items() if not v]
     if failed:
-        raise AssertionError(f"ddp_nccl_world1 checks failed: {failed}")
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
+def phase_ddp_nccl_world1(out):
+    """7b: DDP's machinery on the card: `_world1_vs_one_process` on the
+    fused full-width ResNet-18, 30 steps and one eval, with the plain and
+    DDP steps in turns."""
+    _world1_vs_one_process(out, "ddp_nccl_world1", TRAIN_ARGS, TRAIN_STEPS,
+                           convs=10, turns=True)
 
 
 def phase_ddp_nccl_multi_card(out):
@@ -1942,14 +2025,15 @@ def _fit_books(trainer) -> tuple[dict, dict]:
     return result, ran
 
 
-def _per_update_ok(ran, updates, evals, accum=1) -> bool:
-    """The launches that ran equal ``updates`` updates' books: 20 conv
-    (10 ``emit_stats`` + 10 input-grad) and 1 + 1 xent per microbatch, 10
+def _per_update_ok(ran, updates, evals, accum=1, convs=10) -> bool:
+    """The launches that ran equal ``updates`` updates' books: 2 x
+    ``convs`` conv (``convs`` ``emit_stats`` + ``convs`` input-grad; 10 in
+    ResNet-18, 13 in ResNet-50) and 1 + 1 xent per microbatch, ``convs``
     conv per eval forward."""
-    want = {"conv.stats": 10 * accum * updates,
-            "conv.input_grad": 10 * accum * updates,
+    want = {"conv.stats": convs * accum * updates,
+            "conv.input_grad": convs * accum * updates,
             "xent.forward": accum * updates,
-            "xent.backward": accum * updates, "conv.eval": 10 * evals}
+            "xent.backward": accum * updates, "conv.eval": convs * evals}
     return all(ran[k] == v for k, v in want.items())
 
 
@@ -1976,24 +2060,18 @@ def _profiled_books(fn, books, n=2):
     return by_name == books, sessions
 
 
-def _windows_xent(out, rec, checks):
-    """9(f): the xent kernels' one-CTA route at [128, 10]: within 1e-6 of
-    the plain versions, the mean bit-identical across 100 launches and 3
-    replays of a CUDA graph of forward + backward, the launch floor (an
-    empty kernel's device time), and forward and backward device time by
-    batch on both routes (the one-CTA threshold)."""
-    import ctypes
-
+def _xent_mean_parity(lg, lb, ct) -> dict:
+    """The batch-mean xent pair on logits ``lg``, labels ``lb`` and the
+    scalar cotangent ``ct``: relative errors against the plain versions,
+    and whether loss and gradient are bit-identical across 100 launches
+    and across 3 replays of a CUDA graph of forward + backward (captured
+    on a side stream that ran the pair once before, outside the capture,
+    where its ticket counters are made)."""
     import torch
 
-    from tpu_dp_torch.ops import _build
     from tpu_dp_torch.ops import xent as tx
 
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    b, c = TRAIN_B, XENT_CLASSES[0]
-    lg = 3.0 * torch.randn(b, c, generator=gen, device="cuda")
-    lb = torch.randint(0, c, (b,), generator=gen, device="cuda")
-    ct = torch.tensor(1.3, device="cuda")
+    b = lg.shape[0]
     loss, d = tx._fwd(lg, lb, True), tx._bwd(lg, lb, ct, True)
     losses = [tx._fwd(lg, lb, True) for _ in range(100)]
     grads = [tx._bwd(lg, lb, ct, True) for _ in range(100)]
@@ -2015,28 +2093,60 @@ def _windows_xent(out, rec, checks):
         torch.cuda.synchronize()
         replays.append(torch.equal(g_loss, loss) and torch.equal(g_d, d))
     torch.cuda.synchronize()
-    lib = _build.load("xent")
-    empty = lib.tpu_dp_empty_kernel
+    return {"shape": list(lg.shape),
+            "fwd_abs_err": (loss - rl).abs().item(),
+            "bwd_abs_err": (d - rd).abs().max().item(),
+            "fwd_rel_err": ((loss - rl).abs() / rl.abs()).item(),
+            "bwd_rel_err": ((d - rd).abs().max() / rd.abs().max()).item(),
+            "fwd_bit_identical_100_launches": all(torch.equal(v, loss)
+                                                  for v in losses),
+            "bwd_bit_identical_100_launches": all(torch.equal(v, d)
+                                                  for v in grads),
+            "graph_replays_bit_identical": replays}
+
+
+def _launch_floor(threads_b: int):
+    """An empty kernel on one block of the one-CTA xent launch's size at
+    ``threads_b`` rows: the least any launch costs on the device."""
+    import ctypes
+
+    import torch
+
+    from tpu_dp_torch.ops import _build
+
+    empty = _build.load("xent").tpu_dp_empty_kernel
     empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
     empty.restype = ctypes.c_int
 
     def floor():
-        # One block of the one-CTA launches' size at [128, 10].
-        if empty(b, torch.cuda.current_stream().cuda_stream) != 0:
+        if empty(threads_b, torch.cuda.current_stream().cuda_stream) != 0:
             raise RuntimeError("empty kernel launch failed")
+    return floor
 
-    x = {"shape": [b, c],
-         "fwd_rel_err": ((loss - rl).abs() / rl.abs()).item(),
-         "bwd_rel_err": ((d - rd).abs().max() / rd.abs().max()).item(),
-         "fwd_bit_identical_100_launches": all(torch.equal(v, loss)
-                                               for v in losses),
-         "bwd_bit_identical_100_launches": all(torch.equal(v, d)
-                                               for v in grads),
-         "graph_replays_bit_identical": replays,
-         "floor_ms": device_ms(floor), "floor_launch_loop_ms":
-             cuda_loop_ms(floor),
-         "fwd_ms": device_ms(lambda: tx._fwd(lg, lb, True)),
-         "bwd_ms": device_ms(lambda: tx._bwd(lg, lb, ct, True))}
+
+def _windows_xent(out, rec, checks):
+    """9(f): the xent kernels' one-CTA route at [128, 10]: within 1e-6 of
+    the plain versions, the mean bit-identical across 100 launches and 3
+    replays of a CUDA graph of forward + backward, the launch floor (an
+    empty kernel's device time), and forward and backward device time by
+    batch on both routes (the one-CTA threshold)."""
+    import torch
+
+    from tpu_dp_torch.ops import xent as tx
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, c = TRAIN_B, XENT_CLASSES[0]
+    lg = 3.0 * torch.randn(b, c, generator=gen, device="cuda")
+    lb = torch.randint(0, c, (b,), generator=gen, device="cuda")
+    ct = torch.tensor(1.3, device="cuda")
+    x = _xent_mean_parity(lg, lb, ct)
+    replays = x["graph_replays_bit_identical"]
+    # One block of the one-CTA launches' size at [128, 10].
+    floor = _launch_floor(b)
+    x.update({"floor_ms": device_ms(floor),
+              "floor_launch_loop_ms": cuda_loop_ms(floor),
+              "fwd_ms": device_ms(lambda: tx._fwd(lg, lb, True)),
+              "bwd_ms": device_ms(lambda: tx._bwd(lg, lb, ct, True))})
     sweep = {}
     saved = tx.ONE_CTA_MAX_ROWS
     try:
@@ -2091,6 +2201,130 @@ def _win_args(updates, batch=TRAIN_B, k=1, extra=()):
             f"--train.steps_per_call={k}", *extra]
 
 
+def _windows_vs_eager(out, args, k, updates, convs, where):
+    """Phase 9's (a) and (c) for one model, cuDNN deterministic set by the
+    caller: ``updates`` eager updates against windows of ``k`` from the
+    same init (``args(n, k)``: the CLI arguments of ``n`` updates in
+    windows of ``k``; saves under ``where``): one eager warm-up window,
+    then one capture replayed; per-update losses, final state (parameters,
+    BN statistics, momentum) and eval bit-identical, losses finite and
+    falling, the books per update (``convs`` + ``convs`` conv, 1 + 1 xent)
+    from the captured counts x replays and per replay by kernel name under
+    the profiler; then speed in the same call: eager step ms against
+    windowed ms per update (CUDA events over whole windows), images/s by
+    the fenced meter, device busy share and ops per update, host ms per
+    window, the capture's ms and the bytes it holds, peak memory. Returns
+    ``(checks, rec)``."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.train.trainer import Trainer
+    from tpu_dp_torch.utils.meter import ThroughputMeter
+
+    torch.cuda.reset_peak_memory_stats()
+    peak0 = torch.cuda.max_memory_allocated()
+    win = Trainer(parse_cli(args(updates, k) + [
+        f"--train.ckpt_dir={os.path.join(where, 'win')}"]), device="cuda")
+    res_w, ran_w = _fit_books(win)
+    peak_w = torch.cuda.max_memory_allocated()
+    eager = Trainer(parse_cli(args(updates, 1) + [
+        f"--train.ckpt_dir={os.path.join(where, 'eager')}"]), device="cuda")
+    res_e, ran_e = _fit_books(eager)
+    ms = win.multi_step
+    evals = len(win.test_pipe)
+    losses = win.step_losses
+    checks = {
+        "windowed": ms is not None and ms.graph is not None
+        and ms.eager_windows == 1 and ms.replays == updates // k - 1,
+        "losses_bit_identical": losses == eager.step_losses
+        and len(losses) == updates,
+        "state_bit_identical": _same_state(_flat_state(win),
+                                           _flat_state(eager)),
+        "eval_identical": res_w["eval"] == res_e["eval"],
+        "losses_finite_and_fall": all(math.isfinite(v) for v in losses)
+        and statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+        "books_windowed": _per_update_ok(ran_w, updates, evals, convs=convs),
+        "books_eager": _per_update_ok(ran_e, updates, evals, convs=convs),
+        "captured_is_one_window": ms.captured is not None and {
+            n: ms.captured[n] for n in ("conv.stats", "conv.input_grad",
+                                        "xent.forward", "xent.backward")}
+        == {"conv.stats": convs * k, "conv.input_grad": convs * k,
+            "xent.forward": k, "xent.backward": k},
+    }
+    rec = {"losses": losses, "eval": res_w["eval"], "ran_windowed": ran_w,
+           "ran_eager": ran_e, "captured": dict(ms.captured),
+           "replays": ms.replays, "eager_windows": ms.eager_windows}
+    # Books per replay by kernel name, and speed, same models.
+    _, pool = _first_window(win.train_pipe, k)
+    batch = next(iter(eager.train_pipe))
+    ok, sessions = _profiled_books(
+        lambda: win.multi_step(win.state, pool),
+        {"conv_block_kernel": 2 * convs * k, "xent_fwd": k, "xent_bwd": k})
+    checks["profiled_books_per_replay"] = ok
+    eager_prof = profile_forward(
+        lambda: eager.train_step(eager.state, batch), 5, cuda_only=True)
+    win_prof = sessions[-1]
+    eager_ms = cuda_median_ms(
+        lambda: eager.train_step(eager.state, batch), reps=20)
+    win_ms = cuda_median_ms(lambda: win.multi_step(win.state, pool),
+                            reps=8) / k
+    host = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        win.multi_step(win.state, pool)
+        host.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    meters = {}
+    for name, fn, n, imgs in (
+            ("eager", lambda: eager.train_step(eager.state, batch), 22,
+             TRAIN_B),
+            ("windowed", lambda: win.multi_step(win.state, pool), 5,
+             k * TRAIN_B)):
+        meter = ThroughputMeter(warmup_steps=2, device="cuda")
+        for _ in range(n):
+            fn()
+            meter.step(imgs)
+        meter.mark()
+        meters[name] = meter.images_per_sec
+    rec.update({
+        "eager_step_ms": eager_ms, "windowed_ms_per_update": win_ms,
+        "images_per_s_meter": meters,
+        "fit_images_per_s": {"eager": res_e["images_per_sec"],
+                             "windowed": res_w["images_per_sec"]},
+        "eager_device_busy_share": eager_prof["device_busy_share"],
+        "eager_device_ops_per_update": eager_prof["kernel_launches_per_call"],
+        "windowed_device_busy_share": win_prof["device_busy_share"],
+        "windowed_device_ops_per_update": win_prof["device_ops_per_call"] / k,
+        "windowed_device_busy_us_per_update":
+            win_prof["device_busy_us_per_call"] / k,
+        "eager_device_busy_us_per_update":
+            eager_prof["device_busy_us_per_call"],
+        "host_ms_per_window": statistics.median(host),
+        "host_ms_per_window_all": host,
+        "capture_ms": ms.capture_ms, "capture_bytes": ms.capture_bytes,
+        "max_memory_allocated_before_fit": peak0,
+        "max_memory_allocated_after_windowed_fit": peak_w,
+        "profiled_sessions": sessions,
+    })
+    ms.close()
+    return checks, rec
+
+
+def _print_windows(tag, card, k, c, extra=""):
+    print(f"[{tag}] {card}: windows of {k}: eager step "
+          f"{c['eager_step_ms']:.3f} ms, windowed "
+          f"{c['windowed_ms_per_update']:.3f} ms per update; images/s "
+          f"{json.dumps(c['images_per_s_meter'])}; device busy "
+          f"{100 * c['eager_device_busy_share']:.1f}% eager, "
+          f"{100 * c['windowed_device_busy_share']:.1f}% windowed; ops per "
+          f"update {c['eager_device_ops_per_update']:.0f} / "
+          f"{c['windowed_device_ops_per_update']:.0f}; host "
+          f"{c['host_ms_per_window']:.3f} ms per window; capture "
+          f"{c['capture_ms']:.1f} ms holding "
+          f"{c['capture_bytes'] / 2**20:.1f} MiB" + extra)
+
+
 def phase_windows(out):
     """9: ``train.steps_per_call`` as CUDA-graph windows, and
     ``optim.grad_accum_steps``, on the fused full-width ResNet-18 (Train
@@ -2113,10 +2347,8 @@ def phase_windows(out):
     import torch
 
     from tpu_dp_torch.config import parse_cli
-    from tpu_dp_torch.parallel.dist import shutdown
     from tpu_dp_torch.train.step import make_multi_step, make_train_step
     from tpu_dp_torch.train.trainer import Trainer
-    from tpu_dp_torch.utils.meter import ThroughputMeter
 
     k, updates = 10, 40
     checks, rec = {}, {"card": out["card"], "k": k}
@@ -2126,109 +2358,16 @@ def phase_windows(out):
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_windows_")
     try:
         _windows_xent(out, rec, checks)
-        # (a) parity and books, one card, no group.
-        torch.cuda.reset_peak_memory_stats()
-        peak0 = torch.cuda.max_memory_allocated()
-        win = Trainer(parse_cli(_win_args(updates, k=k) + [
-            f"--train.ckpt_dir={os.path.join(tmp.name, 'win')}"]),
-            device="cuda")
-        res_w, ran_w = _fit_books(win)
-        peak_w = torch.cuda.max_memory_allocated()
-        eager = Trainer(parse_cli(_win_args(updates) + [
-            f"--train.ckpt_dir={os.path.join(tmp.name, 'eager')}"]),
-            device="cuda")
-        res_e, ran_e = _fit_books(eager)
-        ms = win.multi_step
-        evals = len(win.test_pipe)
-        checks.update({
-            "a_windowed": ms is not None and ms.graph is not None
-            and ms.eager_windows == 1 and ms.replays == updates // k - 1,
-            "a_losses_bit_identical": win.step_losses == eager.step_losses
-            and len(win.step_losses) == updates,
-            "a_state_bit_identical": _same_state(_flat_state(win),
-                                                 _flat_state(eager)),
-            "a_eval_identical": res_w["eval"] == res_e["eval"],
-            "a_losses_finite_and_fall": all(math.isfinite(v)
-                                            for v in win.step_losses)
-            and statistics.mean(win.step_losses[-5:])
-            < statistics.mean(win.step_losses[:5]),
-            "a_books_windowed": _per_update_ok(ran_w, updates, evals),
-            "a_books_eager": _per_update_ok(ran_e, updates, evals),
-            "a_captured_is_one_window": ms.captured is not None and {
-                n: ms.captured[n] for n in ("conv.stats", "conv.input_grad",
-                                            "xent.forward", "xent.backward")}
-            == {"conv.stats": 10 * k, "conv.input_grad": 10 * k,
-                "xent.forward": k, "xent.backward": k},
-        })
-        rec["a"] = {"losses": win.step_losses, "eval": res_w["eval"],
-                    "ran_windowed": ran_w, "ran_eager": ran_e,
-                    "captured": ms.captured, "replays": ms.replays,
-                    "eager_windows": ms.eager_windows}
-        # Books per replay by kernel name, and (c) speed, same model.
-        _, pool = _first_window(win.train_pipe, k)
-        batch = next(iter(eager.train_pipe))
-        books = {"conv_block_kernel": 20 * k, "xent_fwd": k, "xent_bwd": k}
-        ok, sessions = _profiled_books(
-            lambda: win.multi_step(win.state, pool), books)
-        checks["a_profiled_books_per_replay"] = ok
-        eager_prof = profile_forward(
-            lambda: eager.train_step(eager.state, batch), 5, cuda_only=True)
-        win_prof = sessions[-1]
-        eager_ms = cuda_median_ms(
-            lambda: eager.train_step(eager.state, batch), reps=20)
-        win_ms = cuda_median_ms(lambda: win.multi_step(win.state, pool),
-                                reps=10) / k
-        host = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            win.multi_step(win.state, pool)
-            host.append(1e3 * (time.perf_counter() - t0))
-        torch.cuda.synchronize()
-        meters = {}
-        for name, fn, n, imgs in (
-                ("eager", lambda: eager.train_step(eager.state, batch), 22,
-                 TRAIN_B),
-                ("windowed", lambda: win.multi_step(win.state, pool), 5,
-                 k * TRAIN_B)):
-            meter = ThroughputMeter(warmup_steps=2, device="cuda")
-            for _ in range(n):
-                fn()
-                meter.step(imgs)
-            meter.mark()
-            meters[name] = meter.images_per_sec
-        rec["c"] = {
-            "eager_step_ms": eager_ms, "windowed_ms_per_update": win_ms,
-            "images_per_s_meter": meters,
-            "fit_images_per_s": {"eager": res_e["images_per_sec"],
-                                 "windowed": res_w["images_per_sec"]},
-            "eager_device_busy_share": eager_prof["device_busy_share"],
-            "eager_device_ops_per_update":
-                eager_prof["kernel_launches_per_call"],
-            "windowed_device_busy_share": win_prof["device_busy_share"],
-            "windowed_device_ops_per_update":
-                win_prof["device_ops_per_call"] / k,
-            "windowed_device_busy_us_per_update":
-                win_prof["device_busy_us_per_call"] / k,
-            "eager_device_busy_us_per_update":
-                eager_prof["device_busy_us_per_call"],
-            "host_ms_per_window": statistics.median(host),
-            "host_ms_per_window_all": host,
-            "capture_ms": ms.capture_ms, "capture_bytes": ms.capture_bytes,
-            "max_memory_allocated_before_fit": peak0,
-            "max_memory_allocated_after_windowed_fit": peak_w,
-            "profiled_sessions": sessions,
-        }
-        print("[windows] (c) " + json.dumps(rec["c"]))
-        del win, eager, pool, batch
+        # (a) parity and books, one card, no group; (c) speed.
+        a_checks, rec["a"] = _windows_vs_eager(
+            out, lambda n, kk: _win_args(n, k=kk), k, updates, 10, tmp.name)
+        checks.update({"a_" + n: v for n, v in a_checks.items()})
+        print("[windows] (c) " + json.dumps(
+            {n: v for n, v in rec["a"].items() if n not in (
+                "losses", "ran_windowed", "ran_eager", "captured")}))
         # (d) and (b): world 1 on NCCL through initialize() and the env
         # contract (the env var before the group, as the Trainer sets it).
-        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
-               "TORCH_NCCL_ASYNC_ERROR_HANDLING": "0"}
-        saved = {n: os.environ.get(n) for n in env}
-        os.environ.update(env)
-        try:
+        with _nccl_world1_env(TORCH_NCCL_ASYNC_ERROR_HANDLING="0"):
             dw = Trainer(parse_cli(TRAIN_ARGS + [
                 "--train.steps_per_call=10",
                 f"--train.ckpt_dir={os.path.join(tmp.name, 'dw')}"]))
@@ -2341,13 +2480,6 @@ def phase_windows(out):
                 if t.multi_step is not None:
                     t.multi_step.close()
             del aw, ae, apool, abatch
-        finally:
-            shutdown()
-            for n, v in saved.items():
-                if v is None:
-                    os.environ.pop(n, None)
-                else:
-                    os.environ[n] = v
         # (e) phase 8's interrupted and resumed run, windows of 5.
         ck_args = CKPT_ARGS + ["--train.steps_per_call=5"]
         runs = {}
@@ -2402,21 +2534,478 @@ def phase_windows(out):
         tmp.cleanup()
     rec["checks"] = checks
     out["windows"] = rec
-    c = rec["c"]
-    print(f"[windows] {out['card']}: windows of {k}: eager step "
-          f"{c['eager_step_ms']:.3f} ms, windowed {c['windowed_ms_per_update']:.3f} "
-          f"ms per update; images/s {json.dumps(c['images_per_s_meter'])}; "
-          f"device busy {100 * c['eager_device_busy_share']:.1f}% eager, "
-          f"{100 * c['windowed_device_busy_share']:.1f}% windowed; ops per "
-          f"update {c['eager_device_ops_per_update']:.0f} / "
-          f"{c['windowed_device_ops_per_update']:.0f}; host "
-          f"{c['host_ms_per_window']:.3f} ms per window; capture "
-          f"{c['capture_ms']:.1f} ms holding {c['capture_bytes'] / 2**20:.1f} "
-          f"MiB; DDP added {rec['d']['ddp_added_ms_eager']:.3f} ms eager, "
-          f"{rec['d']['ddp_added_ms_windowed']:.3f} ms windowed")
+    _print_windows("windows", out["card"], k, rec["a"],
+                   f"; DDP added {rec['d']['ddp_added_ms_eager']:.3f} ms "
+                   f"eager, {rec['d']['ddp_added_ms_windowed']:.3f} ms "
+                   "windowed")
     failed = [n for n, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"windows checks failed: {failed}")
+
+
+def _r50_args(tmp, updates=R50_STEPS, k=1, extra=()):
+    """The ResNet-50 preset with the slice's kernel knobs on synthetic
+    CIFAR-100 (a data root without files), B=128, ``updates`` steps in one
+    epoch, windows of ``k``."""
+    return ["--preset=resnet50_cifar100", "--model.fused_stages=all",
+            "--model.fused_bwd=true", "--train.pallas_xent=true",
+            f"--data.root={os.path.join(tmp, 'no_cifar_files')}",
+            f"--data.batch_size={TRAIN_B}",
+            f"--data.synthetic_train_size={updates * TRAIN_B}",
+            f"--data.synthetic_test_size={2 * TRAIN_B}",
+            "--train.epochs=1", "--train.log_every=10",
+            f"--train.steps_per_call={k}", *extra]
+
+
+def _bottleneck_input(gen, b, h, c):
+    """What a ResNet-50 bottleneck hands the kernel: the f32 output of a
+    cuDNN 1x1 conv (4c -> c channels) of a post-ReLU activation, NHWC."""
+    import torch
+    import torch.nn.functional as F
+
+    a = torch.relu(torch.randn(b, 4 * c, h, h, generator=gen,
+                               device="cuda")).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(c, 4 * c, 1, 1, generator=gen, device="cuda") * (
+        math.sqrt(2.0 / c))
+    return F.conv2d(a, w).permute(0, 2, 3, 1).contiguous()
+
+
+def phase_resnet50_kernels(out):
+    """10a: the kernels at ResNet-50's call pattern, B=128: the conv
+    kernel at the four bottleneck shapes with f32 x from a 1x1 conv, no
+    residual, no emit_z: the eval variant (y within one ulp) and
+    ``emit_stats`` (y within one ulp, stats bit-exact with
+    `ordered_stats_sum`, bit-identical across launches, graph replays and
+    a busy side stream), the input-grad (one ulp); each timed by CUDA
+    events through its C entry beside its bound, its plain version and
+    cuDNN bf16 (``conv2d`` / ``conv2d_input``). Then the xent mean pair at
+    [128, 100], the multi-block route: within 1e-6 of the plain versions,
+    bit-identical across 100 launches and 3 graph replays, device time
+    beside ``F.cross_entropy``'s and the launch floor."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    big = torch.randn(8192, 8192, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    side = torch.cuda.Stream()
+    cases, ok = [], True
+    for stage, (h, c) in enumerate(STAGES):
+        n = TRAIN_B * h * h * c
+        flops = 2.0 * TRAIN_B * h * h * 9 * c * c
+        x = _bottleneck_input(gen, TRAIN_B, h, c)
+        _, w, scale, shift, _ = _case_inputs(gen, 1, h, c, torch.float32,
+                                             False)
+        wk = cb.pack_weight(w)
+        z = cb._reference_z(x, scale, shift).to(torch.bfloat16)
+        zl = z.permute(0, 3, 1, 2)
+        wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        library = cuda_loop_ms(lambda: F.conv2d(zl, wl, padding=1))
+        # Eval (serve and eval forwards).
+        y = cb.fused_affine_relu_conv(x, wk, scale, shift)
+        ref = cb.reference_affine_relu_conv(x, w, scale, shift)
+        torch.cuda.synchronize()
+        launch, _ = _direct_conv(cb, x, wk, scale, shift, None, False, False)
+        nbytes = n * 4 * 2 + wk.numel() * 2 + 2 * c * 4
+        rec = {"kind": "r50_eval", "stage": stage,
+               "shape": [TRAIN_B, h, h, c], "x_dtype": "float32",
+               "max_abs_err": (y - ref).abs().max().item(),
+               "tol": bf16_ulp(ref.abs().max().item()),
+               "tile": cb.tile_of(TRAIN_B, h, h, c),
+               "ms": cuda_loop_ms(launch),
+               "plain_ms": cuda_median_ms(
+                   lambda: cb.reference_affine_relu_conv(x, w, scale, shift),
+                   reps=10),
+               "library_ms": library, "bytes": nbytes, "flops": flops}
+        rec["ok"] = (bool(torch.isfinite(y).all())
+                     and rec["max_abs_err"] <= rec["tol"])
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        cases.append(with_ratios(rec))
+        # emit_stats (train forwards).
+        got = cb.fused_conv_bn(x, wk, scale, shift)
+        again = cb.fused_conv_bn(x, wk, scale, shift)
+        ref = cb.reference_affine_relu_conv(x, w, scale, shift,
+                                            emit_stats=True)
+        torch.cuda.synchronize()
+        y, st = got
+        yabs = torch.stack([y.abs().sum((0, 1, 2)), (y * y).sum((0, 1, 2))])
+        launch, _ = _direct_conv(cb, x, wk, scale, shift, None, False, True)
+        nbytes += 2 * c * 4
+        rec = {"kind": "r50_emit_stats", "stage": stage,
+               "shape": [TRAIN_B, h, h, c], "x_dtype": "float32",
+               "max_abs_err": (y - ref[0]).abs().max().item(),
+               "tol": bf16_ulp(ref[0].abs().max().item()),
+               "stats_rel_err": ((st - cb._stats_of(y)).abs()
+                                 / yabs).max().item(),
+               "stats_bit_identical": bool(torch.equal(st, again[-1])),
+               "y_bit_identical": bool(torch.equal(y, again[0])),
+               "tile": cb.tile_of(TRAIN_B, h, h, c),
+               "ms": cuda_loop_ms(launch),
+               "plain_ms": cuda_median_ms(
+                   lambda: cb.reference_affine_relu_conv(
+                       x, w, scale, shift, emit_stats=True), reps=10),
+               "library_ms": library, "bytes": nbytes, "flops": flops}
+        rec.update(_fold_checks(cb, x, wk, scale, shift, None, False, st,
+                                big, side))
+        rec["ok"] = (rec["max_abs_err"] <= rec["tol"]
+                     and rec["stats_rel_err"] <= 1e-5
+                     and rec["stats_bit_identical"]
+                     and rec["y_bit_identical"] and rec["fold_ok"])
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        cases.append(with_ratios(rec))
+        # The input-grad (the backward of every train step).
+        ct = torch.randn(TRAIN_B, h, h, c, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        wf = cb.flip_packed(w)
+        one = torch.ones(c, device="cuda")
+        zero = torch.zeros(c, device="cuda")
+        dz = cb._run(ct, wf, one, zero, None, False, False,
+                     role="input_grad")
+        ref = cb.reference_affine_relu_conv(ct, wf, one, zero,
+                                            activate=False)
+        torch.cuda.synchronize()
+        launch, _ = _direct_conv(cb, ct, wf, one, zero, None, False, False,
+                                 act=False)
+        ctl = ct.permute(0, 3, 1, 2)
+        wl2 = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+        nbytes = n * 2 * 2 + wf.numel() * 2
+        rec = {"kind": "r50_input_grad", "stage": stage,
+               "shape": [TRAIN_B, h, h, c],
+               "max_abs_err": (dz.float() - ref.float()).abs().max().item(),
+               "tol": bf16_ulp(ref.float().abs().max().item()),
+               "ms": cuda_loop_ms(launch),
+               "plain_ms": cuda_median_ms(
+                   lambda: cb.reference_affine_relu_conv(
+                       ct, wf, one, zero, activate=False), reps=10),
+               "library_ms": cuda_loop_ms(
+                   lambda: torch.nn.grad.conv2d_input(
+                       ctl.shape, wl2, ctl, padding=1)),
+               "bytes": nbytes, "flops": flops}
+        rec["ok"] = rec["max_abs_err"] <= rec["tol"]
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        cases.append(with_ratios(rec))
+        for r in cases[-3:]:
+            ok &= r["ok"]
+            print("[resnet50-kernel] " + json.dumps(r))
+    del big, side
+    # The xent mean pair at [128, 100]: the multi-block route.
+    b, c = TRAIN_B, R50_CLASSES
+    lg = 3.0 * torch.randn(b, c, generator=gen, device="cuda")
+    lb = torch.randint(0, c, (b,), generator=gen, device="cuda")
+    ct = torch.tensor(1.3, device="cuda")
+    x = _xent_mean_parity(lg, lb, ct)
+    lref = lg.clone().requires_grad_()
+    floor = _launch_floor(b)
+    nbytes = b * c * 4 + b * 8 + 4
+    x.update({
+        "route": "one_cta" if tx._one_cta(b, c) else "multi_block",
+        "fwd_ms": device_ms(lambda: tx._fwd(lg, lb, True)),
+        "bwd_ms": device_ms(lambda: tx._bwd(lg, lb, ct, True)),
+        "fwd_plain_ms": device_ms(lambda: tx._plain_fwd(lg, lb).mean()),
+        "bwd_plain_ms": device_ms(lambda: tx._plain_bwd(
+            lg, lb, (ct / b).expand(b))),
+        "fwd_library_ms": device_ms(lambda: F.cross_entropy(lg, lb)),
+        "bwd_library_ms": device_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(lref, lb), lref, ct)),
+        "floor_ms": device_ms(floor), "fwd_bytes": nbytes,
+        "bwd_bytes": nbytes + b * c * 4})
+    # ~10 operations per element (exp, max, add, divide), f32.
+    for d in ("fwd", "bwd"):
+        x[f"{d}_bound_ms"], x[f"{d}_bound_by"] = bound(
+            x[f"{d}_bytes"], 10.0 * b * c, PEAK_F32_FLOPS)
+    x["ok"] = (x["route"] == "multi_block" and x["fwd_rel_err"] <= 1e-6
+               and x["bwd_rel_err"] <= 1e-6
+               and x["fwd_bit_identical_100_launches"]
+               and x["bwd_bit_identical_100_launches"]
+               and all(x["graph_replays_bit_identical"]))
+    ok &= x["ok"]
+    print("[resnet50-kernel] xent " + json.dumps(x))
+    out["resnet50_kernels"] = {"conv": cases, "xent": x,
+                               "card": out["card"]}
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "ResNet-50's call pattern")
+    print(f"[resnet50-kernel] {out['card']}: all {len(cases)} conv cases "
+          f"within one bf16 ulp, stats bit-exact with ordered_stats_sum; "
+          f"xent [128, 100] ({x['route']}) forward {1e3 * x['fwd_ms']:.2f} "
+          f"us, backward {1e3 * x['bwd_ms']:.2f} us, floor "
+          f"{1e3 * x['floor_ms']:.2f} us")
+
+
+def phase_resnet50(out):
+    """10b: ResNet-50 on synthetic CIFAR-100 (``--preset=resnet50_cifar100
+    --model.fused_stages=all --model.fused_bwd=true
+    --train.pallas_xent=true``, f32, B=128): `Trainer` for 30 steps and
+    one eval (finite losses; 13 + 13 conv and 1 + 1 xent launches a step
+    by the wrappers' counters and by kernel name under the profiler, 13
+    per eval forward; the first 5 losses, and all 30, within 0.05 of the
+    same init and batches run unfused without kernels; the eval
+    count the test set; step ms, images/s, device busy share, ops, top
+    kernels, peak memory); its epoch save served by
+    `InferenceEngine.from_checkpoint` (buckets 1..32, 50 Poisson requests:
+    audited books, 13 conv launches a forward, bucket-32 logits
+    bit-identical to the trained model's eval forward, cuDNN
+    deterministic); the same 30 steps with augmentation off, whose loss
+    falls (with the preset's augmentation the synthetic set's loss rises
+    over the 30 warm-up steps, fused and unfused alike); and the
+    random-weight ResNet-50 behind the engine (phase 5's traffic and
+    checks, 13 launches a forward)."""
+    import numpy as np
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+    from tpu_dp_torch.serve import InferenceEngine, run_load
+    from tpu_dp_torch.train.step import _maybe_normalize
+    from tpu_dp_torch.train.trainer import Trainer
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_r50_")
+    try:
+        ckpt = os.path.join(tmp.name, "train")
+        args = _r50_args(tmp.name, extra=[f"--train.ckpt_dir={ckpt}"])
+        trainer = Trainer(parse_cli(args), device="cuda")
+        steps, evals = len(trainer.train_pipe), len(trainer.test_pipe)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cb.reset_launches()
+        tx.reset_launches()
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        trainer.ckpt_mgr.wait()
+        counts = {"conv": dict(cb.launches_by_role),
+                  "conv_total": cb.launches, "xent": dict(tx.launches)}
+        peak = torch.cuda.max_memory_allocated()
+        losses = trainer.step_losses
+        ev = result["eval"]
+        checks = {
+            "synthetic_cifar100": trainer.train_ds.synthetic
+            and trainer.train_ds.num_classes == R50_CLASSES
+            and trainer.model.num_classes == R50_CLASSES,
+            "xent_multi_block_route": not tx._one_cta(TRAIN_B, R50_CLASSES),
+            "steps": steps == R50_STEPS and len(losses) == steps,
+            "losses_finite": all(math.isfinite(v) for v in losses),
+            "conv_stats_13_per_step": counts["conv"]["stats"] == 13 * steps,
+            "conv_input_grad_13_per_step":
+                counts["conv"]["input_grad"] == 13 * steps,
+            "conv_eval_13_per_eval_forward":
+                counts["conv"]["eval"] == 13 * evals,
+            "xent_1_and_1_per_step":
+                counts["xent"] == {"forward": steps, "backward": steps},
+            "eval_count_is_test_set": ev["count"] == len(trainer.test_ds),
+        }
+        # The epoch save, served, before the trained model takes another
+        # step (cuDNN deterministic: the same algorithms for the served
+        # and the trained forward).
+        det = (torch.backends.cudnn.deterministic,
+               torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            engine = InferenceEngine.from_checkpoint(
+                ckpt, device="cuda", buckets=(1, 2, 4, 8, 16, 32),
+                slo_ms=250.0)
+            cb.reset_launches()
+            engine.start()
+            try:
+                report = run_load(engine, n_requests=CKPT_SERVE_REQUESTS,
+                                  pattern="poisson", rate_rps=400.0,
+                                  sizes=(1, 2, 3, 4), seed=3)
+            finally:
+                engine.stop()
+            served_launches = cb.launches
+            forwards = len(engine.replica.warmup_ms) + report["batches"]
+            imgs = torch.from_numpy(np.random.default_rng(4).integers(
+                0, 256, (32, 32, 32, 3), dtype=np.uint8)).cuda()
+            trainer.model.eval()
+            with torch.inference_mode():
+                x = _maybe_normalize(imgs)
+                served = engine.model(x)
+                trained = trainer.model(x)
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = det
+        truth, dev = report["ground_truth"], report["device_stats"]
+        checks.update({
+            "serve_ckpt_resnet50_100_classes":
+                engine.num_classes == R50_CLASSES
+                and type(engine.model.BottleneckBlock_0).__name__
+                == "BottleneckBlock",
+            "serve_ckpt_consistent": report["consistent"],
+            "serve_ckpt_served_eq_images":
+                dev["served"] == truth["images_served"],
+            "serve_ckpt_13_launches_per_forward":
+                served_launches == 13 * forwards,
+            "serve_ckpt_b32_logits_bit_identical_to_trained":
+                torch.equal(served, trained),
+        })
+        serve_ckpt = {"batches": report["batches"], "forwards": forwards,
+                      "conv_launches": served_launches,
+                      "p50_ms": (report["latency_ms"] or {}).get("p50_ms"),
+                      "images_served": truth["images_served"],
+                      "b32_max_abs_diff":
+                          (served - trained).abs().max().item()}
+        del engine
+        # The same init, batches, augmentation and schedule, unfused and
+        # without kernels (cuDNN convs, cross_entropy_loss, TF32 off).
+        ref = Trainer(parse_cli(args + [
+            "--model.fused_stages=", "--model.fused_bwd=false",
+            "--train.pallas_xent=false"]), device="cuda")
+        before = (cb.launches, dict(tx.launches))
+        ref.train_pipe.set_epoch(0)
+        ref_losses = torch.stack([ref.train_step(ref.state, batch)["loss"]
+                                  for batch in ref.train_pipe]).tolist()
+        diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        checks["first5_track_unfused"] = max(diffs[:5]) <= DDP_LOSS_TOL
+        # All 30: the warm-up lr moves little in 5 steps, and a run that
+        # stopped updating would stay near its first losses while the
+        # unfused run's climb by about 0.4 under the preset's augmentation.
+        checks["all_steps_track_unfused"] = max(diffs) <= DDP_LOSS_TOL
+        checks["reference_runs_no_kernel"] = before == (cb.launches,
+                                                        dict(tx.launches))
+        # Augmentation off: the loss falls within the 30 steps.
+        noaug = Trainer(parse_cli(_r50_args(tmp.name, extra=[
+            "--data.augment=false",
+            f"--train.ckpt_dir={os.path.join(tmp.name, 'noaug')}"])),
+            device="cuda")
+        noaug_result = noaug.fit()
+        nl = noaug.step_losses
+        checks["augment_off_losses_finite_and_fall"] = (
+            len(nl) == R50_STEPS and all(math.isfinite(v) for v in nl)
+            and statistics.mean(nl[-5:]) < statistics.mean(nl[:5]))
+        batch = next(iter(trainer.train_pipe))
+        trainer.model.train()
+        step = lambda: trainer.train_step(trainer.state, batch)  # noqa: E731
+        step_ms = cuda_median_ms(step, reps=20)
+        ref_step_ms = cuda_median_ms(lambda: ref.train_step(ref.state,
+                                                            batch), reps=10)
+        ok, sessions = _profiled_books(
+            step, {"conv_block_kernel": 26, "xent_fwd": 1, "xent_bwd": 1})
+        checks["profiled_26_conv_1_1_xent_per_step"] = ok
+        prof = profile_forward(step, 5, cuda_only=True)
+        checks["no_stats_reduce_kernel"] = not any(
+            "stats_reduce" in n for n in prof["kernel_names"])
+        rec = {
+            "steps": steps, "eval_forwards": evals, "launches": counts,
+            "losses": losses, "unfused_losses": ref_losses,
+            "first5_max_abs_diff": max(diffs[:5]),
+            "all_steps_max_abs_diff": max(diffs), "eval": ev,
+            "augment_off_losses": nl,
+            "augment_off_eval": noaug_result["eval"],
+            "fit_wall_s": result["wall_time_s"],
+            "fit_images_per_s_meter": result["images_per_sec"],
+            "step_ms": step_ms, "images_per_s": TRAIN_B / (step_ms / 1e3),
+            "unfused_step_ms": ref_step_ms,
+            "device_busy_share": prof["device_busy_share"],
+            "device_busy_us_per_step": prof["device_busy_us_per_call"],
+            "device_ops_per_step": prof["kernel_launches_per_call"],
+            "top_kernels": prof["top"], "profiled_sessions": sessions,
+            "peak_memory_bytes": peak, "held_before_fit_bytes": held,
+            "serve_ckpt": serve_ckpt, "card": out["card"]}
+        print(f"[resnet50] {out['card']}: {steps} steps, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (unfused within "
+              f"{max(diffs[:5]):.4f} over 5 steps, {max(diffs):.4f} over "
+              f"{steps}; augmentation off {nl[0]:.4f} -> {nl[-1]:.4f}), "
+              f"eval {ev['count']} images accuracy {ev['accuracy']:.4f}; "
+              f"step {step_ms:.3f} ms = {rec['images_per_s']:.0f} images/s "
+              f"(fit's meter {result['images_per_sec']:.1f}; unfused, no "
+              f"kernels: {ref_step_ms:.3f} ms); device busy "
+              f"{100 * prof['device_busy_share']:.1f}%, "
+              f"{prof['kernel_launches_per_call']:.0f} device ops a step; "
+              f"peak memory {peak / 2**20:.1f} MiB")
+        del trainer, ref, noaug
+    finally:
+        tmp.cleanup()
+    # The random-weight ResNet-50 behind the engine (phase 5's traffic).
+    rec["serve"] = _serve_run("resnet50", R50_CLASSES, 13, out["card"])
+    _print_serve("resnet50-serve", rec["serve"])
+    checks.update({f"serve_{k}": v for k, v in rec["serve"]["checks"].items()})
+    rec["checks"] = checks
+    out["resnet50"] = rec
+    print("[resnet50] " + json.dumps(rec, default=str))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resnet50 checks failed: {failed}")
+
+
+def phase_resnet50_windows(out):
+    """10c: ResNet-50 windows, phase 9's (a) and (c) (`_windows_vs_eager`)
+    with augmentation off, under cuDNN deterministic: 40 eager updates
+    against ``--train.steps_per_call=10`` (the xent mean at [128, 100] on
+    its multi-block route, ticket counters and all, inside the graph),
+    13 + 13 conv launches an update; and ``--train.steps_per_call=0``
+    (auto: windows of 24) over 48 updates, which must fit."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.train.trainer import Trainer
+
+    k, updates = R50_K, R50_WIN_UPDATES
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_r50_win_")
+    noaug = ["--data.augment=false"]
+    try:
+        checks, rec = _windows_vs_eager(
+            out, lambda n, kk: _r50_args(tmp.name, n, kk, noaug), k,
+            updates, 13, tmp.name)
+        rec.update({"card": out["card"], "k": k})
+        # Auto windows: min(24, steps per epoch) = 24 over 48 updates.
+        torch.cuda.reset_peak_memory_stats()
+        auto = Trainer(parse_cli(_r50_args(tmp.name, 48, 0, noaug) + [
+            f"--train.ckpt_dir={os.path.join(tmp.name, 'auto')}"]),
+            device="cuda")
+        res_a, ran_a = _fit_books(auto)
+        am = auto.multi_step
+        checks.update({
+            "auto_windows_of_24": auto.steps_per_call == 24
+            and am.graph is not None and am.replays == 1,
+            "auto_books": _per_update_ok(ran_a, 48, len(auto.test_pipe),
+                                         convs=13),
+            "auto_losses_finite": all(math.isfinite(v)
+                                      for v in auto.step_losses),
+        })
+        rec["auto"] = {"k": auto.steps_per_call,
+                       "capture_ms": am.capture_ms,
+                       "capture_bytes": am.capture_bytes,
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                       "eval": res_a["eval"]}
+        am.close()
+        del auto, am
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+        tmp.cleanup()
+    rec["checks"] = checks
+    out["resnet50_windows"] = rec
+    print("[resnet50-windows] " + json.dumps(rec, default=str))
+    _print_windows("resnet50-windows", out["card"], k, rec,
+                   f"; windows of 24: capture "
+                   f"{rec['auto']['capture_bytes'] / 2**20:.1f} MiB, peak "
+                   f"{rec['auto']['peak_memory_bytes'] / 2**20:.1f} MiB")
+    failed = [n for n, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resnet50 windows checks failed: {failed}")
+
+
+def phase_resnet50_ddp(out):
+    """10d: ResNet-50 data-parallel in phase 7b's form
+    (`_world1_vs_one_process`): 5 steps with augmentation off, 13 + 13
+    conv launches an update."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_r50_ddp_")
+    try:
+        _world1_vs_one_process(
+            out, "resnet50_ddp",
+            _r50_args(tmp.name, DDP_STEPS, extra=["--data.augment=false"]),
+            DDP_STEPS, convs=13)
+    finally:
+        tmp.cleanup()
 
 
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
@@ -2493,12 +3082,44 @@ def kernels_line(out):
             "library_ms": r["library_ms"],
             # An empty kernel's device time: the floor of any launch.
             "floor_ms": out.get("xent_floor_ms")}))
+    # ResNet-50 (phase 10): the same kernels at its call pattern, times
+    # summed over the 13 launches of one B=128 forward or step.
+    r50, rk = out["resnet50"], out["resnet50_kernels"]
+    by = {(r["kind"], r["stage"]): r for r in rk["conv"]}
+    conv = r50["launches"]["conv"]
+    for kind, name, line, launches in (
+            ("r50_eval", "conv_block.fused_affine_relu_conv (ResNet-50, f32 "
+             "x, no residual)", 113, r50["serve"]["launches"]
+             + r50["serve_ckpt"]["conv_launches"] + conv["eval"]),
+            ("r50_emit_stats", "conv_block.fused_conv_bn (emit_stats, "
+             "ResNet-50)", 153, conv["stats"]),
+            ("r50_input_grad", "conv_block input-grad (pallas_bwd, "
+             "ResNet-50)", 418, conv["input_grad"])):
+        entries.append(_summed(name, src + "conv_block.cu",
+                               f"tpu_dp/ops/conv_block.py:{line}", launches,
+                               [by[(kind, st)] for st in R50_FORWARD_STAGES]))
+    x = rk["xent"]
+    for d, name, line, key in (
+            ("fwd", "xent.mean_softmax_xent forward (mean, [128, 100], "
+             "multi-block)", 71, "forward"),
+            ("bwd", "xent.mean_softmax_xent backward (mean, [128, 100], "
+             "multi-block)", 82, "backward")):
+        entries.append(with_ratios({
+            "name": name, "route": "cuda", "source": src + "xent.cu",
+            "replaces": f"tpu_dp/ops/xent.py:{line}",
+            "launches": r50["launches"]["xent"][key],
+            "max_abs_err": x[f"{d}_abs_err"], "ms": x[f"{d}_ms"],
+            "plain_ms": x[f"{d}_plain_ms"], "bound_ms": x[f"{d}_bound_ms"],
+            "bound_by": x[f"{d}_bound_by"],
+            "library_ms": x[f"{d}_library_ms"], "floor_ms": x["floor_ms"]}))
     return {"kernels": entries}
 
 
 PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
           phase_serve, phase_train, phase_checkpoint, phase_ddp_gloo_one_card,
-          phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows)
+          phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows,
+          phase_resnet50_kernels, phase_resnet50, phase_resnet50_windows,
+          phase_resnet50_ddp)
 
 
 def main(argv=None) -> int:

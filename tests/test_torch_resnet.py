@@ -94,7 +94,7 @@ def test_parse_fused_stages_and_unknown_model():
     with pytest.raises(ValueError):
         parse_fused_stages("4")
     with pytest.raises(ValueError, match="unknown model"):
-        build_model("resnet50")
+        build_model("resnet34")
 
 
 def test_seeded_init_is_deterministic_and_fresh_init_zeroes_last_bn():

@@ -185,7 +185,7 @@ def test_augmentation_statistics():
     "--guard.enabled=true", "--resilience.elastic=true",
     "--obs.run_dir=x", "--train.obs=basic", "--train.profile_dir=p",
     "--model.fused_block_b=4", "--data.device_resident=on",
-    "--model.name=resnet50", "--train.bucket_mb=4", "--profile=t.json",
+    "--train.metrics_path=m.jsonl", "--train.bucket_mb=4", "--profile=t.json",
     "--data.sync_placement=true", "--parallel.num_devices=2"])
 def test_cli_refuses_unported_knobs(knob):
     with pytest.raises(NotPortedError):

@@ -8,7 +8,8 @@ pytest process, so the ranks run as plain subprocesses). SPEC holds
 ``rank``, ``world``, ``init`` (a ``file://`` rendezvous), ``variables``
 (a pickle of JAX-layout numpy variables), ``batches`` (an ``.npz`` of the
 GLOBAL batches, ``images [steps, W*B, 32, 32, 3]`` uint8 and ``labels``),
-``fused``, ``schedule``, ``num_filters``, ``out`` (a pickle path),
+``fused``, ``schedule``, ``num_filters``, ``model`` (optional, default
+``resnet18``; ``num_classes`` with it), ``out`` (a pickle path),
 ``accum_steps`` (optional; the batches are then ``[steps, a, W*B, ...]``)
 and ``mutate``: with it, sync-BN's backward skips the cross-rank reduce
 of the cotangent (a deliberate fault the tests must be able to see). The
@@ -154,7 +155,9 @@ def main(spec_path: str) -> int:
         kw = (dict(fused_stages=(0, 1, 2, 3), fused_bwd=True)
               if spec["fused"] else {})
         model = load_jax_variables(
-            build_model("resnet18", num_filters=spec["num_filters"],
+            build_model(spec.get("model", "resnet18"),
+                        num_classes=spec.get("num_classes", 10),
+                        num_filters=spec["num_filters"],
                         process_group=ctx.process_group, **kw), variables)
         ddp = data_parallel(model, ctx)
         opt = make_sgd(model, momentum=0.9, weight_decay=5e-4)

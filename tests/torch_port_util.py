@@ -71,17 +71,27 @@ def randomize_bn(tree, rng, _path=()):
     return out
 
 
-def jax_resnet18_variables(num_filters=8, seed=0, num_classes=10):
-    """``{"params", "batch_stats"}`` of a JAX ResNet-18 as numpy dicts,
-    BN randomized from ``seed``."""
+def _jax_resnet_variables(name, num_filters, seed, num_classes):
     from tpu_dp.models import build_model
 
-    model = build_model("resnet18", num_classes=num_classes,
+    model = build_model(name, num_classes=num_classes,
                         num_filters=num_filters)
     v = model.init(jax.random.PRNGKey(seed),
                    np.zeros((1, 32, 32, 3), np.float32), train=False)
     v = _plain({k: v[k] for k in ("params", "batch_stats")})
     return randomize_bn(v, np.random.default_rng(seed + 100))
+
+
+def jax_resnet18_variables(num_filters=8, seed=0, num_classes=10):
+    """``{"params", "batch_stats"}`` of a JAX ResNet-18 as numpy dicts,
+    BN randomized from ``seed``."""
+    return _jax_resnet_variables("resnet18", num_filters, seed, num_classes)
+
+
+def jax_resnet50_variables(num_filters=8, seed=0, num_classes=100):
+    """``{"params", "batch_stats"}`` of a JAX ResNet-50 as numpy dicts,
+    BN randomized from ``seed``."""
+    return _jax_resnet_variables("resnet50", num_filters, seed, num_classes)
 
 
 def _plain(tree):

@@ -30,7 +30,7 @@ class NotPortedError(ValueError):
 
 @dataclass
 class ModelConfig:
-    name: str = "net"  # net | resnet18
+    name: str = "net"  # net | resnet18 | resnet50
     num_classes: int | None = None  # None = derive from dataset; set = must agree
     bf16: bool = False  # compute dtype bfloat16 (params stay f32)
     # Stages whose stride-1 blocks run on the fused conv kernel: "" (off),
@@ -223,8 +223,10 @@ NOT_PORTED_SECTIONS: dict[str, dict[str, Any]] = {
 #: Fields of the ported sections that the port does not implement yet,
 #: with the JAX package's defaults (the only values that run).
 NOT_PORTED: dict[str, Any] = {
-    # The TPU kernel's images per grid step; the Hopper kernel's tile is
-    # fixed, so only the automatic default runs.
+    # The TPU kernel's images per grid step (ResNet-18 and ResNet-50
+    # alike); the Hopper kernel's tile is fixed by the shape (`conv_block.
+    # tile_of`), so there is no per-block knob to give it and only the
+    # automatic default runs.
     "model.fused_block_b": 0,
     "data.resident_max_bytes": 512 * 1024 * 1024,
     "data.sync_placement": False,
@@ -295,19 +297,19 @@ def _require_default(dotted: str, value: Any, default: Any) -> None:
 
 def check_ported(cfg: Config) -> Config:
     """Raise `NotPortedError` for a configuration the port cannot run
-    (a model other than net and resnet18, the device-resident feed, more
-    than one device per process), `ValueError` for one that is invalid
-    (gradient accumulation below 1, a negative window, either with a
-    ragged final batch)."""
+    (a model other than net, resnet18 and resnet50, the device-resident
+    feed, more than one device per process), `ValueError` for one that is
+    invalid (gradient accumulation below 1, a negative window, either with
+    a ragged final batch)."""
     if cfg.parallel.num_devices not in (None, 1):
         raise NotPortedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: one "
             f"tpu_dp_torch process drives one device; run one process per "
             f"device (torchrun --nproc_per_node)")
-    if cfg.model.name.lower() not in ("net", "resnet18"):
+    if cfg.model.name.lower() not in ("net", "resnet18", "resnet50"):
         raise NotPortedError(
-            f"model.name={cfg.model.name!r}: tpu_dp_torch trains net and "
-            f"resnet18 only so far (ROADMAP.md)")
+            f"model.name={cfg.model.name!r}: tpu_dp_torch trains net, "
+            f"resnet18 and resnet50 only so far (ROADMAP.md)")
     if cfg.data.device_resident not in ("auto", "off", "on"):
         raise ValueError(f"data.device_resident must be auto|on|off, got "
                          f"{cfg.data.device_resident!r}")
@@ -348,9 +350,19 @@ def _preset_resnet18_cifar10() -> Config:
     return c
 
 
+def _preset_resnet50_cifar100() -> Config:
+    """ResNet-50 on CIFAR-100: the ResNet-18 preset with the model and
+    the dataset changed."""
+    c = _preset_resnet18_cifar10()
+    c.model = ModelConfig(name="resnet50", num_classes=100)
+    c.data.dataset = "cifar100"
+    return c
+
+
 PRESETS = {
     "reference": _preset_reference_single,
     "resnet18_cifar10": _preset_resnet18_cifar10,
+    "resnet50_cifar100": _preset_resnet50_cifar100,
 }
 
 

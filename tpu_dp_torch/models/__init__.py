@@ -1,16 +1,17 @@
-"""Model zoo of the port: the reference's `Net` and the CIFAR ResNet-18.
+"""Model zoo of the port: the reference's `Net` and the CIFAR ResNet-18
+and ResNet-50.
 
 `build_model` and `parse_fused_stages` keep the JAX package's names and
-contracts (`tpu_dp.models`); ResNet-50 comes in a later slice.
+contracts (`tpu_dp.models`).
 """
 
 from __future__ import annotations
 
 from tpu_dp_torch.models.net import Net
-from tpu_dp_torch.models.resnet import ResNet, ResNet18
+from tpu_dp_torch.models.resnet import ResNet, ResNet18, ResNet50
 
-_REGISTRY = {"net": Net, "resnet18": ResNet18}
-_RESNETS = {"resnet18"}
+_REGISTRY = {"net": Net, "resnet18": ResNet18, "resnet50": ResNet50}
+_RESNETS = {"resnet18", "resnet50"}
 
 
 def parse_fused_stages(spec: str | None) -> tuple[int, ...]:
@@ -52,4 +53,5 @@ def build_model(name: str, num_classes: int = 10, **kwargs):
     return factory(num_classes=num_classes, **kwargs)
 
 
-__all__ = ["Net", "ResNet", "ResNet18", "build_model", "parse_fused_stages"]
+__all__ = ["Net", "ResNet", "ResNet18", "ResNet50", "build_model",
+           "parse_fused_stages"]

@@ -3,7 +3,8 @@ port (of `python -m tpu_dp.serve`, single replica).
 
 Builds a freshly initialized f32 model from ``--seed`` (the fused
 ResNet-18, full width by default: every stride-1 BasicBlock conv on the
-hand-written CUDA kernel), or with ``--ckpt=DIR`` serves a training
+hand-written CUDA kernel; ``--model=resnet50``: every stride-1
+bottleneck's 3x3 on it), or with ``--ckpt=DIR`` serves a training
 checkpoint of either package (a ``step_*`` dir or a checkpoint root; the
 model comes from its meta), serves ``--requests`` synthetic requests
 through the whole pipeline on the CUDA card (``--device cpu`` runs it on

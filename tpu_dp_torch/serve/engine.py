@@ -187,8 +187,9 @@ class InferenceEngine:
         """Serve a training checkpoint: ``ckpt_dir`` is one ``step_*``
         directory or a `CheckpointManager` root (its newest complete
         save). Without ``model`` the model is rebuilt from the meta's
-        ``config``: ``resnet18`` with every stage on the fused kernel (the
-        port's serve path), ``net`` as it is. ``kwargs`` go to the
+        ``config``: ``resnet18`` or ``resnet50`` with every stage on the
+        fused kernel (the port's serve path), ``net`` as it is; its
+        classes from the config (or its dataset). ``kwargs`` go to the
         engine."""
         from tpu_dp_torch.checkpoint import load_params_only, resolve_ckpt_dir
         from tpu_dp_torch.compat import load_jax_variables

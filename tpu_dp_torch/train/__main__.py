@@ -3,6 +3,9 @@
     python -m tpu_dp_torch.train --preset=resnet18_cifar10 \\
         --model.fused_stages=all --model.fused_bwd=true \\
         --train.pallas_xent=true [--device cpu]
+    python -m tpu_dp_torch.train --preset=resnet50_cifar100 \\
+        --model.fused_stages=all --model.fused_bwd=true \\
+        --train.pallas_xent=true [--device cpu]
 
 Data-parallel under a launcher, one process per card (NCCL), or on the
 CPU (gloo) with ``--device cpu``:

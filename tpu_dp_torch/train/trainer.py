@@ -4,7 +4,7 @@ Trainer.fit`, one process per device, data-parallel across processes.
 `Trainer(cfg, device)` joins the process group (`parallel.dist.
 initialize`: the launcher's env contract or the ``parallel`` section;
 alone when neither is there), builds the data (train and test
-`DataPipeline`s on this rank's shard), the model (`Net` or ResNet-18;
+`DataPipeline`s on this rank's shard), the model (`Net`, ResNet-18 or ResNet-50;
 seeded init, sync-BN over the group), SGD and the schedule — total
 steps = steps per epoch × epochs, warmup = ``warmup_epochs`` × steps per
 epoch — and the train and eval steps. With a group the model trains
