@@ -139,13 +139,35 @@ Phases, in order; any failure exits non-zero before the last line:
    window, the capture's ms and bytes, and auto windows of 24; (d)
    ``resnet50_ddp``: phase 7b's run, 5 steps with augmentation off, within
    0.05 of one process, with its books;
-11. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+11. ``sharded``: the sharded weight update (``--train.update_sharding=
+   sharded``) on the fused full-width ResNet-18, f32 weights, B=128,
+   cuDNN deterministic, at world 1 on NCCL through `initialize()` and the
+   env contract (the exchange's collectives issued): (a) 30 updates and
+   one eval per wire (f32, bf16, int8; unbucketed and at
+   ``--train.bucket_mb=25``) against the replicated run: f32 bit-identical
+   to it (losses, parameters, BN statistics, momentum), bf16 and int8
+   finite and falling, their parameters after 6 updates within 4e-3 and
+   6e-3 of f32's and not equal to them, ``quant_overflow`` 0; the books
+   per update (10 + 10 conv, 1 + 1 xent; reduce-scatters, all-to-alls and
+   all-gathers as the exchange plan says) by counter, and by kernel name
+   under the profiler for one update, with its NCCL kernels; step ms;
+   momentum and residual bytes per rank and the fit's peak memory; (b)
+   windows of 10 against 40 eager updates for f32, bf16, int8 and int8 at
+   25 MB (phase 9's checks and times), beside the replicated windows run
+   without a group; (c) phase 8's interrupted and resumed run under int8
+   at 25 MB, bit-identical to the uninterrupted one (residuals included);
+   (d) ResNet-50 int8 at 25 MB, 10 updates: books and finite losses.
+   Phase 7a also runs the sharded update (f32 and int8) on its two gloo
+   ranks, and prints ``not run`` with gloo's error if gloo refuses a
+   collective on CUDA tensors; phase 7c adds sharded f32 and int8 at
+   world 2 and every card;
+12. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only ddp_nccl_world1,ddp_nccl_multi_card`` runs
 the header, the build and the named phases alone (a four-card machine's
 multi-card check), without the kernels' line; ``--only
 resnet50_kernels,resnet50,resnet50_windows,resnet50_ddp`` runs phase 10
-alone. ``--ddp-worker SPEC`` is phase 7's rank process.
+alone and ``--only sharded`` phase 11. ``--ddp-worker SPEC`` is phase 7's rank process.
 
 Every timed case also prints ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
@@ -233,6 +255,12 @@ R50_CLASSES = 100
 R50_STEPS = 30
 R50_WIN_UPDATES, R50_K = 40, 10
 R50_FORWARD_STAGES = (0, 0, 0, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3)
+#: phase 11: the sharded update's wires (``train.collective_dtype``,
+#: ``train.bucket_mb``), and the wire contract's bounds on the parameters
+#: after 6 updates against f32 (tests/test_quant.py's ``WIRE_CONTRACT``).
+SHARDED_WIRES = (("", 0.0), ("bf16", 0.0), ("int8", 0.0), ("", 25.0),
+                 ("bf16", 25.0), ("int8", 25.0))
+WIRE_TOL = {"bf16": 4e-3, "int8": 6e-3}
 
 
 def bf16_ulp(mag: float) -> float:
@@ -1615,7 +1643,8 @@ def _ddp_batches(world: int):
             rng.integers(0, 10, (DDP_STEPS, n)).astype(np.int64))
 
 
-def _ddp_train(ctx, world: int, profile: bool = False) -> dict:
+def _ddp_train(ctx, world: int, profile: bool = False,
+               wire: str | None = None) -> dict:
     """``DDP_STEPS`` fused full-width updates (f32, the slice's kernels)
     from the seed-0 init on this rank's rows of `_ddp_batches`: per-step
     global losses, the books of each step (kernel launches by the
@@ -1623,14 +1652,18 @@ def _ddp_train(ctx, world: int, profile: bool = False) -> dict:
     CUDA-event time. ``ctx`` None: one process on the whole batch, no
     group. ``profile``: then 5 more steps on the last batch under the
     profiler (CUDA activity alone): wall and device-busy time per step and
-    the NCCL kernels' share."""
+    the NCCL kernels' share. ``wire`` ("" f32, "bf16", "int8"): the
+    sharded update over the group instead of DDP, with the exchange's
+    collectives per update it should issue (``exchange_books``)."""
     import torch
+
+    import torch.distributed as dist
 
     from tpu_dp_torch.models import build_model
     from tpu_dp_torch.ops import conv_block as cb
     from tpu_dp_torch.ops import xent as tx
-    from tpu_dp_torch.parallel import collectives
-    from tpu_dp_torch.train.optim import make_sgd
+    from tpu_dp_torch.parallel import collectives, quant
+    from tpu_dp_torch.train.optim import make_sgd, shard_optimizer
     from tpu_dp_torch.train.schedule import make_schedule
     from tpu_dp_torch.train.step import (
         TrainState,
@@ -1644,8 +1677,15 @@ def _ddp_train(ctx, world: int, profile: bool = False) -> dict:
         "resnet18", num_filters=64, num_classes=10,
         fused_stages=(0, 1, 2, 3), fused_bwd=True, process_group=group,
         generator=torch.Generator().manual_seed(0)).to(dev)
-    runs = model if ctx is None else data_parallel(model, ctx)
-    opt = make_sgd(model, 0.9, 5e-4)
+    exchange = None
+    if wire is None:
+        runs = model if ctx is None else data_parallel(model, ctx)
+        opt = make_sgd(model, 0.9, 5e-4)
+    else:
+        runs = model
+        opt = shard_optimizer(model, world, ctx.rank, dist.group.WORLD,
+                              0.9, 5e-4, codec=quant.make_wire_codec(wire))
+        exchange = _exchange_books(opt, 1)
     step = make_train_step(runs, opt, make_schedule(*DDP_SCHED),
                            use_pallas_xent=True, device=dev,
                            process_group=group)
@@ -1682,6 +1722,7 @@ def _ddp_train(ctx, world: int, profile: bool = False) -> dict:
                         if "nccl" in k.lower()}
     return {"losses": losses, "books": books, "step_ms": ms, "profile": prof,
             "device": str(next(model.parameters()).device),
+            "exchange_books": exchange,
             "state": {k: v.detach().cpu() for k, v in
                       model.state_dict().items()}}
 
@@ -1703,7 +1744,8 @@ def ddp_worker(spec_path: str) -> int:
                      world_size=spec["world"], rank=spec["rank"],
                      device=spec["device"], timeout_s=300)
     try:
-        rec = _ddp_train(ctx, spec["world"], spec["profile"])
+        rec = _ddp_train(ctx, spec["world"], spec["profile"],
+                         spec.get("wire"))
         rec["backend"] = ctx.backend
         torch.save(rec, spec["out"])
     finally:
@@ -1711,7 +1753,8 @@ def ddp_worker(spec_path: str) -> int:
     return 0
 
 
-def _ddp_ranks(world: int, backend, devices, profile: bool) -> list:
+def _ddp_ranks(world: int, backend, devices, profile: bool,
+               wire: str | None = None) -> list:
     """Run ``world`` ranks of `ddp_worker` as processes of this script,
     rank r on ``devices[r]``; returns each rank's record."""
     import shutil
@@ -1726,6 +1769,7 @@ def _ddp_ranks(world: int, backend, devices, profile: bool) -> list:
         for rank in range(world):
             spec = {"rank": rank, "world": world, "backend": backend,
                     "device": devices[rank], "profile": profile,
+                    "wire": wire,
                     "init": "file://" + os.path.join(work, "rendezvous"),
                     "out": os.path.join(work, f"rank{rank}.pt")}
             path = os.path.join(work, f"spec{rank}.json")
@@ -1752,15 +1796,18 @@ def _ddp_ranks(world: int, backend, devices, profile: bool) -> list:
 
 
 def _ddp_parity(out, key: str, world: int, backend, devices,
-                profile: bool = False) -> dict:
+                profile: bool = False, wire: str | None = None) -> dict:
     """``world`` ranks against one process on the concatenated batch:
     per-step global loss within ``DDP_LOSS_TOL``, parameters and buffers
     bit-identical across the ranks, and each rank's books per step: 20
     conv launches (10 ``emit_stats``, 10 input-grad), 1 + 1 xent, 20 + 20
-    sync-BN pmeans, one metrics all-reduce, DDP's buckets (printed)."""
+    sync-BN pmeans, one metrics all-reduce, DDP's buckets (printed); with
+    ``wire`` the sharded update instead of DDP, its exchange's
+    reduce-scatters, all-to-alls and all-gather as planned and no DDP
+    bucket."""
     import torch
 
-    ranks = _ddp_ranks(world, backend, devices, profile)
+    ranks = _ddp_ranks(world, backend, devices, profile, wire)
     ref = _ddp_train(None, world)
     diffs = [max(abs(a - b) for a, b in zip(r["losses"], ref["losses"]))
              for r in ranks]
@@ -1769,10 +1816,19 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
     want = {"conv": {"eval": 0, "stats": 10, "input_grad": 10},
             "xent": {"forward": 1, "backward": 1}, "pmean_forward": 20,
             "pmean_backward": 20, "psum": 1}
-    books_ok = all({k: b[k] for k in want} == want and b["ddp_buckets"] >= 1
-                   for r in ranks for b in r["books"])
+    if wire is None:
+        books_ok = all({k: b[k] for k in want} == want
+                       and b["ddp_buckets"] >= 1
+                       for r in ranks for b in r["books"])
+    else:
+        books_ok = all({k: b[k] for k in want} == want
+                       and b["ddp_buckets"] == 0
+                       and all(b[k] == v for k, v in
+                               r["exchange_books"].items())
+                       for r in ranks for b in r["books"])
     rec = {
-        "world": world, "backend": [r["backend"] for r in ranks],
+        "world": world, "wire": wire,
+        "backend": [r["backend"] for r in ranks],
         "devices": [r["device"] for r in ranks],
         "losses": [r["losses"] for r in ranks],
         "concatenated_losses": ref["losses"], "max_abs_diff": max(diffs),
@@ -1801,7 +1857,8 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
     rec["global_images_per_s"] = world * TRAIN_B / (step / 1e3)
     out[key] = rec
     print(f"[{key}] " + json.dumps(rec))
-    print(f"[{key}] {out['card']}: {world} ranks ({rec['backend'][0]}) on "
+    print(f"[{key}] {out['card']}: {world} ranks ({rec['backend'][0]}"
+          + ("" if wire is None else f", sharded {wire or 'f32'}") + ") on "
           f"{rec['devices']}, B={TRAIN_B} per rank: losses "
           f"{[round(v, 4) for v in rec['losses'][0]]} vs concatenated "
           f"B={world * TRAIN_B} {[round(v, 4) for v in ref['losses']]} "
@@ -1811,7 +1868,7 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
     failed = [k for k, v in rec["checks"].items() if not v]
     if failed:
         raise AssertionError(f"{key} checks failed: {failed}")
-    return rec
+    return rec, ranks[0]["state"]
 
 
 def phase_ddp_gloo_one_card(out):
@@ -1822,6 +1879,23 @@ def phase_ddp_gloo_one_card(out):
           "ranks share cuda:0")
     _ddp_parity(out, "ddp_gloo_one_card", DDP_WORLD, "gloo",
                 ["cuda:0"] * DDP_WORLD)
+    # The sharded update on the same two ranks. gloo may not implement a
+    # reduce-scatter or an all-to-all of CUDA tensors: then the run is
+    # reported as not run, with gloo's error (nothing stages through the
+    # host instead).
+    for wire in ("", "int8"):
+        key = f"ddp_gloo_one_card_sharded_{wire or 'f32'}"
+        try:
+            _ddp_parity(out, key, DDP_WORLD, "gloo", ["cuda:0"] * DDP_WORLD,
+                        wire=wire)
+        except AssertionError as e:
+            if "exited" not in str(e):
+                raise
+            err = [ln for ln in str(e).splitlines() if "Error" in ln
+                   or "not supported" in ln or "unsupported" in ln]
+            out[key] = {"run": False, "error": err[-3:] or str(e)[-600:]}
+            print(f"[{key}] not run: gloo refused the sharded update on "
+                  f"CUDA tensors: {out[key]['error']}")
 
 
 def _free_port() -> int:
@@ -1967,7 +2041,8 @@ def phase_ddp_nccl_world1(out):
 def phase_ddp_nccl_multi_card(out):
     """7c: NCCL, one rank per card, when two or more cards are visible:
     the same parity against the concatenated batch, and global images/s
-    (with every visible card too, when there are more than two)."""
+    (with every visible card too, when there are more than two), for DDP
+    and for the sharded update in f32 and int8."""
     import torch
 
     n = torch.cuda.device_count()
@@ -1975,16 +2050,36 @@ def phase_ddp_nccl_multi_card(out):
         print(f"ddp_nccl_multi_card: not run, {n} card visible")
         out["ddp_nccl_multi_card"] = {"run": False, "cards": n}
         return
-    recs = {}
+    recs, sharded, vs_ddp = {}, {}, {}
     for world in sorted({2, n}):
-        recs[world] = _ddp_parity(out, f"ddp_nccl_world{world}", world,
-                                  None, [f"cuda:{r}" for r in range(world)],
-                                  profile=True)
+        devs = [f"cuda:{r}" for r in range(world)]
+        recs[world], ddp_state = _ddp_parity(
+            out, f"ddp_nccl_world{world}", world, None, devs, profile=True)
+        for wire in ("", "int8"):
+            name = wire or "f32"
+            sharded[(world, name)], state = _ddp_parity(
+                out, f"ddp_nccl_world{world}_sharded_{name}", world, None,
+                devs, profile=True, wire=wire)
+            if not wire:
+                # Sharded f32 against DDP, recorded, not required: phase 7
+                # leaves cuDNN's nondeterministic algorithms on, so two
+                # runs may part from the third update on whatever order
+                # NCCL's reduce-scatter sums in.
+                vs_ddp[world] = {
+                    "losses_bit_identical": sharded[(world, name)]["losses"]
+                    == recs[world]["losses"],
+                    "max_abs_diff_state": max(
+                        float((state[k].double() - ddp_state[k].double())
+                              .abs().max()) for k in state)}
     one = out.get("ddp_nccl_world1", {}).get("step_ms")
     out["ddp_nccl_multi_card"] = {
         "run": True, "cards": n,
         "global_images_per_s": {w: r["global_images_per_s"]
                                 for w, r in recs.items()},
+        "sharded_global_images_per_s": {
+            f"{w}_{name}": r["global_images_per_s"]
+            for (w, name), r in sharded.items()},
+        "sharded_f32_vs_ddp": vs_ddp,
         "world1_images_per_s": None if one is None else TRAIN_B / (one / 1e3),
     }
     print("[ddp_nccl_multi_card] " + json.dumps(out["ddp_nccl_multi_card"]))
@@ -3008,6 +3103,280 @@ def phase_resnet50_ddp(out):
         tmp.cleanup()
 
 
+def _exchange_books(opt, updates: int) -> dict[str, int]:
+    """The sharded update's collectives for ``updates`` updates of the
+    optimizer ``opt``'s exchange plan: a reduce-scatter per f32/bf16
+    exchange, two all-to-alls (payload, scales) per int8 one, one
+    all-gather of the parameters."""
+    q = sum(ex.quantizes for ex in opt.exchanges)
+    return {"reduce_scatter": (len(opt.exchanges) - q) * updates,
+            "all_to_all": 2 * q * updates, "all_gather": updates}
+
+
+def _sharded_args(wire: str, bucket_mb: float) -> list[str]:
+    return (["--train.update_sharding=sharded"]
+            + ([f"--train.collective_dtype={wire}"] if wire else [])
+            + ([f"--train.bucket_mb={bucket_mb:g}"] if bucket_mb else []))
+
+
+def _wire_name(wire: str, bucket_mb: float) -> str:
+    return (wire or "f32") + (f"@{bucket_mb:g}MB" if bucket_mb else "")
+
+
+def _same_values(a: dict, b: dict) -> bool:
+    """`_same_state` up to the momentum's layout (a replicated save keeps
+    each leaf's shape, a sharded one at world 1 the same values flat)."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].size == b[k].size
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def _sharded_fit(args, where, snapshot_at=6):
+    """A `Trainer` on ``args`` run to the end with its books
+    (`_fit_books`); its parameters just before update ``snapshot_at``,
+    its state, one update's books by kernel name and step ms after."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.train.trainer import Trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = Trainer(parse_cli(args + [f"--train.ckpt_dir={where}"]))
+    snap = {}
+    real = t.train_step
+
+    def step(state, batch):
+        if state.step == snapshot_at:
+            snap.update({k: p.detach().clone() for k, p in
+                         t.model.named_parameters()})
+        return real(state, batch)
+
+    t.train_step = step
+    res, ran = _fit_books(t)
+    # What this run added at its peak (earlier runs' trainers stay).
+    peak = torch.cuda.max_memory_allocated() - before
+    batch = next(iter(t.train_pipe))
+    ok, sessions = _profiled_books(
+        lambda: real(t.state, batch),
+        {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1})
+    rec = {"t": t, "res": res, "ran": ran, "params6": snap,
+           "state": _flat_state(t), "profiled_ok": ok,
+           "profiled": sessions[-1], "peak_memory_bytes": peak,
+           "step_ms": cuda_median_ms(lambda: real(t.state, batch), reps=20)}
+    return rec
+
+
+def phase_sharded(out):
+    """11: the sharded weight update on the card (see the module
+    docstring): (a) each wire's 30 updates against the replicated run,
+    books and memory, (b) windows of 10 under each wire beside the
+    replicated windows, (c) an int8 resume, (d) ResNet-50 int8."""
+    import torch
+
+    from tpu_dp_torch.compat import leaf_sizes
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.parallel import collectives, quant
+    from tpu_dp_torch.train.trainer import Trainer
+
+    k, updates = 10, 40
+    checks, rec = {}, {"card": out["card"], "k": k}
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_")
+    try:
+        # (b, replicated) windows without a group: phase 9a's run.
+        _, rec["windows_replicated"] = _windows_vs_eager(
+            out, lambda n, kk: _win_args(n, k=kk), k, updates, 10,
+            os.path.join(tmp.name, "wr"))
+        with _nccl_world1_env(TORCH_NCCL_ASYNC_ERROR_HANDLING="0"):
+            # (a) 30 updates per wire against the replicated (DDP) run.
+            runs = {"replicated": _sharded_fit(
+                TRAIN_ARGS, os.path.join(tmp.name, "a_rep"))}
+            for wire, mb in SHARDED_WIRES:
+                runs[(wire, mb)] = _sharded_fit(
+                    TRAIN_ARGS + _sharded_args(wire, mb),
+                    os.path.join(tmp.name, f"a_{wire}_{mb:g}"))
+            rep = runs["replicated"]
+            f32 = {mb: runs[("", mb)] for mb in (0.0, 25.0)}
+            a = {}
+            for (wire, mb), r in ((key, v) for key, v in runs.items()
+                                  if key != "replicated"):
+                t, name = r["t"], _wire_name(wire, mb)
+                losses = t.step_losses
+                opt = t.optimizer
+                hist = r["res"]["history"][-1]
+                c = {"nccl_world_1": (t.ctx.backend, t.ctx.world) == (
+                        "nccl", 1) and opt.group is not None,
+                     "losses_finite_and_fall": all(
+                         math.isfinite(v) for v in losses)
+                     and statistics.mean(losses[-5:])
+                     < statistics.mean(losses[:5]),
+                     "books": _per_update_ok(r["ran"], TRAIN_STEPS,
+                                             len(t.test_pipe))
+                     and all(r["ran"][n] == v for n, v in _exchange_books(
+                         opt, TRAIN_STEPS).items())
+                     and r["ran"]["ddp_buckets"] == r["ran"]["psum"] == 0,
+                     "profiled_books": r["profiled_ok"]}
+                if not wire:
+                    c["bit_identical_to_replicated"] = (
+                        losses == rep["t"].step_losses
+                        and _same_values(r["state"], rep["state"]))
+                else:
+                    ref = f32[mb]["params6"]
+                    diff = max(float((r["params6"][n] - ref[n]).abs().max())
+                               for n in ref)
+                    c["within_wire_contract_after_6"] = diff <= WIRE_TOL[wire]
+                    c["not_f32"] = diff > 0
+                    if wire == "int8":
+                        c["quant_overflow_0"] = hist["quant_overflow"] == 0
+                mom = (opt.momentum_shard.numel()
+                       * opt.momentum_shard.element_size())
+                res_bytes = sum(v.numel() * v.element_size()
+                                for v in opt.residual_rows.values())
+                a[name] = {
+                    "losses": losses, "eval": r["res"]["eval"],
+                    "ran": r["ran"], "exchanges": len(opt.exchanges),
+                    "quant": {n: hist.get(n) for n in ("quant_overflow",
+                                                       "quant_clip")},
+                    "max_abs_diff_after_6": None if not wire else diff,
+                    "step_ms": r["step_ms"],
+                    "profiled_per_update": r["profiled"],
+                    "momentum_bytes_per_rank": mom,
+                    "residual_bytes_per_rank": res_bytes,
+                    "peak_memory_bytes": r["peak_memory_bytes"],
+                    "checks": c}
+                checks.update({f"a_{name}_{n}": v for n, v in c.items()})
+            leaves = leaf_sizes(rep["t"].model.named_parameters())
+            rec["a"] = {
+                "replicated": {"losses": rep["t"].step_losses,
+                               "step_ms": rep["step_ms"],
+                               "profiled_per_update": rep["profiled"],
+                               "momentum_bytes_per_rank": 4 * sum(
+                                   n for _, n in leaves),
+                               "peak_memory_bytes": rep["peak_memory_bytes"]},
+                **a,
+                # Counted from the layout (not measured): what a rank of a
+                # larger group holds.
+                "momentum_bytes_per_rank_by_world": {
+                    w: 4 * sum(collectives.shard_size(n, w)
+                               for _, n in leaves) for w in (1, 2, 4, 8)},
+                "int8_residual_bytes_per_rank_by_world": {
+                    w: 4 * sum(v.shape[1] for v in quant.init_residuals(
+                        leaves, w).values()) for w in (1, 2, 4, 8)},
+                "wire_report_world_4": quant.wire_report(leaves, 4)}
+            print("[sharded] (a) " + json.dumps(
+                {n: {m: v[m] for m in ("step_ms", "max_abs_diff_after_6",
+                                       "quant", "exchanges",
+                                       "momentum_bytes_per_rank",
+                                       "residual_bytes_per_rank",
+                                       "peak_memory_bytes")}
+                 for n, v in a.items()}))
+            for r in runs.values():
+                if r["t"].multi_step is not None:
+                    r["t"].multi_step.close()
+            del runs, rep, f32
+            # (b) windows of 10 against eager, per wire.
+            rec["b"] = {}
+            for wire, mb in (("", 0.0), ("bf16", 0.0), ("int8", 0.0),
+                             ("int8", 25.0)):
+                name = _wire_name(wire, mb)
+                extra = _sharded_args(wire, mb)
+                w_checks, w_rec = _windows_vs_eager(
+                    out, lambda n, kk, e=extra: _win_args(n, k=kk, extra=e),
+                    k, updates, 10, os.path.join(tmp.name, f"b_{name}"))
+                checks.update({f"b_{name}_{n}": v
+                               for n, v in w_checks.items()})
+                rec["b"][name] = {n: v for n, v in w_rec.items()
+                                  if n not in ("ran_eager",)}
+                print(f"[sharded] (b) {name}: " + json.dumps(
+                    {n: w_rec[n] for n in ("eager_step_ms",
+                                           "windowed_ms_per_update",
+                                           "images_per_s_meter",
+                                           "capture_bytes")}))
+            # (c) phase 8's interrupted and resumed run under int8 at 25 MB.
+            ck_args = CKPT_ARGS + _sharded_args("int8", 25.0)
+            cruns = {}
+            for name in ("full", "part", "resumed"):
+                extra = ["--resume"] if name == "resumed" else []
+                where = os.path.join(tmp.name, "c_full" if name == "full"
+                                     else "c_part")
+                t = Trainer(parse_cli(ck_args + extra + [
+                    f"--train.ckpt_dir={where}"]))
+                if name == "part":
+                    real = t.train_epoch
+
+                    def train_epoch(epoch, start_step=0, _real=real):
+                        if epoch == CKPT_EPOCHS - 1:
+                            raise _Stop
+                        return _real(epoch, start_step)
+
+                    t.train_epoch = train_epoch
+                try:
+                    res, ran = _fit_books(t)
+                except _Stop:
+                    t.ckpt_mgr.wait()
+                    res, ran = None, None
+                cruns[name] = (t, res, ran)
+            full, resumed = cruns["full"][0], cruns["resumed"][0]
+            stop = (CKPT_EPOCHS - 1) * CKPT_SPE
+            fstate = _flat_state(full)
+            checks.update({
+                "c_resumed_at_epoch_3": (resumed.start_epoch,
+                                         resumed.start_step) == (2, 0),
+                "c_epoch_3_losses_bit_identical":
+                    resumed.step_losses == full.step_losses[stop:],
+                "c_final_state_bit_identical": _same_state(
+                    _flat_state(resumed), fstate),
+                "c_residuals_saved": any(n.startswith("residuals/")
+                                         for n in fstate),
+                "c_eval_identical": cruns["resumed"][1]["eval"]
+                == cruns["full"][1]["eval"],
+            })
+            rec["c"] = {"losses_full": full.step_losses,
+                        "losses_resumed": resumed.step_losses}
+            del cruns, full, resumed
+            # (d) ResNet-50, int8 at 25 MB, 10 updates.
+            r50 = Trainer(parse_cli(_r50_args(
+                tmp.name, 10, extra=["--data.augment=false"]
+                + _sharded_args("int8", 25.0)
+                + [f"--train.ckpt_dir={os.path.join(tmp.name, 'd')}"])))
+            res50, ran50 = _fit_books(r50)
+            checks.update({
+                "d_r50_losses_finite": len(r50.step_losses) == 10 and all(
+                    math.isfinite(v) for v in r50.step_losses),
+                "d_r50_books": _per_update_ok(ran50, 10, len(r50.test_pipe),
+                                              convs=13)
+                and all(ran50[n] == v for n, v in _exchange_books(
+                    r50.optimizer, 10).items()),
+                "d_r50_exchanges_4_buckets": len(r50.optimizer.exchanges)
+                == 4})
+            rec["d"] = {"losses": r50.step_losses, "ran": ran50,
+                        "exchanges": [ex.quantizes for ex in
+                                      r50.optimizer.exchanges],
+                        "quant": {n: res50["history"][-1].get(n) for n in
+                                  ("quant_overflow", "quant_clip")}}
+            del r50
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+        tmp.cleanup()
+    rec["checks"] = checks
+    out["sharded"] = rec
+    b = rec["b"]
+    print(f"[sharded] {out['card']}: eager step / windowed ms per update: "
+          f"replicated {rec['windows_replicated']['eager_step_ms']:.3f} / "
+          f"{rec['windows_replicated']['windowed_ms_per_update']:.3f}; "
+          + "; ".join(f"{n} {v['eager_step_ms']:.3f} / "
+                      f"{v['windowed_ms_per_update']:.3f}"
+                      for n, v in b.items()))
+    failed = [n for n, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"sharded checks failed: {failed}")
+
+
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     """One kernels-line entry whose times sum ``recs`` (one per launch of
     a step or forward)."""
@@ -3119,7 +3488,7 @@ PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
           phase_serve, phase_train, phase_checkpoint, phase_ddp_gloo_one_card,
           phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows,
           phase_resnet50_kernels, phase_resnet50, phase_resnet50_windows,
-          phase_resnet50_ddp)
+          phase_resnet50_ddp, phase_sharded)
 
 
 def main(argv=None) -> int:

@@ -437,6 +437,26 @@ def test_resume_is_bit_identical(tmp_path, model, world, kind):
         args, spe = _RESNET, 2
     else:
         args, spe = _NET + [f"--data.batch_size={4 // world}"], 6
+    _check_resume(tmp_path, args, world, kind, spe)
+
+
+@pytest.mark.parametrize("world,kind,wire", [
+    (1, "epoch", ["--train.collective_dtype=int8",
+                  "--train.bucket_mb=0.05"]),
+    (2, "snapshot", ["--train.collective_dtype=int8"]),
+    (2, "epoch", [])])
+def test_sharded_resume_is_bit_identical(tmp_path, world, kind, wire):
+    """The sharded update's momentum shards and int8 residuals cross an
+    interruption bit for bit (every rank joins the save's gather)."""
+    args = _NET + [f"--data.batch_size={4 // world}",
+                   "--train.update_sharding=sharded", *wire]
+    _check_resume(tmp_path, args, world, kind, 6)
+
+
+def _check_resume(tmp_path, args, world, kind, spe):
+    """Interrupt ``args`` at the start of epoch 3 or 2 steps into epoch 2
+    (``kind``), resume, and hold the restored state, the continuation, the
+    final state and the eval bit-identical to the uninterrupted run."""
     stop = 2 * spe if kind == "epoch" else spe + 2
     full, part, resumed = _resume_runs(tmp_path, args, world, stop,
                                        kind == "snapshot")

@@ -180,16 +180,50 @@ def test_augmentation_statistics():
 
 
 @pytest.mark.parametrize("knob", [
-    "--train.update_sharding=sharded", "--train.collective_dtype=bf16",
+    "--data.resident_max_bytes=1", "--train.verify_fingerprint=true",
     "--train.recompile_guard=raise", "--resilience.snapshot_every_steps=5",
     "--guard.enabled=true", "--resilience.elastic=true",
     "--obs.run_dir=x", "--train.obs=basic", "--train.profile_dir=p",
     "--model.fused_block_b=4", "--data.device_resident=on",
-    "--train.metrics_path=m.jsonl", "--train.bucket_mb=4", "--profile=t.json",
-    "--data.sync_placement=true", "--parallel.num_devices=2"])
+    "--train.metrics_path=m.jsonl", "--train.profile_steps=1:2",
+    "--profile=t.json", "--data.sync_placement=true",
+    "--parallel.num_devices=2"])
 def test_cli_refuses_unported_knobs(knob):
     with pytest.raises(NotPortedError):
         parse_cli(["--preset=resnet18_cifar10", knob])
+
+
+@pytest.mark.parametrize("knobs,message", [
+    (["--train.collective_dtype=bf16"],
+     "train.collective_dtype applies to the sharded update"),
+    (["--train.collective_dtype=int8"],
+     "train.collective_dtype applies to the sharded update"),
+    (["--train.bucket_mb=4"], "train.bucket_mb applies to the sharded"),
+    (["--train.update_sharding=diagonal"],
+     "train.update_sharding must be replicated|sharded"),
+    (["--train.update_sharding=sharded", "--train.quant_block_size=0"],
+     "train.quant_block_size must be >= 1"),
+    (["--train.update_sharding=sharded", "--train.collective_dtype=int4"],
+     "collective_dtype must be one of"),
+    (["--train.update_sharding=sharded", "--train.bucket_mb=-1"],
+     "train.bucket_mb must be >= 0")])
+def test_cli_refuses_the_sharded_update_as_the_jax_package_does(knobs,
+                                                               message):
+    with pytest.raises(ValueError, match=message) as e:
+        parse_cli(["--preset=resnet18_cifar10", *knobs])
+    assert not isinstance(e.value, NotPortedError)
+
+
+def test_cli_takes_the_sharded_update_knobs():
+    cfg = parse_cli(["--preset=resnet18_cifar10",
+                     "--train.update_sharding=sharded",
+                     "--train.collective_dtype=int8",
+                     "--train.quant_block_size=128", "--train.bucket_mb=25"])
+    assert (cfg.train.update_sharding, cfg.train.collective_dtype,
+            cfg.train.quant_block_size, cfg.train.bucket_mb) == (
+        "sharded", "int8", 128, 25.0)
+    d = cfg.to_dict()["train"]
+    assert (d["update_sharding"], d["bucket_mb"]) == ("sharded", 25.0)
 
 
 def test_cli_presets_defaults_and_errors():

@@ -77,7 +77,7 @@ def test_meter_counts_images_after_warmup_to_the_fence(monkeypatch):
 
 
 def test_cli_refuses_an_unported_knob(tmp_path):
-    out = _run(["--device", "cpu", *SLICE, "--train.update_sharding=sharded",
+    out = _run(["--device", "cpu", *SLICE, "--train.obs=basic",
                 f"--train.ckpt_dir={tmp_path}"], timeout=120)
     assert out.returncode == 2
     assert "not ported" in out.stderr

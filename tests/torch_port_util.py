@@ -18,11 +18,12 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).resolve().parent / "torch_ddp_worker.py"
 
 
-def run_worker_ranks(tmp_path, spec: dict, world: int, timeout=240) -> list:
-    """Run ``world`` ranks of torch_ddp_worker.py on ``spec`` (plus each
-    rank's ``rank``, ``world``, ``init`` — a ``file://`` rendezvous in
-    ``tmp_path`` — and ``out``), each under ``timeout``; returns each
-    rank's unpickled output."""
+def run_worker_ranks(tmp_path, spec: dict, world: int, timeout=240,
+                     worker=WORKER) -> list:
+    """Run ``world`` ranks of ``worker`` (torch_ddp_worker.py by default)
+    on ``spec`` (plus each rank's ``rank``, ``world``, ``init`` — a
+    ``file://`` rendezvous in ``tmp_path`` — and ``out``), each under
+    ``timeout``; returns each rank's unpickled output."""
     tmp_path = Path(tmp_path)
     tmp_path.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
@@ -34,7 +35,7 @@ def run_worker_ranks(tmp_path, spec: dict, world: int, timeout=240) -> list:
         path = tmp_path / f"spec{rank}.json"
         path.write_text(json.dumps(full))
         procs.append(subprocess.Popen(
-            [sys.executable, str(WORKER), str(path)], cwd=ROOT, env=env,
+            [sys.executable, str(worker), str(path)], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     try:
         for rank, p in enumerate(procs):

@@ -31,6 +31,18 @@ without a buffer has it written as zeros. A restore copies into the live
 buffers in place (a captured CUDA graph of the step keeps their
 addresses), making a buffer only where there is none.
 
+The sharded update (`optim.ShardedUpdate`) is saved in the JAX package's
+sharded layout: each ``opt_state`` leaf flat of ``padded_size(n, world)``
+in the JAX leaf's element order, and under the int8 wire ``residuals`` as
+``f32[world, qpad]`` by leaf or bucket composition key. Taking that
+snapshot gathers every rank's shards (a collective: every rank calls the
+save, rank 0 alone writes). A restore reads any layout into any target
+(the JAX package's ``_relayout_opt_leaf`` and ``_reconcile_residuals``):
+replicated and sharded either way, any world to any world (the true
+elements kept, the padding zero), residuals bitwise when the layout
+matches and otherwise resharded preserving their sum over ranks on rank
+0's row; a save without residuals gives zeros.
+
 The IO-retry budget and the storage-fault shim of the JAX package's
 resilience section are not ported yet (ROADMAP Queue 1 item 9).
 """
@@ -123,13 +135,23 @@ def _host_copy(tensors: list[torch.Tensor]) -> list[np.ndarray]:
     return out
 
 
+def _sharded(opt) -> bool:
+    return getattr(opt, "is_sharded_update", False)
+
+
 def state_dict_of(state) -> dict[str, Any]:
     """The flax state dict of the JAX ``TrainState`` equal to the port's
     `TrainState` ``state``: host numpy copies, taken now. The layout
-    changes run on the state's device, and the host gets one copy."""
+    changes run on the state's device, and the host gets one copy. A
+    sharded optimizer's shards are gathered first (a collective)."""
     model, opt = state.model, state.optimizer
     leaves = jax_leaves(model.state_dict())
-    if _momentum(opt) != 0.0:
+    if _sharded(opt):
+        mom, res = opt.gather_state()
+        leaves += [("opt_state", tuple(k.split("/")), t)
+                   for k, t in mom.items()]
+        leaves += [("residuals", (k,), t) for k, t in res.items()]
+    elif _momentum(opt) != 0.0:
         bufs = {}
         for name, p in model.named_parameters():
             buf = opt.state.get(p, {}).get("momentum_buffer")
@@ -148,21 +170,124 @@ def state_dict_of(state) -> dict[str, Any]:
     return tree
 
 
+def _relayout_opt_leaf(saved, like_shape: tuple, where: str) -> np.ndarray:
+    """One saved momentum leaf on ``like_shape``'s layout (the JAX
+    package's ``_relayout_opt_leaf``): flat to flat truncates or
+    zero-extends (past the true elements there is only padding), shaped
+    to flat pads, flat to shaped keeps the leading true elements."""
+    saved = np.asarray(saved)
+    if saved.shape == tuple(like_shape):
+        return saved
+    flat = saved.reshape(-1)
+    if len(like_shape) == 1:
+        out = np.zeros(like_shape[0], dtype=np.float32)
+        k = min(out.size, flat.size)
+        out[:k] = flat[:k]
+        return out
+    size = int(np.prod(like_shape))
+    if flat.size < size:
+        raise ValueError(
+            f"checkpoint opt_state leaf {where}: saved {saved.shape} has "
+            f"{flat.size} elements, target {tuple(like_shape)} needs "
+            f"{size} — not a shard-layout transition")
+    return flat[:size].reshape(like_shape)
+
+
+def _leaf(tree, key: str):
+    for part in key.split("/"):
+        if not isinstance(tree, dict) or part not in tree:
+            return None
+        tree = tree[part]
+    return tree
+
+
+def _reconcile_residuals(saved: dict, target: dict[str, tuple],
+                         leaf_sizes: dict[str, int]) -> dict:
+    """Saved int8 residuals on the ``target`` layout (``{key: (world,
+    qpad)}``; the JAX package's ``_reconcile_residuals``): a key whose
+    shape matches passes bitwise; every other saved key is decomposed
+    into per-leaf pending corrections and the target's remaining keys are
+    composed from them, rank 0's row carrying the debt; keys with nothing
+    saved start at zero, saved keys the target lacks are dropped."""
+    from tpu_dp_torch.parallel import bucketing, quant
+
+    saved = saved if isinstance(saved, dict) else {}
+    out, remap, used = {}, [], set()
+    for key, shape in target.items():
+        got = saved.get(key)
+        if got is not None and np.asarray(got).shape == tuple(shape):
+            out[key] = np.asarray(got, np.float32)
+            used.add(key)
+        else:
+            remap.append((key, np.zeros(shape, np.float32)))
+    if remap:
+        sizes = {k: leaf_sizes[k]
+                 for key in list(saved) + [k for k, _ in remap]
+                 for k in bucketing.composition(key) if k in leaf_sizes}
+        pending: dict = {}
+        for key, got in saved.items():
+            if key not in used:
+                pending.update(quant.decompose_residual(got, sizes, key))
+        for key, like in remap:
+            out[key] = quant.compose_residual(pending, like, sizes, key)
+    return out
+
+
+def _restore_sharded(opt, raw: dict) -> None:
+    """A decoded payload's momentum and residuals, relaid onto the sharded
+    update ``opt``'s world, into ``opt`` (this rank's slice). The global
+    arrays stay on ``opt.restored`` for a resume to broadcast."""
+    from tpu_dp_torch.parallel.collectives import padded_size
+
+    saved_opt = raw.get("opt_state") or {}
+    mom = {}
+    if opt.momentum:
+        for key, n in opt.leaves:
+            got = _leaf(saved_opt, key)
+            if got is None:
+                raise KeyError(f"opt_state has no leaf {key}")
+            size = np.asarray(got).size
+            if size < n:
+                raise ValueError(f"opt_state leaf {key}: {size} elements, "
+                                 f"the parameter has {n}")
+            mom[key] = _relayout_opt_leaf(
+                got, (padded_size(n, opt.world),), key)
+    elif saved_opt:
+        raise ValueError("checkpoint carries momentum buffers; the optimizer "
+                         "has momentum 0")
+    residuals = _reconcile_residuals(
+        raw.get("residuals") or {},
+        {k: (opt.world, v.numel()) for k, v in opt.residuals.items()},
+        dict(opt.leaves))
+    opt.load_state(mom, residuals)
+    opt.restored = (mom, residuals)
+
+
 def restore_state(target, raw: Any):
     """Load a decoded TrainState payload into ``target`` (a port
     `TrainState`) in place: parameters and statistics into the model,
     momentum buffers into the optimizer, the step. Everything is checked
-    before anything is written. Saved int8-codec residuals are dropped
-    (the codec is not ported; the JAX package drops them the same way
-    when the codec is off)."""
+    before anything is written. The momentum may be in either layout and
+    any world (relaid onto the target's); int8 residuals are reconciled
+    onto a sharded target's layout and dropped by a target without the
+    codec, as the JAX package drops them."""
     if not isinstance(raw, dict) or not {"step", "params"} <= set(raw):
         raise ValueError("not a TrainState checkpoint (no step/params)")
     model, opt = target.model, target.optimizer
     state = convert_variables({"params": raw["params"],
                                "batch_stats": raw.get("batch_stats") or {}})
     check_state_dict(model, state)
+    if _sharded(opt):
+        step = int(np.asarray(raw["step"]))
+        _restore_sharded(opt, raw)
+        model.load_state_dict(state, strict=True)
+        target.step = step
+        return target
     named = dict(model.named_parameters())
     saved_opt = raw.get("opt_state") or {}
+    if saved_opt:
+        # A sharded save's flat leaves onto the parameters' JAX shapes.
+        saved_opt = _map_leaves(saved_opt, raw["params"])
     if _momentum(opt) == 0.0:
         if saved_opt:
             raise ValueError("checkpoint carries momentum buffers; the "
@@ -193,6 +318,20 @@ def restore_state(target, raw: Any):
 
 
 # -- integrity -------------------------------------------------------------
+
+
+def _map_leaves(saved: dict, params: dict) -> dict:
+    """``saved`` (a params-shaped tree) with each leaf relaid onto the
+    shape of ``params``' leaf at the same path."""
+    out = {}
+    for k, v in saved.items():
+        like = params.get(k) if isinstance(params, dict) else None
+        if isinstance(v, dict):
+            out[k] = _map_leaves(v, like or {})
+        else:
+            out[k] = (v if like is None else
+                      _relayout_opt_leaf(v, np.asarray(like).shape, k))
+    return out
 
 
 def _leaf_sha256(leaf) -> str:
@@ -299,9 +438,12 @@ def _atomic_write_state(ckpt_dir: Path, tree, meta: dict[str, Any] | None
 
 def save_checkpoint(ckpt_dir: str | os.PathLike, state,
                     meta: dict[str, Any] | None = None) -> Path | None:
-    """Write ``state`` and ``meta``; rank 0 only. Returns the payload path
-    (None on other ranks)."""
+    """Write ``state`` and ``meta``; rank 0 writes. Returns the payload path
+    (None on other ranks). A sharded state's save is a collective: every
+    rank calls it."""
     if process_index() != 0:
+        if _sharded(state.optimizer):
+            state.optimizer.gather_state()
         return None
     return _atomic_write_state(Path(ckpt_dir), state_dict_of(state), meta)
 
@@ -383,8 +525,11 @@ class CheckpointManager:
     def save(self, state, meta: dict[str, Any] | None = None,
              step: int | None = None) -> Path | None:
         """Checkpoint ``state`` under ``step_<n>`` (n defaults to
-        ``state.step``); returns the payload path on rank 0."""
+        ``state.step``); returns the payload path on rank 0. A sharded
+        state's snapshot is a collective: every rank calls this."""
         if process_index() != 0:
+            if _sharded(state.optimizer):
+                state.optimizer.gather_state()
             return None
         t0 = time.perf_counter()
         self.wait()

@@ -159,6 +159,31 @@ def jax_leaves(state_dict) -> list[tuple[str, tuple[str, ...], torch.Tensor]]:
     return out
 
 
+def param_leaves(named) -> list[tuple[str, str, torch.Tensor]]:
+    """``(flax key, name, index)`` for every parameter of ``named`` (``{name:
+    tensor}`` keyed like ``model.named_parameters()``), in the JAX pytree
+    order (dict keys sorted as strings at every level, the order the JAX
+    package's sharded update and bucket plan walk). The key is the flax
+    path '/'-joined (``BasicBlock_0/Conv_0/kernel``); ``index[j]`` is the
+    position, in the torch tensor's C-order flatten, of element j of the
+    JAX leaf's (HWIO for a conv, ``(in, out)`` for a Dense)."""
+    sd = strip_module_prefix(dict(named))
+    idx = {k: torch.arange(v.numel()).view(tuple(v.shape))
+           for k, v in sd.items()}
+    out = [("/".join(path), name, t.reshape(-1))
+           for name, (_, path, t) in zip(idx, jax_leaves(idx))]
+    return sorted(out, key=lambda e: tuple(e[0].split("/")))
+
+
+def leaf_sizes(named) -> list[tuple[str, int]]:
+    """``(flax key, elements)`` of every parameter of ``named``, in the JAX
+    pytree order (`param_leaves` without the index maps; meta tensors
+    do)."""
+    leaves = jax_leaves(strip_module_prefix(dict(named)))
+    return sorted((("/".join(path), t.numel()) for _, path, t in leaves),
+                  key=lambda e: tuple(e[0].split("/")))
+
+
 def export_variables(state_dict) -> dict[str, dict]:
     """The JAX package's ``{"params", "batch_stats"}`` (nested dicts of
     float32 numpy arrays) of the port's state dict: the exact inverse of

@@ -86,6 +86,20 @@ class TrainConfig:
     ckpt_keep: int = 3  # retained epoch checkpoints (0 = keep all)
     ckpt_async: bool = True  # write checkpoints on a worker thread
     resume: bool = False  # continue from the newest usable save
+    # The cross-replica sharded weight update: "replicated" (DDP's
+    # gradient all-reduce, the full update on every rank) or "sharded"
+    # (reduce-scatter, the update on 1/world of the parameters and
+    # momentum per rank, all-gather of the parameters).
+    update_sharding: str = "replicated"
+    # Wire format of the sharded update's gradient reduce-scatter: "" (f32),
+    # "bf16" (half the bytes) or "int8" (blockwise absmax-scaled, with
+    # error-feedback residuals).
+    collective_dtype: str = ""
+    # Elements per f32 scale of the int8 wire.
+    quant_block_size: int = 256
+    # Target MB of f32 gradient per exchange of the sharded update (one
+    # collective set per bucket, reverse leaf order); 0 = one exchange.
+    bucket_mb: float = 0.0
 
 
 @dataclass
@@ -233,10 +247,6 @@ NOT_PORTED: dict[str, Any] = {
     "train.profile_dir": None,
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
-    "train.update_sharding": "replicated",
-    "train.collective_dtype": "",
-    "train.quant_block_size": 256,
-    "train.bucket_mb": 0.0,
     "train.obs": "off",
     "train.metrics_path": "",
     "train.profile_steps": "",
@@ -300,7 +310,8 @@ def check_ported(cfg: Config) -> Config:
     (a model other than net, resnet18 and resnet50, the device-resident
     feed, more than one device per process), `ValueError` for one that is
     invalid (gradient accumulation below 1, a negative window, either with
-    a ragged final batch)."""
+    a ragged final batch; the sharded update's knobs as the JAX package
+    refuses them)."""
     if cfg.parallel.num_devices not in (None, 1):
         raise NotPortedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: one "
@@ -329,7 +340,65 @@ def check_ported(cfg: Config) -> Config:
     if cfg.train.steps_per_call > 1 and not cfg.data.drop_remainder:
         raise ValueError("train.steps_per_call > 1 requires "
                          "data.drop_remainder=true")
+    _check_update_sharding(cfg.train)
     return cfg
+
+
+def _check_update_sharding(train: TrainConfig) -> None:
+    """The JAX package's checks of the sharded update's knobs, with its
+    messages (`tpu_dp.train.trainer.Trainer`): a mode other than
+    replicated|sharded, a wire dtype or buckets without the sharded
+    update, a block size below 1, an unknown wire dtype, negative MB."""
+    from tpu_dp_torch.parallel import bucketing, quant
+
+    us = train.update_sharding
+    if us not in ("replicated", "sharded"):
+        raise ValueError(
+            f"train.update_sharding must be replicated|sharded, got {us!r}")
+    if train.collective_dtype and us != "sharded":
+        raise ValueError(
+            "train.collective_dtype applies to the sharded update's "
+            "reduce-scatter; set train.update_sharding=sharded")
+    if int(train.quant_block_size) < 1:
+        raise ValueError(f"train.quant_block_size must be >= 1, got "
+                         f"{train.quant_block_size}")
+    quant.make_wire_codec(train.collective_dtype, train.quant_block_size)
+    if bucketing.parse_bucket_mb(train.bucket_mb) and us != "sharded":
+        raise ValueError(
+            "train.bucket_mb applies to the sharded update's "
+            "reduce-scatter; set train.update_sharding=sharded")
+
+
+#: The coupled-knob regime `coupling_warning` warns about (the JAX
+#: package's thresholds).
+COUPLING_BUCKET_MB = 4.0
+COUPLING_QUANT_BLOCK = 256
+
+
+def coupling_warning(bucket_mb, quant_block_size,
+                     collective_dtype) -> str | None:
+    """The bucket/quant coupling guard of the JAX package: under the int8
+    codec each bucket quantizes on its own, so a large bucket with large
+    scaling blocks couples many MB of gradient to a few coarse scales (a
+    quality cliff a throughput measurement cannot see). The warning
+    string, or None when the combination is fine."""
+    try:
+        bucket = float(bucket_mb or 0.0)
+        block = int(quant_block_size or 0)
+    except (TypeError, ValueError):
+        return None
+    if (str(collective_dtype) in ("int8", "i8")
+            and bucket >= COUPLING_BUCKET_MB
+            and block >= COUPLING_QUANT_BLOCK):
+        return (
+            f"train.bucket_mb={bucket:g} with "
+            f"train.quant_block_size={block} under the int8 codec: "
+            f"buckets >= {COUPLING_BUCKET_MB:g} MB quantized with blocks "
+            f">= {COUPLING_QUANT_BLOCK} share coarse absmax scales across "
+            f"a large payload (outlier-widened scales + bucket-wide "
+            f"error feedback); shrink quant_block_size or bucket_mb "
+            f"(docs/TUNE.md \"Coupled knobs\")")
+    return None
 
 
 def _preset_reference_single() -> Config:

@@ -31,8 +31,14 @@ into ``final_params.msgpack`` there. Each rank runs on
 card and without ``--device cpu`` it exits 2. Rank 0 ends with one JSON
 line: model, dataset, synthetic, devices, world, backend,
 images_per_sec (global), images_per_sec_per_card, wall_time_s,
-final_train_loss, eval, start_epoch and resumed_from (null on a fresh
-run).
+final_train_loss, eval, start_epoch, resumed_from (null on a fresh
+run), update_sharding, collective_dtype, bucket_mb and
+momentum_bytes_per_rank.
+
+``--train.update_sharding=sharded`` trains with the sharded weight update
+(each rank keeps 1/world of the momentum), its gradient exchange in f32,
+``--train.collective_dtype=bf16`` or ``=int8`` (``--train.
+quant_block_size``), in buckets of ``--train.bucket_mb`` MB.
 """
 
 from __future__ import annotations
@@ -89,6 +95,10 @@ def main(argv=None) -> int:
             "eval": result.get("eval"),
             "start_epoch": result["start_epoch"],
             "resumed_from": result["resumed_from"],
+            "update_sharding": cfg.train.update_sharding,
+            "collective_dtype": cfg.train.collective_dtype,
+            "bucket_mb": cfg.train.bucket_mb,
+            "momentum_bytes_per_rank": trainer.momentum_bytes_per_rank,
         }
         print(json.dumps(summary), flush=True)
         return 0

@@ -18,6 +18,18 @@ over the same group; the step's metrics are global, one all-reduce of
 ``[loss·count, correct, count]`` per step; the eval step sums ``correct``,
 ``count`` and the weighted loss across ranks the same way. With no group
 (one process) none of these collectives exists.
+
+The sharded weight update (``train.update_sharding=sharded``; the JAX
+package's ``make_local_step`` reduce hook): the optimizer is a
+`tpu_dp_torch.train.optim.ShardedUpdate` and the model runs without DDP's
+reducer. After the last microbatch's backward (and the division by the
+microbatch count) `_sharded_reduce` gathers the gradients into the wire
+layout of each of the optimizer's exchanges, in plan order, and reduces
+them (`collectives.psum_scatter` in f32 or bf16, `psum_scatter_quant`
+under int8 with the optimizer's residuals); the optimizer then updates its
+shard and all-gathers the parameters. Under int8 the step's metrics gain
+``quant_overflow`` and ``quant_clip``, summed over the ranks in the
+metrics' one all-reduce.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_dp_torch.data.cifar import normalize
-from tpu_dp_torch.parallel import collectives
+from tpu_dp_torch.parallel import collectives, quant
 from tpu_dp_torch.train.schedule import lr_table
 
 
@@ -101,15 +113,48 @@ def data_parallel(model, ctx):
     return ddp
 
 
-def _global_metrics(loss, correct, count, group):
-    """``(loss, correct, count)`` over every rank's batch from this rank's
-    mean ``loss`` and its ``correct`` and ``count`` tensors, in one
-    all-reduce of ``[loss·count, correct, count]``. Under NCCL the
-    all-reduce orders the streams and does not wait on the host."""
+def _global_metrics(loss, correct, count, group, extra=()):
+    """``(loss, correct, count, *extra)`` over every rank's batch from this
+    rank's mean ``loss`` and its ``correct``, ``count`` and ``extra``
+    (integer counts, summed) tensors, in one all-reduce of ``[loss·count,
+    correct, count, *extra]``. Under NCCL the all-reduce orders the
+    streams and does not wait on the host."""
     total = collectives.psum(torch.stack(
-        [loss * count, correct.to(loss.dtype), count.to(loss.dtype)]), group)
-    correct, count = total[1:].to(torch.int64).unbind()
-    return total[0] / total[2].clamp(min=1.0), correct, count
+        [loss * count] + [t.to(loss.dtype) for t in (correct, count)
+                          + tuple(extra)]), group)
+    ints = total[1:].to(torch.int64).unbind()
+    return (total[0] / total[2].clamp(min=1.0), ints[0], ints[1],
+            *(t.to(e.dtype) for t, e in zip(ints[2:], extra)))
+
+
+def _sharded_reduce(opt):
+    """The sharded update's reduce hook: the f32 gradient shard of this
+    rank (the mean over ranks), one collective set per exchange of the
+    `optim.ShardedUpdate` ``opt`` in plan order, over its group and wire
+    codec; under int8 also the rank-local ``(overflow, clip)`` block
+    counts, else ``()``."""
+    group, codec = opt.group, opt.codec
+    flat = opt.flat_grads()
+    cast = codec.dtype if isinstance(codec, quant.CastCodec) else None
+    shards, stats = [], []
+    for g, ex in enumerate(opt.exchanges):
+        rows = opt.wire_rows(flat, g)
+        if ex.quantizes:
+            shard, overflow, clip = collectives.psum_scatter_quant(
+                rows, opt.residual_rows[g], group, mean=True,
+                block_size=codec.block_size,
+                error_feedback=codec.error_feedback)
+            stats.append(torch.stack([overflow, clip]))
+        else:
+            shard = collectives.psum_scatter(rows, group, mean=True,
+                                             dtype=cast)
+        shards.append(opt.compact(shard, g))
+    grad = torch.cat(shards) if len(shards) > 1 else shards[0]
+    if not isinstance(codec, quant.Int8BlockCodec):
+        return grad, ()
+    counts = (sum(stats[1:], stats[0]) if stats
+              else torch.zeros(2, dtype=torch.int32, device=grad.device))
+    return grad, tuple(counts.unbind())
 
 
 def launch_books() -> dict[str, int]:
@@ -146,6 +191,13 @@ class TrainStep:
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.model, self.optimizer, self.schedule = model, optimizer, schedule
+        #: the sharded update (`optim.ShardedUpdate`), or None.
+        self.sharded = (optimizer if getattr(optimizer, "is_sharded_update",
+                                             False) else None)
+        int8 = self.sharded is not None and self.sharded.int8
+        #: what `update` returns, in order.
+        self.metric_names = ("loss", "correct") + (
+            ("quant_overflow", "quant_clip") if int8 else ())
         self.loss_impl = _select_loss_impl(use_pallas_xent)
         self.augment_fn = augment_fn
         self.process_group = process_group
@@ -153,6 +205,9 @@ class TrainStep:
         self.accum_steps = int(accum_steps)
         self.inner = getattr(model, "module", model)  # DDP's wrapped module
         self.ddp = model if model is not self.inner else None
+        if self.sharded is not None and self.ddp is not None:
+            raise ValueError("the sharded update reduces the gradients "
+                             "itself: pass the model, not DDP's wrapper")
         self.device = torch.device(device) if device is not None else next(
             self.inner.parameters()).device
         self.lr_table = lr_table(schedule, self.device)
@@ -186,14 +241,16 @@ class TrainStep:
 
     def update(self, images: torch.Tensor, labels: torch.Tensor):
         """One optimizer update on the device: ``(loss, correct)``, 0-dim
-        device tensors (the global batch's under a group). With
+        device tensors (the global batch's under a group), then the int8
+        codec's counts when it runs (`metric_names`). With
         ``accum_steps`` a > 1 the batch is ``[a, B, ...]``: the
         microbatches run in order, augmentation keyed by ``step·a + i``,
         BatchNorm's running statistics carried from one to the next,
         gradients summed (DDP reduces only the last microbatch's backward:
         the earlier ones run under ``no_sync``, so one gradient all-reduce
         per update) and then divided by a; the loss is the microbatches'
-        mean, ``correct`` their sum."""
+        mean, ``correct`` their sum. The sharded update reduces once,
+        after the division (`_sharded_reduce`)."""
         a = self.accum_steps
         if not self.inner.training:
             self.model.train()
@@ -220,25 +277,30 @@ class TrainStep:
                                  if p.grad is not None], float(a))
             loss_sum = loss_sum / a
         at = self.step_t.clamp(max=self.lr_table.numel() - 1).view(1)
-        self.optimizer.step(self.lr_table.index_select(0, at).view(()))
+        lr = self.lr_table.index_select(0, at).view(())
+        extra = ()
+        if self.sharded is None:
+            self.optimizer.step(lr)
+        else:
+            grad, extra = _sharded_reduce(self.sharded)
+            self.sharded.update(grad, lr)
         self.step_t.add_(1)
         if self.world > 1:
             # The ranks' batches are equal: the global count is known here.
             n = a * int(labels.shape[-1])
-            loss_sum, correct, _ = _global_metrics(
+            loss_sum, correct, _, *extra = _global_metrics(
                 loss_sum, correct, torch.full_like(loss_sum, n),
-                self.process_group)
-        return loss_sum, correct
+                self.process_group, extra)
+        return (loss_sum, correct, *extra)
 
     def __call__(self, state: TrainState, batch) -> dict:
         images, labels = batch["image"], batch["label"]
         self.check_batch(images, ())
         self.sync_counter(state)
         lr = self.schedule(state.step)
-        loss, correct = self.update(images, labels)
+        out = dict(zip(self.metric_names, self.update(images, labels)))
         self.advance(state, 1)
-        return {"loss": loss, "correct": correct, "count": self.count(labels),
-                "lr": lr}
+        return {**out, "count": self.count(labels), "lr": lr}
 
 
 def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
@@ -253,10 +315,12 @@ def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
     microbatch stack). The learning rate of update k is ``schedule(k)``
     (a schedule from `make_schedule`), read on the device before the
     counter advances. Metrics: ``loss`` (f32 scalar tensor), ``correct``
-    (int tensor), ``count`` and ``lr`` (numbers). ``model`` may be
+    (int tensor), ``count`` and ``lr`` (numbers), and under the int8 wire
+    ``quant_overflow`` and ``quant_clip`` (int tensors). ``model`` may be
     `data_parallel`'s wrapper; with a ``process_group`` of more than one
     rank the metrics are the global batch's (``count`` = the rank's
-    examples times the world).
+    examples times the world). ``optimizer`` may be an
+    `optim.ShardedUpdate` (``model`` then unwrapped): the sharded update.
     """
     return TrainStep(model, optimizer, schedule, use_pallas_xent,
                      augment_fn, device, process_group, accum_steps)
@@ -275,9 +339,9 @@ class MultiStep:
     """``loop(state, pool) -> metrics``: ``num_steps`` updates in one
     dispatch (the port of `make_multi_step`'s window). ``pool`` is
     ``{"image": [K, (a,) B, ...], "label": [K, (a,) B]}`` on the device;
-    metrics come back stacked per update (``loss`` and ``correct`` [K]
-    tensors, ``lr`` a list, ``count`` per update), equal to K calls of
-    the train step.
+    metrics come back stacked per update (``loss``, ``correct`` and any
+    codec counts as [K] tensors, ``lr`` a list, ``count`` per update),
+    equal to K calls of the train step.
 
     On a card, with NCCL or no group, the window is a CUDA graph of
     ``train_step.update`` K times, reading slot i of static input
@@ -324,8 +388,7 @@ class MultiStep:
         """K updates, slot i of the pool each: the body eager windows run
         and the graph captures."""
         out = [self.step.update(images[i], labels[i]) for i in range(self.k)]
-        return (torch.stack([loss for loss, _ in out]),
-                torch.stack([correct for _, correct in out]))
+        return tuple(torch.stack(col) for col in zip(*out))
 
     def _capture(self, images, labels) -> None:
         dev = self.step.device
@@ -362,7 +425,7 @@ class MultiStep:
         # eval weights are cached by parameter version).
         for p in self.step.inner.parameters():
             torch.autograd.graph.increment_version(p)
-        return self._out[0].clone(), self._out[1].clone()
+        return tuple(t.clone() for t in self._out)
 
     def close(self) -> None:
         """Release the graph (and its pool) once the device is done with
@@ -380,7 +443,7 @@ class MultiStep:
         lrs = [self.step.schedule(state.step + i) for i in range(self.k)]
         if not self.graphed:
             self.step.sync_counter(state)
-            loss, correct = self._window(images, labels)
+            out = self._window(images, labels)
         else:
             cur = torch.cuda.current_stream(self.step.device)
             self.stream.wait_stream(cur)
@@ -388,20 +451,20 @@ class MultiStep:
                 self.step.sync_counter(state)
                 if self.graph is None and (
                         self.eager_windows < self.warmup_windows):
-                    loss, correct = self._window(images, labels)
+                    out = self._window(images, labels)
                     self.eager_windows += 1
                 else:
                     if self.graph is None:
                         self._capture(images, labels)
-                    loss, correct = self._replay(images, labels)
+                    out = self._replay(images, labels)
             if cur != self.stream:
                 cur.wait_stream(self.stream)
                 for t in (images, labels):
                     t.record_stream(self.stream)
-                for t in (loss, correct):
+                for t in out:
                     t.record_stream(cur)
         self.step.advance(state, self.k)
-        return {"loss": loss, "correct": correct,
+        return {**dict(zip(self.step.metric_names, out)),
                 "count": self.step.count(labels), "lr": lrs}
 
 

@@ -42,6 +42,16 @@ event polling off, as torch's CUDA-graph notes ask), then the trailing
 ``len % K`` updates as single steps; losses, log lines and epoch stats
 are those of K single steps.
 
+The sharded weight update (``train.update_sharding=sharded``, with
+``train.collective_dtype`` "" / "bf16" / "int8", ``train.quant_block_size``
+and ``train.bucket_mb``): the model runs without DDP, the optimizer is
+`optim.ShardedUpdate` over the whole group (issuing its collectives at
+world 1 too when there is a group), which broadcasts rank 0's parameters
+and buffers as DDP would; each rank holds 1/world of the momentum (and the
+int8 residuals), the epoch save gathers them (every rank takes part, rank
+0 writes), and a resume broadcasts the restored global arrays for each
+rank to take its slice. The JAX package's coupling warning is logged.
+
 The loop never waits on the device inside an epoch: losses and correct
 counts stay device tensors until a log line or the epoch's end fetches
 them; the epoch's one fetch also checks the device's update counter
@@ -63,15 +73,16 @@ import torch.distributed as dist
 
 from tpu_dp_torch import checkpoint as ckpt_lib
 from tpu_dp_torch.compat import export_params
-from tpu_dp_torch.config import Config, check_ported
+from tpu_dp_torch.config import Config, check_ported, coupling_warning
 from tpu_dp_torch.data.augment import make_augment_fn
 from tpu_dp_torch.data.cifar import load_dataset
 from tpu_dp_torch.data.pipeline import DataPipeline
 from tpu_dp_torch.models import build_model, parse_fused_stages
 from tpu_dp_torch.obs.counters import counters as _counters
+from tpu_dp_torch.parallel import bucketing, quant
 from tpu_dp_torch.parallel.dist import broadcast_one_to_all, initialize
 from tpu_dp_torch.resilience import resume_latest
-from tpu_dp_torch.train.optim import make_sgd
+from tpu_dp_torch.train.optim import make_sgd, shard_optimizer
 from tpu_dp_torch.train.schedule import make_schedule
 from tpu_dp_torch.train.step import (
     TrainState,
@@ -152,10 +163,27 @@ class Trainer:
                        if self.steps_per_call > 1
                        and self.device.type == "cuda"
                        and self.ctx.backend in (None, "nccl") else None)
+        tc = cfg.train
+        #: the sharded weight update's optimizer runs the exchange itself.
+        self.sharded = tc.update_sharding == "sharded"
+        if self.sharded:
+            coupled = coupling_warning(tc.bucket_mb, tc.quant_block_size,
+                                       tc.collective_dtype)
+            if coupled and self.ctx.is_main_process:
+                log.warning("config warning: %s", coupled)
         #: the module the train step runs: DDP's wrapper with a group,
         #: built on the capture stream when there is one (torch's notes).
         self.ddp = None
-        if self.ctx.backend is not None and self.stream is None:
+        if self.sharded:
+            self.optimizer = shard_optimizer(
+                self.model, self.ctx.world, self.ctx.rank,
+                dist.group.WORLD if self.ctx.backend is not None else None,
+                cfg.optim.momentum, cfg.optim.weight_decay,
+                cfg.optim.decay_exclude_bias_and_norm,
+                quant.make_wire_codec(tc.collective_dtype,
+                                      tc.quant_block_size),
+                bucketing.parse_bucket_mb(tc.bucket_mb))
+        elif self.ctx.backend is not None and self.stream is None:
             self.ddp = data_parallel(self.model, self.ctx)
         elif self.ctx.backend is not None:
             # The model's copies to the card come first; its broadcast
@@ -168,9 +196,10 @@ class Trainer:
             # DDP times its first 10 iterations and every 100th with host
             # syncs; none of them may fall in a capture.
             self.ddp._set_ddp_runtime_logging_sample_rate(2**31 - 1)
-        self.optimizer = make_sgd(
-            self.model, cfg.optim.momentum, cfg.optim.weight_decay,
-            cfg.optim.decay_exclude_bias_and_norm)
+        if not self.sharded:
+            self.optimizer = make_sgd(
+                self.model, cfg.optim.momentum, cfg.optim.weight_decay,
+                cfg.optim.decay_exclude_bias_and_norm)
         self.schedule = make_schedule(
             cfg.optim.schedule, cfg.optim.lr,
             steps_per_epoch * cfg.train.epochs,
@@ -214,6 +243,18 @@ class Trainer:
     def num_devices(self) -> int:
         """Devices in the run: one per rank."""
         return self.ctx.world
+
+    @property
+    def momentum_bytes_per_rank(self) -> int:
+        """Bytes of momentum this rank holds: every buffer replicated, its
+        1/world shard under the sharded update."""
+        if self.sharded:
+            bufs = [self.optimizer.momentum_shard]
+        else:
+            bufs = [st.get("momentum_buffer")
+                    for st in self.optimizer.state.values()]
+        return sum(t.numel() * t.element_size() for t in bufs
+                   if t is not None)
 
     @property
     def global_batch_size(self) -> int:
@@ -272,8 +313,11 @@ class Trainer:
                  self.start_step, self.state.step)
 
     def _replica_tensors(self) -> list[torch.Tensor]:
-        """Parameters, buffers and momentum buffers, in one fixed order."""
+        """Parameters, buffers and (replicated) momentum buffers, in one
+        fixed order."""
         out = list(self.model.state_dict().values())
+        if self.sharded:
+            return out
         if any(g.get("momentum", 0.0) for g in self.optimizer.param_groups):
             for p in self.model.parameters():
                 st = self.optimizer.state[p]
@@ -284,8 +328,15 @@ class Trainer:
 
     def _broadcast_state(self) -> None:
         """Rank 0's restored state on every rank (in place), then a check
-        that every rank holds the same bytes and step."""
+        that every rank holds the same bytes and step. The sharded
+        update's restored global arrays go as one object, each rank taking
+        its slice."""
         tensors = broadcast_one_to_all(self._replica_tensors())
+        if self.sharded:
+            opt = self.optimizer
+            glob = broadcast_one_to_all(
+                opt.restored if self.ctx.is_main_process else None)
+            opt.load_state(*glob)
         self.state.step = broadcast_one_to_all(self.state.step)
         h = hashlib.sha256(str(self.state.step).encode())
         for t in tensors:
@@ -344,7 +395,7 @@ class Trainer:
         # Device losses not yet logged (1-D pieces; the first `logged`
         # values of their concatenation are), and updates since the log.
         pending, logged, run_steps = [], 0, 0
-        losses, correct, count = [], None, 0
+        losses, correct, count, quant_counts = [], None, 0, None
         i = start_step
         for n, item in self.train_pipe.windows(self.steps_per_call,
                                                skip_steps=start_step):
@@ -354,6 +405,11 @@ class Trainer:
             else:
                 m = self.multi_step(self.state, item)
                 c = m["correct"].sum()
+            if "quant_overflow" in m:
+                c8 = torch.stack([m["quant_overflow"].sum(),
+                                  m["quant_clip"].sum()]).to(torch.int64)
+                quant_counts = (c8 if quant_counts is None
+                                else quant_counts + c8)
             loss = m["loss"].reshape(-1)
             losses.append(loss)
             pending.append(loss)
@@ -374,17 +430,27 @@ class Trainer:
                     logged = run_steps = 0
         if not losses:
             return {"loss": 0.0, "accuracy": 0.0}
-        # One fetch: the epoch's losses and the device's update counter.
-        fetched = torch.cat([torch.cat(losses).double(),
-                             self.step_body.step_t.double().view(1)]
-                            ).tolist()
-        epoch_losses, device_step = fetched[:-1], int(fetched[-1])
+        # One fetch: the epoch's losses, the device's update counter and
+        # the int8 codec's block counts.
+        flat = torch.cat(losses).double()
+        tail = [self.step_body.step_t.double().view(1)]
+        if quant_counts is not None:
+            tail.append(quant_counts.double())
+        fetched = torch.cat([flat] + tail).tolist()
+        epoch_losses, rest = fetched[:flat.numel()], fetched[flat.numel():]
+        device_step = int(rest[0])
+        if quant_counts is not None:
+            overflow, clip = int(rest[1]), int(rest[2])
+            _counters.inc("quant.overflow", overflow)
+            _counters.inc("quant.clip_blocks", clip)
         if device_step != self.state.step:
             raise RuntimeError(f"the device's update counter reads "
                                f"{device_step}, the host's {self.state.step}")
         self.step_losses.extend(epoch_losses)
         stats = {"loss": sum(epoch_losses) / len(epoch_losses),
                  "accuracy": int(correct) / count}
+        if quant_counts is not None:
+            stats.update(quant_overflow=overflow, quant_clip=clip)
         self.meter.mark()
         return stats
 
