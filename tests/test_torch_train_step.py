@@ -180,13 +180,13 @@ def test_augmentation_statistics():
 
 
 @pytest.mark.parametrize("knob", [
-    "--data.resident_max_bytes=1", "--train.verify_fingerprint=true",
+    "--train.verify_fingerprint=true",
     "--train.recompile_guard=raise", "--resilience.snapshot_every_steps=5",
     "--guard.enabled=true", "--resilience.elastic=true",
     "--obs.run_dir=x", "--train.obs=basic", "--train.profile_dir=p",
-    "--model.fused_block_b=4", "--data.device_resident=on",
+    "--model.fused_block_b=4",
     "--train.metrics_path=m.jsonl", "--train.profile_steps=1:2",
-    "--profile=t.json", "--data.sync_placement=true",
+    "--profile=t.json",
     "--parallel.num_devices=2"])
 def test_cli_refuses_unported_knobs(knob):
     with pytest.raises(NotPortedError):

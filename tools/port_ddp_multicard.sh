@@ -10,14 +10,22 @@
 # (--train.update_sharding=sharded) with its gradient exchange in f32,
 # bf16 and int8, unbucketed and in 25 MB buckets, each eager and in
 # windows of 24 updates replayed as CUDA graphs (--train.steps_per_call=0,
-# the auto window). Run from the repository root:
+# the auto window), all on the streamed feed (--data.device_resident=off);
+# then tools/port_resident_multicard.py: --preset=resnet18_8chip_gb1024 on
+# the device-resident feed and on the streamed one at world 1, 2 and 4.
+# Run from the repository root:
 #
-#     bash tools/port_ddp_multicard.sh
+#     bash tools/port_ddp_multicard.sh            # everything
+#     bash tools/port_ddp_multicard.sh resident   # the gb1024 runs alone
 #
 # Logs and records go to chiprun_out/ddp_multicard_*; one line per CLI run
-# goes to chiprun_out/ddp_multicard_cli.jsonl.
+# goes to chiprun_out/ddp_multicard_cli.jsonl, one per gb1024 run to
+# chiprun_out/resident_multicard.jsonl.
 cd "$(dirname "$0")/.." || exit 1
 mkdir -p chiprun_out
+if [[ ${1:-} == resident ]]; then
+  exec python3 tools/port_resident_multicard.py
+fi
 card=$(nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | head -n 1)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 t0=$(date +%s)
@@ -30,7 +38,7 @@ grep -E "NVIDIA|ddp_nccl_multi|sharded_(f32|int8)\] NVIDIA|^\{\"ok" \
 SLICE="--preset=resnet18_cifar10 --model.fused_stages=all
   --model.fused_bwd=true --train.pallas_xent=true --data.dataset=synthetic
   --data.synthetic_train_size=36864 --data.synthetic_test_size=256
-  --train.epochs=1 --train.log_every=1000"
+  --train.epochs=1 --train.log_every=1000 --data.device_resident=off"
 : > chiprun_out/ddp_multicard_cli.jsonl
 for n in 1 2 4; do
   for spc in 1 0; do
@@ -65,3 +73,4 @@ for n in 1 2 4; do
     done
   done
 done
+python3 tools/port_resident_multicard.py

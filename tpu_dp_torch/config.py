@@ -52,9 +52,15 @@ class DataConfig:
     synthetic_train_size: int | None = None
     synthetic_test_size: int | None = None
     allow_synthetic: bool = True
-    # "on" (stage the train set on the device) is not ported; "auto"
-    # means off here.
+    # Stage the whole train set on the device once and feed each window
+    # only int32 indices, gathered on the device inside the step.
+    # "auto": on when the train set fits resident_max_bytes and
+    # drop_remainder holds; "on"/"off" force it.
     device_resident: str = "auto"  # auto | on | off
+    resident_max_bytes: int = 512 * 1024 * 1024
+    # Block on every placed batch or window (a measurement escape hatch:
+    # the copy then no longer overlaps the step).
+    sync_placement: bool = False
 
 
 @dataclass
@@ -242,8 +248,6 @@ NOT_PORTED: dict[str, Any] = {
     # tile_of`), so there is no per-block knob to give it and only the
     # automatic default runs.
     "model.fused_block_b": 0,
-    "data.resident_max_bytes": 512 * 1024 * 1024,
-    "data.sync_placement": False,
     "train.profile_dir": None,
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
@@ -307,11 +311,13 @@ def _require_default(dotted: str, value: Any, default: Any) -> None:
 
 def check_ported(cfg: Config) -> Config:
     """Raise `NotPortedError` for a configuration the port cannot run
-    (a model other than net, resnet18 and resnet50, the device-resident
-    feed, more than one device per process), `ValueError` for one that is
-    invalid (gradient accumulation below 1, a negative window, either with
-    a ragged final batch; the sharded update's knobs as the JAX package
-    refuses them)."""
+    (a model other than net, resnet18 and resnet50, more than one device
+    per process), `ValueError` for one that is invalid (a feed mode other
+    than auto|on|off; the device-resident feed forced on, gradient
+    accumulation or a window above 1, each with a ragged final batch;
+    gradient accumulation below 1, a negative window; the sharded
+    update's knobs as the JAX package refuses them), with the JAX
+    package's messages."""
     if cfg.parallel.num_devices not in (None, 1):
         raise NotPortedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: one "
@@ -324,10 +330,9 @@ def check_ported(cfg: Config) -> Config:
     if cfg.data.device_resident not in ("auto", "off", "on"):
         raise ValueError(f"data.device_resident must be auto|on|off, got "
                          f"{cfg.data.device_resident!r}")
-    if cfg.data.device_resident == "on":
-        raise NotPortedError(
-            "data.device_resident=on: the device-resident feed is not "
-            "ported yet (auto means off in tpu_dp_torch)")
+    if cfg.data.device_resident == "on" and not cfg.data.drop_remainder:
+        raise ValueError(
+            "data.device_resident=on requires data.drop_remainder=true")
     if cfg.optim.grad_accum_steps < 1:
         raise ValueError(f"optim.grad_accum_steps must be >= 1, got "
                          f"{cfg.optim.grad_accum_steps}")
@@ -428,10 +433,44 @@ def _preset_resnet50_cifar100() -> Config:
     return c
 
 
+# The JAX package's configs 4 and 5 name 8-chip layouts, and there one
+# process drives every chip, so their data.batch_size (1024, 4096) is the
+# global batch. A port process drives one card: these presets state the
+# per-card batch of the 8-card layout (global / 8). At world 8 the global
+# batch and the learning rate are the JAX package's; at any other world
+# the global batch is batch_size x world (`Trainer.global_batch_size`).
+
+
+def _preset_resnet18_8chip_gb1024() -> Config:
+    """Data-parallel ResNet-18, global batch 1024 on 8 cards: 128 a card,
+    lr 0.4, 5 warmup epochs, 50 epochs."""
+    c = _preset_resnet18_cifar10()
+    c.data.batch_size = 1024 // 8
+    c.optim.lr = 0.4
+    c.optim.warmup_epochs = 5.0
+    c.train.epochs = 50
+    return c
+
+
+def _preset_bf16_cosine_gb4096() -> Config:
+    """bf16 compute (parameters, classifier and loss in f32) with the
+    cosine schedule, global batch 4096 on 8 cards: 512 a card, lr 1.6, 10
+    warmup epochs, 60 epochs."""
+    c = _preset_resnet18_8chip_gb1024()
+    c.model.bf16 = True
+    c.data.batch_size = 4096 // 8
+    c.optim.lr = 1.6
+    c.optim.warmup_epochs = 10.0
+    c.train.epochs = 60
+    return c
+
+
 PRESETS = {
     "reference": _preset_reference_single,
     "resnet18_cifar10": _preset_resnet18_cifar10,
     "resnet50_cifar100": _preset_resnet50_cifar100,
+    "resnet18_8chip_gb1024": _preset_resnet18_8chip_gb1024,
+    "bf16_cosine_gb4096": _preset_bf16_cosine_gb4096,
 }
 
 

@@ -36,8 +36,19 @@ part of `tpu_dp.data.pipeline`).
 - ``skip_steps`` starts the epoch at a later step (the mid-epoch resume
   position): step ``s`` always draws ``idx[s*per_step:(s+1)*per_step]``,
   wherever iteration starts, so no batch is replayed and none is skipped.
-
-The JAX package's device-resident feed is not ported yet.
+- ``sync_placement`` (``data.sync_placement``) blocks the placing thread
+  on every placed batch or window until its copy has landed: the copy no
+  longer overlaps the consumer's work (a measurement escape hatch, off by
+  default).
+- The device-resident feed (``data.device_resident``): `resident_data`
+  stages the whole dataset on the device once (uint8 images, int64
+  labels), and `index_windows` is the twin of `windows` that ships only
+  each window's int32 dataset indices, ``[n, (a,) B]``, in one small
+  pinned copy; the step gathers its batch on the device
+  (`tpu_dp_torch.train.step.gather_batch`). Same sampler order, same
+  window and tail structure, same ``skip_steps``; no prefetch thread (a
+  window's indices are kilobytes). `dataset_bytes` is the host size the
+  ``resident_max_bytes`` budget is held against.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ class DataPipeline:
                  shuffle: bool = True, seed: int = 0,
                  drop_remainder: bool = True, prefetch: int = 2,
                  num_shards: int = 1, shard_id: int = 0,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, sync_placement: bool = False):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         if self.batch_size < 1:
@@ -77,6 +88,7 @@ class DataPipeline:
         self.device = torch.device(device)
         self.drop_remainder = drop_remainder
         self.prefetch = int(prefetch)
+        self.sync_placement = bool(sync_placement)
         self.sampler = ShardedSampler(len(dataset), num_shards=num_shards,
                                       shard_id=shard_id, shuffle=shuffle,
                                       seed=seed)
@@ -135,8 +147,11 @@ class DataPipeline:
             w = torch.empty(len(weight), dtype=torch.float32, pin_memory=pin)
             w.numpy()[:] = weight
             batch["weight"] = w
-        return {k: v.to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        placed = {k: v.to(self.device, non_blocking=True)
+                  for k, v in batch.items()}
+        if self.sync_placement:
+            _wait_placed(self.device)
+        return placed
 
     def _prefetched(self, items):
         """Drain ``items`` (a generator that places batches) through the
@@ -239,6 +254,65 @@ class DataPipeline:
                                  (k, *self._step_shape()))
         for take, w in self._host_batches(full):
             yield 1, self._place(take, w)
+
+    def dataset_bytes(self) -> int:
+        """Host size of the dataset's arrays (the ``resident_max_bytes``
+        budget's measure, the JAX package's)."""
+        return self.dataset.images.nbytes + self.dataset.labels.nbytes
+
+    def resident_data(self) -> dict[str, torch.Tensor]:
+        """The whole dataset on the pipeline's device: ``{"image": uint8
+        [N, H, W, C], "label": int64 [N]}`` (the dtypes the streamed
+        batches carry), copied once; on the CPU the images share the
+        host array."""
+        images = torch.from_numpy(self.dataset.images)
+        labels = torch.from_numpy(self.dataset.labels).long()
+        return {"image": images.to(self.device),
+                "label": labels.to(self.device)}
+
+    def index_windows(self, k: int, skip_steps: int = 0):
+        """``(n_steps, idx)`` pairs for the resident window
+        (`tpu_dp_torch.train.step.ResidentMultiStep`): the twin of
+        `windows` (the JAX package's `DataPipeline.index_windows`), each
+        item the int32 dataset indices ``[n, (a,) B]`` of the examples
+        `windows` would ship, on the device: full windows of ``k``, then
+        the epoch's trailing steps as ``n = 1``; from ``skip_steps`` the
+        remaining steps are windowed anew. Requires ``drop_remainder``
+        (the resident train path carries no weight masks)."""
+        k = int(k)
+        if not self.drop_remainder:
+            raise ValueError("index_windows requires drop_remainder=True")
+        return self._index_windows(k, int(skip_steps))
+
+    def _index_windows(self, k: int, skip_steps: int):
+        idx = np.ascontiguousarray(self.sampler.shard_indices(), np.int32)
+        per_step = self.batch_size * self.accum_steps
+        steps = len(self)
+        remaining = max(0, steps - skip_steps)
+        full = skip_steps + (remaining - remaining % k if k > 1 else 0)
+        for s in range(skip_steps, full, k):
+            yield k, self._place_indices(
+                idx[s * per_step:(s + k) * per_step], k)
+        for s in range(full, steps):
+            yield 1, self._place_indices(
+                idx[s * per_step:(s + 1) * per_step], 1)
+
+    def _place_indices(self, take: np.ndarray, n: int) -> torch.Tensor:
+        """``take`` as ``[n, (a,) B]`` int32 on the device: one pinned
+        buffer (on a card) and one asynchronous copy on the current
+        stream, ahead of the step that reads it."""
+        buf = torch.empty(len(take), dtype=torch.int32,
+                          pin_memory=self.device.type == "cuda")
+        buf.numpy()[:] = take
+        return buf.view(n, *self._step_shape()).to(self.device,
+                                                   non_blocking=True)
+
+
+def _wait_placed(device: torch.device) -> None:
+    """Block until the copies issued on the current stream have landed
+    (``sync_placement``); a copy to the CPU is already done."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _tensors(item):

@@ -19,6 +19,11 @@ over the same group; the step's metrics are global, one all-reduce of
 ``count`` and the weighted loss across ranks the same way. With no group
 (one process) none of these collectives exists.
 
+The device-resident feed (the JAX package's `make_multi_step_resident`):
+`ResidentMultiStep` runs `MultiStep`'s window on batches gathered on the
+device from the staged dataset by int32 indices (`gather_batch`), inside
+the CUDA graph on a card.
+
 The sharded weight update (``train.update_sharding=sharded``; the JAX
 package's ``make_local_step`` reduce hook): the optimizer is a
 `tpu_dp_torch.train.optim.ShardedUpdate` and the model runs without DDP's
@@ -384,18 +389,24 @@ class MultiStep:
         self.capture_bytes: int | None = None
         self._static = self._out = None
 
-    def _window(self, images, labels):
-        """K updates, slot i of the pool each: the body eager windows run
+    def _slot(self, inputs, i):
+        """``(images, labels)`` of update i of the window's inputs."""
+        images, labels = inputs
+        return images[i], labels[i]
+
+    def _window(self, *inputs):
+        """K updates, slot i of the inputs each: the body eager windows run
         and the graph captures."""
-        out = [self.step.update(images[i], labels[i]) for i in range(self.k)]
+        out = [self.step.update(*self._slot(inputs, i))
+               for i in range(self.k)]
         return tuple(torch.stack(col) for col in zip(*out))
 
-    def _capture(self, images, labels) -> None:
+    def _capture(self, *inputs) -> None:
         dev = self.step.device
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()  # as the capture does first
         held = torch.cuda.memory_reserved(dev)
-        self._static = (torch.empty_like(images), torch.empty_like(labels))
+        self._static = tuple(torch.empty_like(t) for t in inputs)
         before = launch_books()
         graph = torch.cuda.CUDAGraph()
         bench = torch.backends.cudnn.benchmark
@@ -415,9 +426,9 @@ class MultiStep:
         self.captured = {k: after[k] - before[k] for k in after}
         self.graph = graph
 
-    def _replay(self, images, labels):
-        self._static[0].copy_(images)
-        self._static[1].copy_(labels)
+    def _replay(self, *inputs):
+        for static, t in zip(self._static, inputs):
+            static.copy_(t)
         self.graph.replay()
         self.replays += 1
         # The graph updated these in place where the host did not look:
@@ -438,12 +449,17 @@ class MultiStep:
         self.graph = self._static = self._out = None
 
     def __call__(self, state: TrainState, pool) -> dict:
-        images, labels = pool["image"], pool["label"]
-        self.step.check_batch(images, (self.k,))
+        return self._run(state, (pool["image"], pool["label"]))
+
+    def _run(self, state: TrainState, inputs: tuple) -> dict:
+        """The window on ``inputs``, the tensors the graph copies into its
+        static buffers (led by ``[K, (a,) B]``; the last one's last dim is
+        the batch)."""
+        self.step.check_batch(inputs[0], (self.k,))
         lrs = [self.step.schedule(state.step + i) for i in range(self.k)]
         if not self.graphed:
             self.step.sync_counter(state)
-            out = self._window(images, labels)
+            out = self._window(*inputs)
         else:
             cur = torch.cuda.current_stream(self.step.device)
             self.stream.wait_stream(cur)
@@ -451,21 +467,75 @@ class MultiStep:
                 self.step.sync_counter(state)
                 if self.graph is None and (
                         self.eager_windows < self.warmup_windows):
-                    out = self._window(images, labels)
+                    out = self._window(*inputs)
                     self.eager_windows += 1
                 else:
                     if self.graph is None:
-                        self._capture(images, labels)
-                    out = self._replay(images, labels)
+                        self._capture(*inputs)
+                    out = self._replay(*inputs)
             if cur != self.stream:
                 cur.wait_stream(self.stream)
-                for t in (images, labels):
+                for t in inputs:
                     t.record_stream(self.stream)
                 for t in out:
                     t.record_stream(cur)
         self.step.advance(state, self.k)
         return {**dict(zip(self.step.metric_names, out)),
-                "count": self.step.count(labels), "lr": lrs}
+                "count": self.step.count(inputs[-1]), "lr": lrs}
+
+
+def gather_batch(table: dict, idx: torch.Tensor) -> dict:
+    """The batch the dataset indices ``idx`` name in the device-resident
+    ``table`` (`DataPipeline.resident_data`): ``{"image": [*idx.shape, H,
+    W, C], "label": [*idx.shape]}``, gathered on the table's device by
+    `index_select` (no host sync, so a CUDA graph captures it)."""
+    flat = idx.reshape(-1)
+    images = table["image"].index_select(0, flat)
+    return {"image": images.view(*idx.shape, *images.shape[1:]),
+            "label": table["label"].index_select(0, flat).view(idx.shape)}
+
+
+def _table_key(table: dict) -> tuple:
+    """What a captured gather reads of ``table``: its tensors' addresses,
+    shapes and dtypes."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                 for t in (table["image"], table["label"]))
+
+
+class ResidentMultiStep(MultiStep):
+    """``loop(state, table, idx) -> metrics``: the window fed by the
+    device-resident dataset (the port of `make_multi_step_resident`).
+    ``table`` is `DataPipeline.resident_data`'s, ``idx`` the window's
+    int32 dataset indices ``[K, (a,) B]`` (`DataPipeline.index_windows`);
+    update i runs `TrainStep.update` on ``gather_batch(table, idx[i])``,
+    so normalize, augmentation, the forward and backward, the update,
+    accumulation and the reduce hooks are `MultiStep`'s and a window
+    equals K updates on the streamed batches bit for bit.
+
+    On a card with NCCL or no group the gather is inside the CUDA graph:
+    its one static input is the index buffer, and a replay copies K·B
+    indices instead of K·B images. The graph reads the table at the
+    address it captured: a call with another table (`_table_key`)
+    releases the graph and captures anew. Eager under gloo and on the
+    CPU, as `MultiStep`."""
+
+    table: dict | None = None
+    _captured_key: tuple | None = None
+
+    def _slot(self, inputs, i):
+        (idx,) = inputs
+        b = gather_batch(self.table, idx[i])
+        return b["image"], b["label"]
+
+    def _capture(self, *inputs) -> None:
+        super()._capture(*inputs)
+        self._captured_key = _table_key(self.table)
+
+    def __call__(self, state: TrainState, table: dict, idx) -> dict:
+        if self.graph is not None and _table_key(table) != self._captured_key:
+            self.close()
+        self.table = table
+        return self._run(state, (idx,))
 
 
 def make_multi_step(train_step: TrainStep, num_steps: int,
@@ -473,6 +543,13 @@ def make_multi_step(train_step: TrainStep, num_steps: int,
     """``num_steps`` updates of ``train_step`` per call (`MultiStep`);
     ``stream`` is the capture stream on a card (a new one by default)."""
     return MultiStep(train_step, num_steps, stream)
+
+
+def make_multi_step_resident(train_step: TrainStep, num_steps: int,
+                             stream=None) -> ResidentMultiStep:
+    """`make_multi_step`'s window fed by a device-resident dataset and
+    indices (`ResidentMultiStep`)."""
+    return ResidentMultiStep(train_step, num_steps, stream)
 
 
 def make_eval_step(model, process_group=None) -> Callable:

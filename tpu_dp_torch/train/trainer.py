@@ -52,6 +52,18 @@ int8 residuals), the epoch save gathers them (every rank takes part, rank
 0 writes), and a resume broadcasts the restored global arrays for each
 rank to take its slice. The JAX package's coupling warning is logged.
 
+The device-resident feed (``data.device_resident``; the JAX package's
+default on its main path): with "auto" it is on when ``data.
+drop_remainder`` holds and the train set's host bytes fit ``data.
+resident_max_bytes`` (512 MiB: the CIFAR-10 train set, 153.8 MB, fits);
+"on" forces it (over the budget rank 0 logs the JAX package's warning and
+goes on), "off" keeps the streamed feed. The train set is staged on the
+device at the first epoch (`resident_train`), and each window ships only
+its int32 indices (`DataPipeline.index_windows`): full windows run
+`make_multi_step_resident` (on a card the gather is inside the CUDA
+graph), single steps the per-step call on the gathered batch. The
+trajectory is the streamed feed's, bit for bit. Eval stays streamed.
+
 The loop never waits on the device inside an epoch: losses and correct
 counts stay device tensors until a log line or the epoch's end fetches
 them; the epoch's one fetch also checks the device's update counter
@@ -87,8 +99,10 @@ from tpu_dp_torch.train.schedule import make_schedule
 from tpu_dp_torch.train.step import (
     TrainState,
     data_parallel,
+    gather_batch,
     make_eval_step,
     make_multi_step,
+    make_multi_step_resident,
     make_train_step,
 )
 from tpu_dp_torch.utils.meter import ThroughputMeter
@@ -138,11 +152,25 @@ class Trainer:
             self.train_ds, cfg.data.batch_size, self.device,
             shuffle=cfg.data.shuffle, seed=seed,
             drop_remainder=cfg.data.drop_remainder,
-            prefetch=cfg.data.prefetch, accum_steps=accum, **shard)
+            prefetch=cfg.data.prefetch, accum_steps=accum,
+            sync_placement=cfg.data.sync_placement, **shard)
         self.test_pipe = DataPipeline(
             self.test_ds, cfg.data.batch_size, self.device, shuffle=False,
             seed=seed, drop_remainder=False, prefetch=cfg.data.prefetch,
-            **shard)
+            sync_placement=cfg.data.sync_placement, **shard)
+        mode = cfg.data.device_resident
+        ds_bytes = self.train_pipe.dataset_bytes()
+        budget = cfg.data.resident_max_bytes
+        if mode == "on" and ds_bytes > budget and self.ctx.is_main_process:
+            log.warning(
+                "warning: data.device_resident=on stages %d bytes, over "
+                "data.resident_max_bytes=%d — staging may exhaust device "
+                "memory; raise the budget or use auto", ds_bytes, budget)
+        #: whether the train feed is device-resident (module doc).
+        self._resident_enabled = mode == "on" or (
+            mode == "auto" and cfg.data.drop_remainder
+            and ds_bytes <= budget)
+        self._resident_train = None
 
         self.model = build_model(
             cfg.model.name, num_classes=num_classes,
@@ -217,9 +245,11 @@ class Trainer:
             use_pallas_xent=cfg.train.pallas_xent, augment_fn=augment_fn,
             device=self.device, process_group=group, accum_steps=accum)
         self.train_step = self.step_body
+        make_window = (make_multi_step_resident if self._resident_enabled
+                       else make_multi_step)
         self.multi_step = (
-            make_multi_step(self.step_body, self.steps_per_call,
-                            stream=self.stream)
+            make_window(self.step_body, self.steps_per_call,
+                        stream=self.stream)
             if self.steps_per_call > 1 else None)
         # Eval runs the unwrapped module: no gradient, nothing to reduce.
         self.eval_step = make_eval_step(self.model, process_group=group)
@@ -255,6 +285,15 @@ class Trainer:
                     for st in self.optimizer.state.values()]
         return sum(t.numel() * t.element_size() for t in bufs
                    if t is not None)
+
+    @property
+    def resident_train(self) -> dict[str, torch.Tensor] | None:
+        """The device-resident train set, staged on first access
+        (`DataPipeline.resident_data`), or None when the feed streams:
+        a Trainer built only to evaluate or restore never stages it."""
+        if self._resident_enabled and self._resident_train is None:
+            self._resident_train = self.train_pipe.resident_data()
+        return self._resident_train
 
     @property
     def global_batch_size(self) -> int:
@@ -387,7 +426,8 @@ class Trainer:
         """One epoch; ``start_step`` > 0 resumes it after that many steps
         (no batch replayed, none skipped). Full windows of
         ``steps_per_call`` updates go to `multi_step`, single steps to
-        `train_step`; a window's stacked metrics are booked update by
+        `train_step` (on the batch gathered from `resident_train` when the
+        feed is resident); a window's stacked metrics are booked update by
         update, as K single steps would be."""
         cfg = self.cfg
         every = cfg.train.log_every
@@ -397,13 +437,17 @@ class Trainer:
         pending, logged, run_steps = [], 0, 0
         losses, correct, count, quant_counts = [], None, 0, None
         i = start_step
-        for n, item in self.train_pipe.windows(self.steps_per_call,
-                                               skip_steps=start_step):
+        table = self.resident_train
+        feed = (self.train_pipe.windows if table is None
+                else self.train_pipe.index_windows)
+        for n, item in feed(self.steps_per_call, skip_steps=start_step):
             if n == 1:
-                m = self.train_step(self.state, item)
+                m = self.train_step(self.state, item if table is None
+                                    else gather_batch(table, item[0]))
                 c = m["correct"]
             else:
-                m = self.multi_step(self.state, item)
+                m = (self.multi_step(self.state, item) if table is None
+                     else self.multi_step(self.state, table, item))
                 c = m["correct"].sum()
             if "quant_overflow" in m:
                 c8 = torch.stack([m["quant_overflow"].sum(),
@@ -482,11 +526,12 @@ class Trainer:
         cfg = self.cfg
         log.info("training %s on %s (%s, rank %d of %d): batch %d per "
                  "rank × %d microbatches, %d global, %d epochs, %d updates "
-                 "per call", cfg.model.name,
+                 "per call, %s feed", cfg.model.name,
                  self.train_ds.name, self.device, self.ctx.rank,
                  self.ctx.world, cfg.data.batch_size,
                  cfg.optim.grad_accum_steps, self.global_batch_size,
-                 cfg.train.epochs, self.steps_per_call)
+                 cfg.train.epochs, self.steps_per_call,
+                 "resident" if self._resident_enabled else "streamed")
         t0 = time.perf_counter()
         history = []
         for epoch in range(self.start_epoch, cfg.train.epochs):
