@@ -6,9 +6,10 @@ repository root on a machine with one NVIDIA H100.
 Phases, in order; any failure exits non-zero before the last line:
 
 1. header: the card (torch and ``nvidia-smi``); no CUDA → exit 1;
-2. build: every kernel of the port (conv_block.cu, xent.cu), one nvcc per
-   source, started together; each conv instance's registers, spills and
-   static shared memory from the ptxas report;
+2. build: every kernel of the port (conv_block.cu, xent.cu, augment.cu),
+   one nvcc per source, started together; each conv instance's registers,
+   spills and static shared memory from the ptxas report, and the draw
+   kernel's;
 3. kernel vs plain, eval: the conv kernel's public wrappers against its
    plain PyTorch version on the card, at B=32 for the four ResNet-18 shapes
    x the three eval variants x f32/bf16 inputs (tolerance: one bf16 ulp at
@@ -157,6 +158,9 @@ Phases, in order; any failure exits non-zero before the last line:
    without a group; (c) phase 8's interrupted and resumed run under int8
    at 25 MB, bit-identical to the uninterrupted one (residuals included);
    (d) ResNet-50 int8 at 25 MB, 10 updates: books and finite losses.
+   (b) reuses (a)'s 30 eager updates per wire as its eager half and runs
+   the windowed half at 30 updates; its replicated windows are phase 9a's
+   record when phase 9 ran in the same call.
    Phase 7a also runs the sharded update (f32 and int8) on its two gloo
    ranks, and prints ``not run`` with gloo's error if gloo refuses a
    collective on CUDA tensors; phase 7c adds sharded f32 and int8 at
@@ -186,7 +190,29 @@ Phases, in order; any failure exits non-zero before the last line:
    books, every conv launch on bf16 x at B=512, step ms and images/s;
    ``--preset=resnet18_8chip_gb1024`` (per-card batch 128), 10 updates:
    books and finite losses;
-14. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+14. ``resilience``: the main path's resilience defaults, on
+   ``--preset=resnet18_cifar10`` with the kernel knobs, f32, B=128, the
+   default resident feed, augmentation on, windows of 10, cuDNN
+   deterministic: (a) the crop/flip draw kernel against its plain version
+   bit for bit (100 step keys x row offsets 0 and 128 of a global 512 x
+   accumulation keys; inside a CUDA graph over 3 replays), its device
+   time beside an empty kernel's, the plain version's and its bound; (b)
+   60 uninterrupted updates (the main path: books per update with one
+   draw launch per update by counter; by kernel name per replay, recorded),
+   and the windowed ms per update with augmentation on and off in turns;
+   (c) a CLI subprocess (``python -m tpu_dp_torch.train`` with cuDNN
+   deterministic, ``--resilience.snapshot_every_steps=10``) parked at its
+   step-20 boundary by a delay fault and sent a real SIGTERM by this
+   process: exit 143, ``preempted:`` printed, the step-20 snapshot
+   committed and ``flightrec_r00000.json`` with the preemption's events;
+   ``--resume`` in process bit-identical to the uninterrupted run (losses,
+   parameters, statistics, momentum, eval); ``preempt:step=15`` in process
+   and ``kill:step=11`` in a subprocess (exit 137), each resumed
+   bit-identical; the snapshot's blocking ms and the epoch's ms per update
+   with and without the cadence, in turns; (d) the sharded update at NCCL
+   world 1: ``preempt:step=15``, its one snapshot and the resume,
+   bit-identical to the uninterrupted sharded run;
+15. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 Phases 1-11 keep the streamed feed (``--data.device_resident=off``), so
 their numbers stay comparable with earlier runs.
@@ -195,8 +221,9 @@ their numbers stay comparable with earlier runs.
 the header, the build and the named phases alone (a four-card machine's
 multi-card check), without the kernels' line; ``--only
 resnet50_kernels,resnet50,resnet50_windows,resnet50_ddp`` runs phase 10
-alone, ``--only sharded`` phase 11 and ``--only resident,presets`` phases
-12 and 13. ``--ddp-worker SPEC`` is phase 7's rank process.
+alone, ``--only sharded`` phase 11, ``--only resident,presets`` phases
+12 and 13 and ``--only resilience`` phase 14. ``--ddp-worker SPEC`` is
+phase 7's rank process.
 
 Every timed case also prints ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
@@ -226,6 +253,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: outside the tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+#: 32-bit integer operations outside the tensor cores: half the f32 rate
+#: (64 INT32 lanes an SM against 128 FP32; the data sheet lists no INT32
+#: rate, so this is the architecture white paper's lane count at the same
+#: clock).
+PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
 PEAK_BYTES = 3.35e12
 B = 32
 #: the serve ladder's other buckets, checked against the plain version.
@@ -304,6 +336,17 @@ RES_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
 #: window; resnet18_8chip_gb1024's updates.
 P16_B, P16_UPDATES, P16_K = 512, 30, 10
 P1024_UPDATES = 10
+#: phase 14: the resilience path (the preset with the kernel knobs, the
+#: default resident feed, augmentation on): windows of 10, 30 updates an
+#: epoch, 2 epochs; the snapshot cadence of its preempted runs.
+RESIL_K, RESIL_SPE, RESIL_EPOCHS, RESIL_EVERY = 10, 30, 2, 10
+RESIL_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
+              "--model.fused_bwd=true", "--train.pallas_xent=true",
+              "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
+              f"--data.synthetic_train_size={RESIL_SPE * TRAIN_B}",
+              f"--data.synthetic_test_size={2 * TRAIN_B}",
+              f"--train.epochs={RESIL_EPOCHS}", "--train.log_every=100",
+              f"--train.steps_per_call={RESIL_K}"]
 
 
 def bf16_ulp(mag: float) -> float:
@@ -419,6 +462,10 @@ def phase_build(out):
         print("[build] " + json.dumps(inst))
     out["xent_ptxas"] = ptxas_lines(info["xent"]["log"], "xent_")
     for name, lines in out["xent_ptxas"].items():
+        print(f"[build] {name}: {' | '.join(lines)}")
+    out["augment_ptxas"] = ptxas_lines(info["augment"]["log"],
+                                       "crop_flip_draws")
+    for name, lines in out["augment_ptxas"].items():
         print(f"[build] {name}: {' | '.join(lines)}")
     spills = [i for i in out["conv_instances"] if i["spill_bytes"]]
     print(f"[build] total {out['build_s']} s; "
@@ -1119,7 +1166,8 @@ def profile_forward(fn, n: int = 5, cuda_only: bool = False,
     # The port's own kernels, by name: their device time per launch, which
     # for microsecond kernels a host-side loop cannot see.
     ours = {k: v for k, v in kernels.items()
-            if any(s in k for s in ("conv_block_kernel", "xent_"))}
+            if any(s in k for s in ("conv_block_kernel", "xent_",
+                                    "crop_flip_draws"))}
     return {"wall_us_per_call": wall_us / n, "device_busy_us_per_call":
             busy_us, "device_busy_share": busy_us * n / wall_us,
             "kernel_launches_per_call": sum(
@@ -1279,6 +1327,7 @@ def phase_train(out):
     import torch
 
     from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.ops import augment as aug_ops
     from tpu_dp_torch.ops import conv_block as cb
     from tpu_dp_torch.ops import xent as tx
     from tpu_dp_torch.train.trainer import Trainer
@@ -1292,11 +1341,12 @@ def phase_train(out):
     torch.cuda.reset_peak_memory_stats()
     cb.reset_launches()
     tx.reset_launches()
+    aug_ops.reset_launches()
     result = trainer.fit()
     torch.cuda.synchronize()
     ckpt.cleanup()
     counts = {"conv": dict(cb.launches_by_role), "conv_total": cb.launches,
-              "xent": dict(tx.launches)}
+              "xent": dict(tx.launches), "augment": aug_ops.launches}
     peak = torch.cuda.max_memory_allocated()
     losses = trainer.step_losses
     acc = result["eval"]["accuracy"]
@@ -1312,6 +1362,7 @@ def phase_train(out):
             counts["conv"]["eval"] == 10 * evals,
         "xent_1_and_1_per_step":
             counts["xent"] == {"forward": steps, "backward": steps},
+        "augment_1_per_step": counts["augment"] == steps,
         "accuracy_is_number": isinstance(acc, float) and math.isfinite(acc),
     }
     # The same init, batches, augmentation and schedule, unfused and
@@ -1319,7 +1370,7 @@ def phase_train(out):
     ref = Trainer(parse_cli(args + [
         "--model.fused_stages=", "--model.fused_bwd=false",
         "--train.pallas_xent=false"]), device="cuda")
-    before = (cb.launches, dict(tx.launches))
+    before = (cb.launches, dict(tx.launches), aug_ops.launches)
     ref.train_pipe.set_epoch(0)
     ref_losses = []
     for batch in ref.train_pipe:
@@ -1329,8 +1380,10 @@ def phase_train(out):
     ref_losses = torch.stack(ref_losses).tolist()
     diffs = [abs(a - b) for a, b in zip(losses[:5], ref_losses)]
     checks["first5_track_unfused"] = max(diffs) <= 0.05
-    checks["reference_runs_no_kernel"] = before == (cb.launches,
-                                                    dict(tx.launches))
+    # The reference draws with the same kernel (the augmentation is not
+    # what it stands in for); only the conv and xent kernels stay idle.
+    checks["reference_runs_no_kernel"] = before[:2] == (cb.launches,
+                                                        dict(tx.launches))
 
     batch = next(iter(trainer.train_pipe))
     step_ms = cuda_median_ms(lambda: trainer.train_step(trainer.state, batch),
@@ -1344,7 +1397,8 @@ def phase_train(out):
     # count fewer launches than ran but never more: a count above the books
     # fails at once, one below is profiled again, in at most three
     # sessions, all of them recorded.
-    books = {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1}
+    books = {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1,
+             "crop_flip_draws": 1}
     sessions = []
     for _ in range(3):
         breakdown = profile_forward(
@@ -1357,7 +1411,7 @@ def phase_train(out):
                          "kernel_names": breakdown["kernel_names"]})
         if by_name == books or any(by_name[k] > v for k, v in books.items()):
             break
-    checks["profiled_20_conv_1_1_xent_per_step"] = by_name == books
+    checks["profiled_20_conv_1_1_xent_1_draw_per_step"] = by_name == books
     checks["no_stats_reduce_kernel"] = not any(
         "stats_reduce" in n for s in sessions for n in s["kernel_names"])
     out["train"] = {
@@ -1806,32 +1860,45 @@ def ddp_worker(spec_path: str) -> int:
     return 0
 
 
+def _start_ddp_ranks(world: int, backend, devices, profile: bool,
+                     wire: str | None = None) -> tuple:
+    """Start ``world`` ranks of `ddp_worker` as processes of this script,
+    rank r on ``devices[r]``, in a rendezvous directory of their own (so
+    several groups may run at once); `_ddp_ranks` collects them."""
+    import shutil
+
+    work = os.path.join(HERE, "build", "ddp_smoke",
+                        f"{os.getpid()}-{wire}-{world}-{backend}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    for rank in range(world):
+        spec = {"rank": rank, "world": world, "backend": backend,
+                "device": devices[rank], "profile": profile,
+                "wire": wire,
+                "init": "file://" + os.path.join(work, "rendezvous"),
+                "out": os.path.join(work, f"rank{rank}.pt")}
+        path = os.path.join(work, f"spec{rank}.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(spec, f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+             path], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return work, procs
+
+
 def _ddp_ranks(world: int, backend, devices, profile: bool,
-               wire: str | None = None) -> list:
-    """Run ``world`` ranks of `ddp_worker` as processes of this script,
-    rank r on ``devices[r]``; returns each rank's record."""
+               wire: str | None = None, started=None) -> list:
+    """Each rank's record of ``world`` ranks of `ddp_worker` (``started``:
+    `_start_ddp_ranks`' handle of the same ranks, else started here)."""
     import shutil
 
     import torch
 
-    work = os.path.join(HERE, "build", "ddp_smoke", str(os.getpid()))
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    procs = []
+    work, procs = started or _start_ddp_ranks(world, backend, devices,
+                                              profile, wire)
     try:
-        for rank in range(world):
-            spec = {"rank": rank, "world": world, "backend": backend,
-                    "device": devices[rank], "profile": profile,
-                    "wire": wire,
-                    "init": "file://" + os.path.join(work, "rendezvous"),
-                    "out": os.path.join(work, f"rank{rank}.pt")}
-            path = os.path.join(work, f"spec{rank}.json")
-            with open(path, "w", encoding="utf-8") as f:
-                json.dump(spec, f)
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--ddp-worker",
-                 path], cwd=HERE, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
         recs = []
         for rank, p in enumerate(procs):
             log, _ = p.communicate(timeout=600)
@@ -1849,7 +1916,8 @@ def _ddp_ranks(world: int, backend, devices, profile: bool,
 
 
 def _ddp_parity(out, key: str, world: int, backend, devices,
-                profile: bool = False, wire: str | None = None) -> dict:
+                profile: bool = False, wire: str | None = None,
+                started=None, ref=None) -> dict:
     """``world`` ranks against one process on the concatenated batch:
     per-step global loss within ``DDP_LOSS_TOL``, parameters and buffers
     bit-identical across the ranks, and each rank's books per step: 20
@@ -1860,8 +1928,8 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
     bucket."""
     import torch
 
-    ranks = _ddp_ranks(world, backend, devices, profile, wire)
-    ref = _ddp_train(None, world)
+    ranks = _ddp_ranks(world, backend, devices, profile, wire, started)
+    ref = ref or _ddp_train(None, world)
     diffs = [max(abs(a - b) for a, b in zip(r["losses"], ref["losses"]))
              for r in ranks]
     same = all(torch.equal(ranks[0]["state"][k], r["state"][k])
@@ -1927,11 +1995,30 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
 def phase_ddp_gloo_one_card(out):
     """7a: two ranks on the one card through gloo on CUDA tensors (NCCL
     refuses two ranks on one card). A correctness run: gloo copies every
-    all-reduce through the host, so its step time is no DDP figure."""
+    all-reduce through the host, so its step time is no DDP figure. Its
+    three pairs of ranks (DDP, sharded f32, sharded int8) run at once."""
     print("[ddp_gloo_one_card] backend gloo, asked for explicitly: two "
           "ranks share cuda:0")
-    _ddp_parity(out, "ddp_gloo_one_card", DDP_WORLD, "gloo",
-                ["cuda:0"] * DDP_WORLD)
+    cards = ["cuda:0"] * DDP_WORLD
+    started = {wire: _start_ddp_ranks(DDP_WORLD, "gloo", cards, False, wire)
+               for wire in (None, "", "int8")}
+    try:
+        _ddp_gloo_pairs(out, cards, started)
+    finally:
+        import shutil
+
+        for work, procs in started.values():  # a failed pair's partners
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def _ddp_gloo_pairs(out, cards, started) -> None:
+    ref = _ddp_train(None, DDP_WORLD)  # the three pairs' one yardstick
+    _ddp_parity(out, "ddp_gloo_one_card", DDP_WORLD, "gloo", cards,
+                started=started[None], ref=ref)
     # The sharded update on the same two ranks. gloo may not implement a
     # reduce-scatter or an all-to-all of CUDA tensors: then the run is
     # reported as not run, with gloo's error (nothing stages through the
@@ -1939,8 +2026,8 @@ def phase_ddp_gloo_one_card(out):
     for wire in ("", "int8"):
         key = f"ddp_gloo_one_card_sharded_{wire or 'f32'}"
         try:
-            _ddp_parity(out, key, DDP_WORLD, "gloo", ["cuda:0"] * DDP_WORLD,
-                        wire=wire)
+            _ddp_parity(out, key, DDP_WORLD, "gloo", cards, wire=wire,
+                        started=started[wire], ref=ref)
         except AssertionError as e:
             if "exited" not in str(e):
                 raise
@@ -2155,6 +2242,7 @@ def _fit_books(trainer) -> tuple[dict, dict]:
     captured window's books once per replay (`MultiStep`)."""
     import torch
 
+    from tpu_dp_torch.ops import augment as aug_ops
     from tpu_dp_torch.ops import conv_block as cb
     from tpu_dp_torch.ops import xent as tx
     from tpu_dp_torch.parallel import collectives
@@ -2162,6 +2250,7 @@ def _fit_books(trainer) -> tuple[dict, dict]:
 
     cb.reset_launches()
     tx.reset_launches()
+    aug_ops.reset_launches()
     collectives.reset_counts()
     result = trainer.fit()
     torch.cuda.synchronize()
@@ -2185,12 +2274,12 @@ def _per_update_ok(ran, updates, evals, accum=1, convs=10) -> bool:
     return all(ran[k] == v for k, v in want.items())
 
 
-def _profiled_books(fn, books, n=2):
+def _profiled_books(fn, books, n=2, tries=3):
     """Kernels by name per call of ``fn`` under the profiler (CUDA activity
-    alone), in up to three sessions while a count falls below ``books``
-    (the profiler loses records now and then, never adds them)."""
+    alone), in up to ``tries`` sessions while a count falls below
+    ``books`` (the profiler loses records now and then, never adds them)."""
     sessions = []
-    for _ in range(3):
+    for _ in range(tries):
         p = profile_forward(fn, n, cuda_only=True, keep_all=True)
         by_name = {k: sum(v["count_per_call"] for name, v in p["all"].items()
                           if k in name.lower()) for k in books}
@@ -2350,11 +2439,13 @@ def _win_args(updates, batch=TRAIN_B, k=1, extra=()):
             *extra]
 
 
-def _windows_vs_eager(out, args, k, updates, convs, where):
+def _windows_vs_eager(out, args, k, updates, convs, where, eager=None):
     """Phase 9's (a) and (c) for one model, cuDNN deterministic set by the
     caller: ``updates`` eager updates against windows of ``k`` from the
     same init (``args(n, k)``: the CLI arguments of ``n`` updates in
-    windows of ``k``; saves under ``where``): one eager warm-up window,
+    windows of ``k``; saves under ``where``; ``eager``: the eager run's
+    ``(trainer, fit result, books, flat state after the fit)`` when the
+    caller already ran it on ``args(updates, 1)``): one eager warm-up window,
     then one capture replayed; per-update losses, final state (parameters,
     BN statistics, momentum) and eval bit-identical, losses finite and
     falling, the books per update (``convs`` + ``convs`` conv, 1 + 1 xent)
@@ -2376,9 +2467,14 @@ def _windows_vs_eager(out, args, k, updates, convs, where):
         f"--train.ckpt_dir={os.path.join(where, 'win')}"]), device="cuda")
     res_w, ran_w = _fit_books(win)
     peak_w = torch.cuda.max_memory_allocated()
-    eager = Trainer(parse_cli(args(updates, 1) + [
-        f"--train.ckpt_dir={os.path.join(where, 'eager')}"]), device="cuda")
-    res_e, ran_e = _fit_books(eager)
+    if eager is None:
+        eager = Trainer(parse_cli(args(updates, 1) + [
+            f"--train.ckpt_dir={os.path.join(where, 'eager')}"]),
+            device="cuda")
+        res_e, ran_e = _fit_books(eager)
+        eager_state = _flat_state(eager)
+    else:
+        eager, res_e, ran_e, eager_state = eager
     ms = win.multi_step
     evals = len(win.test_pipe)
     losses = win.step_losses
@@ -2387,8 +2483,7 @@ def _windows_vs_eager(out, args, k, updates, convs, where):
         and ms.eager_windows == 1 and ms.replays == updates // k - 1,
         "losses_bit_identical": losses == eager.step_losses
         and len(losses) == updates,
-        "state_bit_identical": _same_state(_flat_state(win),
-                                           _flat_state(eager)),
+        "state_bit_identical": _same_state(_flat_state(win), eager_state),
         "eval_identical": res_w["eval"] == res_e["eval"],
         "losses_finite_and_fall": all(math.isfinite(v) for v in losses)
         and statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
@@ -2414,11 +2509,11 @@ def _windows_vs_eager(out, args, k, updates, convs, where):
         lambda: eager.train_step(eager.state, batch), 5, cuda_only=True)
     win_prof = sessions[-1]
     eager_ms = cuda_median_ms(
-        lambda: eager.train_step(eager.state, batch), reps=20)
+        lambda: eager.train_step(eager.state, batch), reps=10)
     win_ms = cuda_median_ms(lambda: win.multi_step(win.state, pool),
-                            reps=8) / k
+                            reps=4, warm=1) / k
     host = []
-    for _ in range(7):
+    for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         win.multi_step(win.state, pool)
@@ -2426,7 +2521,7 @@ def _windows_vs_eager(out, args, k, updates, convs, where):
     torch.cuda.synchronize()
     meters = {}
     for name, fn, n, imgs in (
-            ("eager", lambda: eager.train_step(eager.state, batch), 22,
+            ("eager", lambda: eager.train_step(eager.state, batch), 12,
              TRAIN_B),
             ("windowed", lambda: win.multi_step(win.state, pool), 5,
              k * TRAIN_B)):
@@ -3210,6 +3305,7 @@ def _sharded_fit(args, where, snapshot_at=6):
 
     t.train_step = step
     res, ran = _fit_books(t)
+    fit_state = _flat_state(t)
     # What this run added at its peak (earlier runs' trainers stay).
     peak = torch.cuda.max_memory_allocated() - before
     batch = next(iter(t.train_pipe))
@@ -3217,9 +3313,10 @@ def _sharded_fit(args, where, snapshot_at=6):
         lambda: real(t.state, batch),
         {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1})
     rec = {"t": t, "res": res, "ran": ran, "params6": snap,
-           "state": _flat_state(t), "profiled_ok": ok,
+           "fit_state": fit_state, "state": _flat_state(t),
+           "profiled_ok": ok,
            "profiled": sessions[-1], "peak_memory_bytes": peak,
-           "step_ms": cuda_median_ms(lambda: real(t.state, batch), reps=20)}
+           "step_ms": cuda_median_ms(lambda: real(t.state, batch), reps=10)}
     return rec
 
 
@@ -3242,10 +3339,14 @@ def phase_sharded(out):
         True, False)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_")
     try:
-        # (b, replicated) windows without a group: phase 9a's run.
-        _, rec["windows_replicated"] = _windows_vs_eager(
-            out, lambda n, kk: _win_args(n, k=kk), k, updates, 10,
-            os.path.join(tmp.name, "wr"))
+        # (b, replicated) windows without a group: phase 9a's run, reused
+        # when phase 9 ran in this call.
+        if "a" in out.get("windows", {}):
+            rec["windows_replicated"] = out["windows"]["a"]
+        else:
+            _, rec["windows_replicated"] = _windows_vs_eager(
+                out, lambda n, kk: _win_args(n, k=kk), k, updates, 10,
+                os.path.join(tmp.name, "wr"))
         with _nccl_world1_env(TORCH_NCCL_ASYNC_ERROR_HANDLING="0"):
             # (a) 30 updates per wire against the replicated (DDP) run.
             runs = {"replicated": _sharded_fit(
@@ -3329,19 +3430,20 @@ def phase_sharded(out):
                                        "residual_bytes_per_rank",
                                        "peak_memory_bytes")}
                  for n, v in a.items()}))
-            for r in runs.values():
-                if r["t"].multi_step is not None:
-                    r["t"].multi_step.close()
-            del runs, rep, f32
-            # (b) windows of 10 against eager, per wire.
+            del rep, f32
+            # (b) windows of 10 against eager, per wire: (a)'s 30 eager
+            # updates are the eager half (the same arguments).
             rec["b"] = {}
             for wire, mb in (("", 0.0), ("bf16", 0.0), ("int8", 0.0),
                              ("int8", 25.0)):
                 name = _wire_name(wire, mb)
                 extra = _sharded_args(wire, mb)
+                r = runs.pop((wire, mb))
                 w_checks, w_rec = _windows_vs_eager(
                     out, lambda n, kk, e=extra: _win_args(n, k=kk, extra=e),
-                    k, updates, 10, os.path.join(tmp.name, f"b_{name}"))
+                    k, TRAIN_STEPS, 10, os.path.join(tmp.name, f"b_{name}"),
+                    eager=(r["t"], r["res"], r["ran"], r["fit_state"]))
+                del r
                 checks.update({f"b_{name}_{n}": v
                                for n, v in w_checks.items()})
                 rec["b"][name] = {n: v for n, v in w_rec.items()
@@ -3351,6 +3453,7 @@ def phase_sharded(out):
                                            "windowed_ms_per_update",
                                            "images_per_s_meter",
                                            "capture_bytes")}))
+            del runs
             # (c) phase 8's interrupted and resumed run under int8 at 25 MB.
             ck_args = CKPT_ARGS + _sharded_args("int8", 25.0)
             cruns = {}
@@ -3560,7 +3663,7 @@ def phase_resident(out):
             turns = {}
             for name in ("streamed", "resident", "resident", "streamed"):
                 turns.setdefault(name, []).append(
-                    cuda_median_ms(calls[name], reps=6) / k)
+                    cuda_median_ms(calls[name], reps=3, warm=1) / k)
             host, feed_ms, busy = {}, {}, {}
             take = rw.train_pipe.sampler.shard_indices()[:k * TRAIN_B]
             place = {
@@ -3569,7 +3672,7 @@ def phase_resident(out):
                     take, None, (k, TRAIN_B))}
             for name, fn in calls.items():
                 ts = []
-                for _ in range(7):
+                for _ in range(3):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     fn()
@@ -4023,6 +4126,430 @@ def phase_presets(out):
         raise AssertionError(f"presets checks failed: {failed}")
 
 
+def _int_ops_of_draws(n: int) -> int:
+    """Integer operations of one draw call for ``n`` rows (counted from
+    the kernel's source, not measured): ten threefry2x32 blocks a row
+    (fold_in, two splits of two keys, the two randint words at two
+    columns, the flip), ~120 32-bit operations each (20 rounds of add,
+    rotate, xor, and the key schedule), plus ~30 for the span arithmetic
+    and the float compare."""
+    return n * (10 * 120 + 30)
+
+
+def _augment_kernel_cases(rec: dict, checks: dict) -> None:
+    """14 (a): the draw kernel against its plain version, bit for bit, at
+    the train step's 128 rows: 100 step keys x row offsets 0 and 128 of a
+    global 512 x accumulation keys ``step·2 + i`` (the plain version on
+    the card for the first 4 keys, on the CPU for the rest); inside a CUDA
+    graph over 3 replays with the step changed between them."""
+    import torch
+
+    from tpu_dp_torch.data import augment as aug
+    from tpu_dp_torch.ops import augment as aug_ops
+
+    seed, n = 1, TRAIN_B
+    step = torch.zeros((), dtype=torch.int64, device="cuda")
+    mismatches, worst = 0, 0
+    for s in range(100):
+        step.fill_(s)
+        for row0, a, i in ((0, 1, 0), (n, 1, 0), (0, 2, 0), (n, 2, 1)):
+            got = aug_ops.crop_flip_draws(step, n, seed, row0, 4 * n, a, i)
+            # The plain version's integer arithmetic is exact on either
+            # device: on the CPU for 96 of the keys (cheaper: a call is
+            # ~1,700 launches on the card), on the card for the first 4.
+            key = step * a + i if s < 4 else torch.tensor(s * a + i)
+            want = aug.crop_flip_draws(key, n, seed, row0, 4 * n)
+            diff = max(int((got[0].cpu() - want[0].cpu()).abs().max()),
+                       int((got[1].cpu().int() - want[1].cpu().int())
+                           .abs().max()))
+            mismatches += diff != 0
+            worst = max(worst, diff)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        aug_ops.crop_flip_draws(step, n, seed)
+        with torch.cuda.graph(graph, stream=stream):
+            captured = aug_ops.crop_flip_draws(step, n, seed)
+    replays_equal = True
+    for s in (7, 8, 9):
+        step.fill_(s)
+        graph.replay()
+        want = aug.crop_flip_draws(step, n, seed)
+        replays_equal &= (torch.equal(captured[0], want[0])
+                          and torch.equal(captured[1], want[1]))
+    graph.reset()
+    rec["augment"] = {"rows": n, "calls_compared": 400,
+                      "mismatching_calls": mismatches,
+                      "max_abs_err": float(worst),
+                      "graph_replays_equal": replays_equal}
+    checks.update({"a_kernel_equals_plain_400_calls": mismatches == 0,
+                   "a_kernel_equals_plain_under_3_replays": replays_equal})
+
+
+def _graph_launch_ms(fn, launches: int = 200) -> float:
+    """Device ms per call of ``fn`` from CUDA events around replays of one
+    CUDA graph of ``launches`` back-to-back calls: no host launch in the
+    way and no profiler record to lose; each call's share of the graph's
+    node-to-node gap is included."""
+    import torch
+
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(launches):
+                fn()
+    torch.cuda.synchronize()
+    ms = cuda_median_ms(graph.replay, reps=7, warm=2) / launches
+    graph.reset()
+    return ms
+
+
+def _augment_kernel_times(rec: dict) -> None:
+    """14 (a), timed on a quiet card: the draw kernel's device time beside
+    an empty kernel's (the launch floor), both per launch in a graph of
+    200 (and under the profiler, which loses records late in a long
+    call), the plain version's time and the bound."""
+    import torch
+
+    from tpu_dp_torch.data import augment as aug
+    from tpu_dp_torch.ops import augment as aug_ops
+
+    seed, n = 1, TRAIN_B
+    step = torch.full((), 3, dtype=torch.int64, device="cuda")
+    launch = (lambda: aug_ops.crop_flip_draws(step, n, seed))
+    floor = _launch_floor(n)
+    nbytes = 8 + n * (2 * 8 + 1)
+    bound_ms, bound_by = bound(nbytes, _int_ops_of_draws(n),
+                               PEAK_INT32_OPS)
+    rec["augment"] = with_ratios({
+        **rec["augment"], "ms": _graph_launch_ms(launch),
+        "floor_ms": _graph_launch_ms(floor),
+        "profiler_ms": device_ms(launch), "profiler_floor_ms":
+            device_ms(floor),
+        "plain_ms": cuda_median_ms(
+            lambda: aug.crop_flip_draws(step, n, seed), reps=10),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "int_ops": _int_ops_of_draws(n), "library_ms": None,
+        "wrapper_host_us": _host_us(launch)})
+    print("[resilience] (a) " + json.dumps(rec["augment"]))
+
+
+#: the flag-setting CLI with cuDNN deterministic (the resume checks are
+#: bit for bit, and the CLI leaves cuDNN's choice to it).
+_CLI_DETERMINISTIC = (
+    "import runpy, sys, torch; "
+    "torch.backends.cudnn.deterministic = True; "
+    "torch.backends.cudnn.benchmark = False; "
+    "sys.argv = ['tpu_dp_torch.train'] + sys.argv[1:]; "
+    "runpy.run_module('tpu_dp_torch.train', run_name='__main__')")
+
+
+def _train_cli(args):
+    """``python -m tpu_dp_torch.train`` on ``args`` (cuDNN deterministic)
+    as a subprocess on the card."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("TPU_DP_FAULT", None)
+    return subprocess.Popen(
+        [sys.executable, "-c", _CLI_DETERMINISTIC, *args], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _sigterm_at(proc, path, timeout_s=600.0):
+    """A thread that sends ``proc`` a SIGTERM once ``path`` exists (or it
+    ended, or the timeout passed); returns the started thread."""
+    import signal
+    import threading
+
+    def watch():
+        deadline = time.monotonic() + timeout_s
+        while (time.monotonic() < deadline and proc.poll() is None
+               and not os.path.exists(path)):
+            time.sleep(0.02)
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+
+    t = threading.Thread(target=watch, daemon=True)
+    t.start()
+    return t
+
+
+def _resil_args(where, *extra):
+    return RESIL_ARGS + [f"--train.ckpt_dir={where}", *extra]
+
+
+def _resumed_ok(resumed, full: tuple, start_step) -> dict:
+    """The resumed run against the uninterrupted one's ``(losses, flat
+    state)`` right after its fit: its start, its losses (the tail from
+    ``start_step``) and its final state."""
+    losses, state = full
+    return {"start": resumed.start_epoch * RESIL_SPE + resumed.start_step
+            == start_step,
+            "losses_bit_identical":
+                resumed.step_losses == losses[start_step:],
+            "state_bit_identical": _same_state(_flat_state(resumed), state)}
+
+
+def _fit_resumed(where, *extra):
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.train.trainer import Trainer
+
+    t = Trainer(parse_cli(_resil_args(where, "--resume", *extra)))
+    start = t.state.step
+    res = t.fit()
+    return t, res, start
+
+
+def _window_ms(t) -> float:
+    """CUDA-event ms per update of one resident window of ``t``."""
+    it = t.train_pipe.index_windows(RESIL_K)
+    try:
+        _, idx = next(it)
+    finally:
+        it.close()
+    table = t.resident_train
+    return cuda_median_ms(lambda: t.multi_step(t.state, table, idx),
+                          reps=8) / RESIL_K
+
+
+def _epoch_ms(t) -> float:
+    """Host ms per update of one more epoch of ``t`` (fenced)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train_epoch(0)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / RESIL_SPE
+
+
+def _preempted_in_process(args) -> bool:
+    """Fit a `Trainer` on ``args`` (a ``preempt:`` fault): True when it
+    raised `PreemptedError`."""
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.resilience import PreemptedError
+    from tpu_dp_torch.train.trainer import Trainer
+
+    t = Trainer(parse_cli(args))
+    try:
+        t.fit()
+        return False
+    except PreemptedError:
+        return True
+    finally:
+        t.multi_step.close()
+
+
+def phase_resilience(out):
+    """14: the main path's resilience defaults on the card (see the module
+    docstring): (a) the draw kernel, (b) the main path with its books and
+    the windowed update with augmentation on and off, (c) preempt and
+    resume (a real SIGTERM to a CLI subprocess, ``preempt:step=K`` in
+    process, ``kill:step=K`` in a subprocess), each resumed bit-identical,
+    with the cadence's cost, (d) the sharded update at NCCL world 1. The
+    two CLI subprocesses run beside the in-process work; every timing is
+    taken after they ended."""
+    import torch
+
+    from tpu_dp_torch.checkpoint import read_meta
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.obs import flightrec
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.train.trainer import Trainer
+
+    checks, rec = {}, {"card": out["card"], "k": RESIL_K}
+    out["resilience"] = rec  # filled in place: kept when a check fails
+    rec["checks"] = checks
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_resilience_")
+    where = lambda name: os.path.join(tmp.name, name)  # noqa: E731
+    every = f"--resilience.snapshot_every_steps={RESIL_EVERY}"
+    procs = []
+    try:
+        # (c) a real SIGTERM mid-epoch to a CLI subprocess: a delay fault
+        # parks it at the boundary of its step-20 snapshot, a watcher
+        # signals it there, it exits 143 at that boundary; and a
+        # kill:step=11 subprocess (the boundary at 20, after that
+        # boundary's snapshot was handed to the writer): exit 137.
+        sig_dir, kill_dir = where("sigterm"), where("kill")
+        t0 = time.perf_counter()
+        sig = _train_cli(_resil_args(
+            sig_dir, every, "--resilience.fault=delay:step=20,ms=2000"))
+        procs.append(sig)
+        watcher = _sigterm_at(sig, os.path.join(
+            sig_dir, "snapshots", "step_0000000020", "meta.json"))
+        kill = _train_cli(_resil_args(kill_dir, every,
+                                      "--resilience.fault=kill:step=11"))
+        procs.append(kill)
+        _augment_kernel_cases(rec, checks)
+        # (b) the uninterrupted run (augmentation on, no cadence): the main
+        # path, its books read right after the fit.
+        full = Trainer(parse_cli(_resil_args(where("full"))))
+        res_full, ran = _fit_books(full)
+        # Its trajectory, before the timing below trains it further.
+        ref = (list(full.step_losses), _flat_state(full))
+        updates = RESIL_EPOCHS * RESIL_SPE
+        rec["launches"] = ran
+        rec["eval"] = res_full["eval"]
+        checks.update({
+            "b_resident_windows": full.multi_step is not None
+            and full.resident_train is not None,
+            "b_losses_finite": all(math.isfinite(v)
+                                   for v in full.step_losses),
+            "b_books_per_update": _per_update_ok(ran, updates,
+                                                 len(full.test_pipe)),
+            "b_augment_1_launch_per_update": ran["augment"] == updates})
+        # The same books by kernel name per replay, recorded, not checked:
+        # late in a full call the profiler has read 19 of a replay pair's
+        # 20 draw records in every session (the counters above, the
+        # bit-identical resumes and phase 6's by-name books, which check
+        # the draw kernel, are what prove the launches).
+        it = full.train_pipe.index_windows(RESIL_K)
+        _, idx = next(it)
+        it.close()
+        table = full.resident_train
+        ok, sessions = _profiled_books(
+            lambda: full.multi_step(full.state, table, idx),
+            {"conv_block_kernel": 20 * RESIL_K, "xent_fwd": RESIL_K,
+             "xent_bwd": RESIL_K, "crop_flip_draws": RESIL_K})
+        rec["profiled_per_replay"] = {"matches_books": ok,
+                                      "sessions": sessions}
+        # preempt:step=15 in process (SIGTERM to self; the boundary at 20),
+        # resumed with the cadence on (timed below).
+        pre_dir = where("preempt")
+        checks["c_preempt_step_raised"] = _preempted_in_process(
+            _resil_args(pre_dir, every, "--resilience.fault=preempt:step=15"))
+        resumed_p, _, start_p = _fit_resumed(pre_dir, every)
+        checks["c_preempt_step_resumed_at_20"] = start_p == 20
+        checks.update({f"c_preempt_step_resumed_{k}": v for k, v in
+                       _resumed_ok(resumed_p, ref, 20).items()})
+        # (d) the sharded update at NCCL world 1: one snapshot (the final
+        # one of preempt:step=15) and its resume against the run without.
+        shard = ["--train.update_sharding=sharded", "--train.epochs=1"]
+        with _nccl_world1_env(TORCH_NCCL_ASYNC_ERROR_HANDLING="0"):
+            sfull = Trainer(parse_cli(_resil_args(where("s_full"), *shard)))
+            sfull.fit()
+            s_preempted = _preempted_in_process(_resil_args(
+                where("s_run"), *shard, "--resilience.fault=preempt:step=15"))
+            snaps = sorted(os.listdir(where("s_run/snapshots")))
+            sres, _, s_start = _fit_resumed(where("s_run"), *shard)
+            checks.update({
+                "d_nccl_world_1_sharded": (sres.ctx.backend, sres.ctx.world,
+                                           sres.sharded) == ("nccl", 1,
+                                                             True),
+                "d_preempted_one_snapshot": s_preempted
+                and snaps == ["latest", "step_0000000020"],
+                "d_resumed_at_20": s_start == 20})
+            checks.update({f"d_resumed_{k}": v for k, v in _resumed_ok(
+                sres, (sfull.step_losses, _flat_state(sfull)), 20).items()})
+            for t in (sres, sfull):
+                t.multi_step.close()
+            del sres, sfull
+        # The augmentation-off twin of the main path (timed below).
+        off = Trainer(parse_cli(_resil_args(where("off"),
+                                            "--data.augment=false",
+                                            "--train.epochs=1")))
+        off.fit()
+        # The subprocesses' results, and their resumes in process.
+        log, _ = sig.communicate(timeout=600)
+        watcher.join(timeout=60)
+        klog, _ = kill.communicate(timeout=600)
+        rec["subprocesses_wall_s"] = time.perf_counter() - t0
+        dump_path = os.path.join(sig_dir, "obs", "flightrec_r00000.json")
+        dump = (flightrec.read_dump(dump_path)
+                if os.path.exists(dump_path) else {"events": [],
+                                                   "reason": ""})
+        kinds = [e["kind"] for e in dump["events"]]
+        snap20 = os.path.join(sig_dir, "snapshots", "step_0000000020")
+        meta = read_meta(snap20) if os.path.exists(snap20) else {}
+        checks.update({
+            "c_sigterm_exit_143": sig.returncode == 143,
+            "c_sigterm_prints_preempted": "preempted: preempted at epoch 0"
+            in log,
+            "c_sigterm_snapshot_committed": meta.get("kind") == "snapshot"
+            and meta.get("steps_done") == 20,
+            "c_sigterm_flightrec": "PreemptedError" in dump["reason"]
+            and "preempt_signal" in kinds and "preempt_exit" in kinds
+            and kinds[-1:] == ["exit"]})
+        resumed, res, _ = _fit_resumed(sig_dir)
+        checks.update({f"c_sigterm_resumed_{k}": v for k, v in
+                       _resumed_ok(resumed, ref, 20).items()})
+        checks["c_sigterm_resumed_eval"] = res["eval"] == res_full["eval"]
+        rec["sigterm"] = {"rc": sig.returncode, "flightrec_kinds": kinds,
+                          "log_tail": log[-1500:],
+                          "resumed_from": resumed.resumed_from}
+        resumed.multi_step.close()
+        del resumed
+        resumed_k, _, start_k = _fit_resumed(kill_dir)
+        checks.update({"c_kill_exit_137": kill.returncode == 137,
+                       "c_kill_resumed_from_snapshot": start_k in (10, 20)
+                       and "snapshots" in str(resumed_k.resumed_from)})
+        checks.update({f"c_kill_resumed_{k}": v for k, v in
+                       _resumed_ok(resumed_k, ref, start_k).items()})
+        rec["kill"] = {"rc": kill.returncode, "resumed_at": start_k,
+                       "log_tail": klog[-800:]}
+        resumed_k.multi_step.close()
+        del resumed_k
+        # Timed on a quiet card. (a) The kernel; (b) the main path's books
+        # per replay by kernel name, and the windowed update with
+        # augmentation on and off, in turns.
+        _augment_kernel_times(rec)
+        on_ms, off_ms = [], []
+        for t, acc in ((full, on_ms), (off, off_ms), (off, off_ms),
+                       (full, on_ms)):
+            acc.append(_window_ms(t))
+        rec["windowed_ms_per_update"] = {"augment_on": on_ms,
+                                         "augment_off": off_ms}
+        off.multi_step.close()
+        del off
+        # (c) the cadence's cost: the snapshot's blocking ms (the copy's
+        # enqueue and the handoff, which joins the previous write) and the
+        # ms per update of an epoch with and without it, in turns.
+        w0, s0 = counters.get("snapshot.writes"), counters.get(
+            "snapshot.write_s")
+        cad, plain = [], []
+        for t, acc in ((full, plain), (resumed_p, cad), (resumed_p, cad),
+                       (full, plain)):
+            acc.append(_epoch_ms(t))
+        resumed_p.snap_mgr.wait()
+        w1, s1 = counters.get("snapshot.writes"), counters.get(
+            "snapshot.write_s")
+        rec["cadence"] = {
+            "every": RESIL_EVERY, "epoch_ms_per_update_with": cad,
+            "epoch_ms_per_update_without": plain,
+            "snapshots_timed": w1 - w0,
+            "blocking_ms_mean": 1e3 * (s1 - s0) / max(1.0, w1 - w0),
+            "last_blocking_ms": resumed_p.snap_mgr.last_blocking_ms,
+            "snapshot_bytes": sum(v.nbytes for v in _flat_state(
+                resumed_p).values())}
+        checks["c_cadence_snapshots_taken"] = w1 - w0 == 2 * (
+            RESIL_SPE // RESIL_EVERY)
+        print(f"[resilience] (c) {out['card']}: cadence every "
+              f"{RESIL_EVERY}: " + json.dumps(rec["cadence"]))
+        for t in (resumed_p, full):
+            t.multi_step.close()
+        del resumed_p, full
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+        tmp.cleanup()
+    a = rec["augment"]
+    print(f"[resilience] {out['card']}: draw kernel {1e3 * a['ms']:.2f} us "
+          f"(launch floor {1e3 * a['floor_ms']:.2f} us, plain "
+          f"{a['plain_ms']:.3f} ms); windowed ms per update on/off "
+          f"{rec['windowed_ms_per_update']}; snapshot blocking "
+          f"{rec['cadence']['blocking_ms_mean']:.3f} ms; subprocesses "
+          f"{rec['subprocesses_wall_s']:.1f} s")
+    failed = [n for n, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"resilience checks failed: {failed}")
+
+
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     """One kernels-line entry whose times sum ``recs`` (one per launch of
     a step or forward)."""
@@ -4156,6 +4683,21 @@ def kernels_line(out):
             "plain_ms": x[f"{d}_plain_ms"], "bound_ms": x[f"{d}_bound_ms"],
             "bound_by": x[f"{d}_bound_by"],
             "library_ms": x[f"{d}_library_ms"], "floor_ms": x["floor_ms"]}))
+    # The crop/flip draws (phase 14): the kernel that replaces the JAX
+    # package's jax.random XLA ops, not a TPU kernel; its launches are the
+    # resilience path's uninterrupted run (one per update, on the
+    # captured windows).
+    r = out["resilience"]
+    a = r["augment"]
+    entries.append(with_ratios({
+        "name": "augment.crop_flip_draws (jax.random's crop and flip draws)",
+        "route": "cuda", "source": src + "augment.cu",
+        "replaces": "tpu_dp/data/augment.py:30-36",
+        "launches": r["launches"]["augment"],
+        "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+        "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"], "library_ms": None,
+        "floor_ms": a["floor_ms"]}))
     return {"kernels": entries}
 
 
@@ -4163,7 +4705,8 @@ PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
           phase_serve, phase_train, phase_checkpoint, phase_ddp_gloo_one_card,
           phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows,
           phase_resnet50_kernels, phase_resnet50, phase_resnet50_windows,
-          phase_resnet50_ddp, phase_sharded, phase_resident, phase_presets)
+          phase_resnet50_ddp, phase_sharded, phase_resident, phase_presets,
+          phase_resilience)
 
 
 def main(argv=None) -> int:

@@ -397,11 +397,15 @@ _RESNET = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
 
 def test_only_rank_zero_writes(tmp_path):
     ck0, ck1 = tmp_path / "r0", tmp_path / "r1"
+    # Each rank's flight-recorder dump goes to the shared obs.run_dir.
     spec = {"job": "trainer", "args": _NET + [
-        "--train.epochs=1", "--data.batch_size=2", f"--train.ckpt_dir={ck0}"],
+        "--train.epochs=1", "--data.batch_size=2", f"--train.ckpt_dir={ck0}",
+        f"--obs.run_dir={tmp_path / 'obs'}"],
         "rank_args": {"1": [f"--train.ckpt_dir={ck1}"]}}
     outs = run_worker_ranks(tmp_path / "ranks", spec, 2)
     assert not ck1.exists()
+    assert sorted(p.name for p in (tmp_path / "obs").iterdir()) == [
+        "flightrec_r00000.json", "flightrec_r00001.json"]
     assert (ck0 / "final_params.msgpack").exists()
     raw, meta = ck.read_checkpoint(ck0 / "step_0000000006")
     assert meta["epoch"] == 0 and meta["config"]["model"]["name"] == "net"

@@ -184,15 +184,17 @@ def test_windows_need_drop_remainder():
 
 def test_device_keyed_augmentation_replays_and_varies():
     images = torch.rand(64, 8, 8, 3) * 2 - 1
-    aug = make_augment_fn(seed=3, rank=0)
+    aug = make_augment_fn(seed=3, row0=0, global_n=128)
     key = torch.tensor(7)
     out = aug(key, images)
     # The same key on the device replays the draws; an int key is the same.
     assert torch.equal(out, aug(torch.tensor(7), images))
     assert torch.equal(out, aug(7, images))
     assert not torch.equal(out, aug(8, images))
-    assert not torch.equal(out, make_augment_fn(seed=3, rank=1)(7, images))
-    assert not torch.equal(out, make_augment_fn(seed=4, rank=0)(7, images))
+    assert not torch.equal(out, make_augment_fn(seed=3, row0=64,
+                                                global_n=128)(7, images))
+    assert not torch.equal(out, make_augment_fn(seed=4, row0=0,
+                                                global_n=128)(7, images))
     # Rows of one step differ from each other (not one crop for all).
     assert len({tuple(out[i].flatten()[:40].tolist())
                 for i in range(64)}) > 32

@@ -15,12 +15,9 @@ feed and against the JAX package's resident feed.
   ranks against each other. On the CPU both feeds run the same update body
   on the same uint8 batches, so nothing but equality is allowed.
 - The port's resident `Trainer` tracks the JAX package's resident
-  `Trainer` (windows of 4, shuffled) within 1e-4 per update loss
-  (tests/test_torch_net.py's bound for the two Trainers). Augmentation is
-  off there: the port's crop and flip draws are not `jax.random`'s bits
-  (`tpu_dp_torch/data/augment.py`), so the two packages would train on
-  different crops; augmented runs are held resident against streamed
-  instead.
+  `Trainer` (windows of 4, shuffled, augmentation on: the port's crop and
+  flip draws are `jax.random`'s bits) within 1e-4 per update loss
+  (tests/test_torch_net.py's bound for the two Trainers).
 - Two gloo ranks on the resident feed against one process on the
   concatenated batch: per update loss within 1e-5 (the same mean summed
   in another order; `Net` has no BatchNorm).
@@ -266,12 +263,14 @@ def test_mid_epoch_resume_from_a_resident_run_is_bit_identical(tmp_path):
 @pytest.fixture(scope="module")
 def jax_resident_run(tmp_path_factory):
     """The JAX package's `Trainer` on the reference preset with the
-    resident feed forced on, windows of 4 (12 updates, shuffled): its
+    resident feed forced on, windows of 4 (12 updates, shuffled,
+    augmentation on): its
     per-update losses, and its init saved for the port to resume from
     (meta epoch -1: a resume starts at epoch 0)."""
     tmp = tmp_path_factory.mktemp("jax_resident")
     cfg = jax_config.parse_cli(_NET + [
         "--data.device_resident=on", "--train.steps_per_call=4",
+        "--data.augment=true",
         f"--train.ckpt_dir={tmp / 'run'}",
         "--resilience.handle_signals=false"])
     trainer = JaxTrainer(cfg, mesh=jax_dist.data_mesh(num_devices=1))
@@ -303,7 +302,8 @@ def test_resident_trainer_tracks_the_jax_resident_trainer(
     ckpt = tmp_path / "ck"
     shutil.copytree(init, ckpt)
     out = run_trainer(_NET + [
-        "--data.device_resident=on", "--resume", f"--train.ckpt_dir={ckpt}",
+        "--data.device_resident=on", "--data.augment=true", "--resume",
+        f"--train.ckpt_dir={ckpt}",
         f"--train.steps_per_call={steps_per_call}"])
     assert out["start"] == (0, 0) and len(out["losses"]) == 12
     diffs = [abs(a - b) for a, b in zip(out["losses"], losses)]

@@ -54,9 +54,12 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
     ``snapshot`` a snapshot-kind save of that position (the JAX package's
     meta keys) goes to the trainer's snapshot root. Returns the state right
     after construction (after any resume), the start position, the
-    per-step losses, the final state and the eval."""
+    per-step losses, the final state and the eval. A run that ends in
+    `PreemptedError` (``resilience.fault=preempt:...``) returns with
+    ``preempted`` set to its message."""
     from tpu_dp_torch.checkpoint import CheckpointManager
     from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.resilience import PreemptedError
     from tpu_dp_torch.train.trainer import Trainer
 
     cfg = parse_cli(args)
@@ -77,8 +80,11 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
 
         trainer.train_step = step
     result = None
+    out["preempted"] = None
     try:
         result = trainer.fit()
+    except PreemptedError as e:
+        out["preempted"] = str(e)
     except _Stop:
         trainer.ckpt_mgr.wait()
         if snapshot:

@@ -43,8 +43,14 @@ elements kept, the padding zero), residuals bitwise when the layout
 matches and otherwise resharded preserving their sum over ranks on rank
 0's row; a save without residuals gives zeros.
 
-The IO-retry budget and the storage-fault shim of the JAX package's
-resilience section are not ported yet (ROADMAP Queue 1 item 9).
+Every write (the payload and meta, the ``latest`` pointer, the params
+export) retries transient ``OSError`` on the unified IO budget
+(``resilience.io_retry_s``: `resilience.retry.io_retry_params`), and the
+storage-fault shim's seams sit where the JAX package has them: ``on_write``
+inside the retried block (an injected EIO is retried like a real one),
+``post_commit`` after the final rename (``torn``/``bitrot`` corrupt a
+committed save). A write that still fails raises to the caller's degrade
+policy (the Trainer counts ``ckpt.write_errors`` and trains on).
 """
 
 from __future__ import annotations
@@ -139,11 +145,12 @@ def _sharded(opt) -> bool:
     return getattr(opt, "is_sharded_update", False)
 
 
-def state_dict_of(state) -> dict[str, Any]:
-    """The flax state dict of the JAX ``TrainState`` equal to the port's
-    `TrainState` ``state``: host numpy copies, taken now. The layout
-    changes run on the state's device, and the host gets one copy. A
-    sharded optimizer's shards are gathered first (a collective)."""
+def state_leaves(state) -> list[tuple[str, tuple, torch.Tensor]]:
+    """``(collection, path, tensor)`` of every leaf of the JAX
+    ``TrainState`` but the step, in the order `tree_of` nests them: the
+    model's variables, then the momentum (replicated: one buffer per
+    parameter, zeros where there is none; sharded: the gathered global
+    arrays and residuals, a collective every rank joins)."""
     model, opt = state.model, state.optimizer
     leaves = jax_leaves(model.state_dict())
     if _sharded(opt):
@@ -158,16 +165,31 @@ def state_dict_of(state) -> dict[str, Any]:
             bufs[name] = torch.zeros_like(p) if buf is None else buf
         leaves += [("opt_state", path, t)
                    for _, path, t in jax_leaves(bufs)]
-    step = int(state.step)
+    return leaves
+
+
+def tree_of(step: int, leaves, arrays) -> dict[str, Any]:
+    """The flax state dict of the JAX ``TrainState``: ``step`` and the host
+    ``arrays`` of `state_leaves`' ``leaves``, nested."""
+    step = int(step)
     if not 0 <= step < 2**31:
         raise ValueError(f"step {step} does not fit the int32 step leaf")
     tree: dict[str, Any] = {"step": np.asarray(step, np.int32), "params": {},
                             "opt_state": {}, "batch_stats": {},
                             "residuals": {}}
-    for (collection, path, _), a in zip(
-            leaves, _host_copy([t for _, _, t in leaves])):
+    for (collection, path, _), a in zip(leaves, arrays):
         nest(tree[collection], path, a)
     return tree
+
+
+def state_dict_of(state) -> dict[str, Any]:
+    """The flax state dict of the JAX ``TrainState`` equal to the port's
+    `TrainState` ``state``: host numpy copies, taken now. The layout
+    changes run on the state's device, and the host gets one copy. A
+    sharded optimizer's shards are gathered first (a collective)."""
+    leaves = state_leaves(state)
+    return tree_of(state.step, leaves,
+                   _host_copy([t for _, _, t in leaves]))
 
 
 def _relayout_opt_leaf(saved, like_shape: tuple, where: str) -> np.ndarray:
@@ -413,22 +435,53 @@ def verify_payload(payload: bytes, meta: dict[str, Any],
 # -- writing ---------------------------------------------------------------
 
 
+def _chaos_shim():
+    """The storage-fault shim, iff armed (`faultinject.storage_shim`,
+    imported at call time: the resilience package imports this module)."""
+    from tpu_dp_torch.resilience.faultinject import storage_shim
+
+    return storage_shim()
+
+
+def _io_retry(fn, describe: str):
+    """Run one write under the unified IO retry budget
+    (``resilience.io_retry_s``): a transient EIO is a retry, not a lost
+    save. Exhaustion re-raises the last OSError."""
+    from tpu_dp_torch.resilience.retry import io_retry_params, retry_call
+
+    retries, base_delay = io_retry_params()
+    return retry_call(fn, retries=retries, base_delay=base_delay,
+                      retry_on=(OSError,), jitter=0.5, describe=describe)
+
+
 def _atomic_write_state(ckpt_dir: Path, tree, meta: dict[str, Any] | None
                         ) -> Path:
     """tmp + rename for the payload, then for the meta (stamped with the
-    schema and the integrity block); clears a stale quarantine marker.
-    (The JAX package retries this block on its IO budget: not ported.)"""
+    schema and the integrity block), retried on the IO budget with the
+    shim's ``on_write`` seam inside and its ``post_commit`` seam after;
+    clears a stale quarantine marker."""
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     payload = serialization.to_bytes(tree)
     meta_out = dict(meta or {})
     meta_out["schema"] = CKPT_SCHEMA
     meta_out["integrity"] = _integrity_manifest(payload, tree)
-    tmp = ckpt_dir / (_CKPT_NAME + ".tmp")
-    tmp.write_bytes(payload)
-    os.replace(tmp, ckpt_dir / _CKPT_NAME)
-    meta_tmp = ckpt_dir / (_META_NAME + ".tmp")
-    meta_tmp.write_text(json.dumps(meta_out, indent=2, default=str))
-    os.replace(meta_tmp, ckpt_dir / _META_NAME)
+    meta_text = json.dumps(meta_out, indent=2, default=str)
+
+    def _write():
+        shim = _chaos_shim()
+        if shim is not None:
+            shim.on_write(ckpt_dir / _CKPT_NAME)
+        tmp = ckpt_dir / (_CKPT_NAME + ".tmp")
+        tmp.write_bytes(payload)
+        os.replace(tmp, ckpt_dir / _CKPT_NAME)
+        meta_tmp = ckpt_dir / (_META_NAME + ".tmp")
+        meta_tmp.write_text(meta_text)
+        os.replace(meta_tmp, ckpt_dir / _META_NAME)
+
+    _io_retry(_write, describe=f"checkpoint write {ckpt_dir.name}")
+    shim = _chaos_shim()
+    if shim is not None:
+        shim.post_commit(ckpt_dir)
     try:
         (ckpt_dir / QUARANTINED_MARKER).unlink()
     except FileNotFoundError:
@@ -523,12 +576,17 @@ class CheckpointManager:
                 f"async checkpoint write to {self.ckpt_dir} failed") from err
 
     def save(self, state, meta: dict[str, Any] | None = None,
-             step: int | None = None) -> Path | None:
+             step: int | None = None, host_tree=None,
+             ready=None) -> Path | None:
         """Checkpoint ``state`` under ``step_<n>`` (n defaults to
         ``state.step``); returns the payload path on rank 0. A sharded
-        state's snapshot is a collective: every rank calls this."""
+        state's snapshot is a collective: every rank calls this.
+        ``host_tree`` hands over a host copy already taken (the snapshot
+        manager's reusable buffers; untouched until the next save or
+        wait), and ``ready`` a CUDA event the writer waits on before it
+        encodes (the copy into that tree was enqueued, not finished)."""
         if process_index() != 0:
-            if _sharded(state.optimizer):
+            if host_tree is None and _sharded(state.optimizer):
                 state.optimizer.gather_state()
             return None
         t0 = time.perf_counter()
@@ -536,18 +594,28 @@ class CheckpointManager:
         t1 = time.perf_counter()
         n = int(state.step) if step is None else int(step)
         step_dir = self.ckpt_dir / f"step_{n:010d}"
-        tree = state_dict_of(state)  # the snapshot, now
+        tree = state_dict_of(state) if host_tree is None else host_tree
         record = self.last_save = {
             "wait_ms": 1e3 * (t1 - t0),
             "snapshot_ms": 1e3 * (time.perf_counter() - t1)}
 
         def _write():
             t = time.perf_counter()
+            if ready is not None:
+                ready.synchronize()
             path = _atomic_write_state(step_dir, tree, meta)
             record["payload_bytes"] = path.stat().st_size
-            ptr_tmp = self.ckpt_dir / "latest.tmp"
-            ptr_tmp.write_text(step_dir.name)
-            os.replace(ptr_tmp, self.ckpt_dir / "latest")
+
+            # The pointer flip is the save's commit: same retry and seam.
+            def _publish():
+                shim = _chaos_shim()
+                if shim is not None:
+                    shim.on_write(self.ckpt_dir / "latest")
+                ptr_tmp = self.ckpt_dir / "latest.tmp"
+                ptr_tmp.write_text(step_dir.name)
+                os.replace(ptr_tmp, self.ckpt_dir / "latest")
+
+            _io_retry(_publish, describe=f"publish latest={step_dir.name}")
             if self.keep > 0:
                 for old in self.step_dirs()[: -self.keep]:
                     if old != step_dir:
@@ -568,6 +636,10 @@ class CheckpointManager:
             _write()
         record["blocking_ms"] = 1e3 * (time.perf_counter() - t0)
         return step_dir / _CKPT_NAME
+
+    def close(self) -> None:
+        """Join the in-flight write (re-raising its failure)."""
+        self.wait()
 
     def complete_dirs(self) -> list[Path]:
         """Every step dir holding a complete save, oldest first."""
@@ -632,7 +704,15 @@ def save_params(path: str | os.PathLike, params) -> Path | None:
         return None
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(serialization.to_bytes(params))
+    payload = serialization.to_bytes(params)
+
+    def _write():
+        shim = _chaos_shim()
+        if shim is not None:
+            shim.on_write(path)
+        path.write_bytes(payload)
+
+    _io_retry(_write, describe=f"export params {path.name}")
     return path
 
 

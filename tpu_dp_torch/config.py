@@ -122,12 +122,45 @@ class ParallelConfig:
 
 
 @dataclass
+class ResilienceConfig:
+    """The resilience fields the port runs (`tpu_dp_torch.resilience`);
+    the elastic ones are refused (`NOT_PORTED`)."""
+
+    # Snapshot cadence in optimizer steps; 0 = off (the epoch checkpoint
+    # still runs, and a preemption's final snapshot still lands).
+    snapshot_every_steps: int = 0
+    snapshot_keep: int = 2  # retained step snapshots
+    snapshot_dir: str = ""  # "" = <train.ckpt_dir>/snapshots
+    # SIGTERM/SIGINT → final snapshot → barrier → exit 143 during fit().
+    handle_signals: bool = True
+    # Bounded exponential backoff of the preemption barrier.
+    max_retries: int = 2
+    retry_base_delay_s: float = 0.05
+    # Deterministic fault injection (tests only), e.g. "kill:step=13" or
+    # a ';'-composed schedule (`resilience.faultinject`).
+    fault: str = ""
+    # Total backoff budget (s) of every checkpoint and snapshot write.
+    io_retry_s: float = 3.1
+
+
+@dataclass
+class ObsConfig:
+    """The telemetry fields the port runs: the flight recorder's."""
+
+    run_dir: str = ""  # "" = <train.ckpt_dir>/obs (flightrec_r<rank>.json)
+    # Ring size of the always-on flight recorder; 0 disables it.
+    flightrec_capacity: int = 2048
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def override(self, dotted: str, value: str) -> None:
         """Apply one ``section.field=value`` override, coercing to the
@@ -139,13 +172,14 @@ class Config:
         if section_name in NOT_PORTED_SECTIONS:
             raise NotPortedError(
                 f"--{dotted}: the {section_name!r} section is not ported to "
-                f"tpu_dp_torch yet (ROADMAP.md)")
+                f"tpu_dp_torch yet ({_roadmap(dotted)})")
         if dotted in NOT_PORTED:
             default = NOT_PORTED[dotted]
             if _coerce(value, default) != default:
                 raise NotPortedError(
                     f"--{dotted}={value}: not ported to tpu_dp_torch yet "
-                    f"(only the default {default!r} runs; ROADMAP.md)")
+                    f"(only the default {default!r} runs; "
+                    f"{_roadmap(dotted)})")
             return
         if section_name not in _SECTIONS:
             raise ValueError(f"unknown config section {section_name!r}")
@@ -202,34 +236,17 @@ class Config:
         return cfg
 
 
-_SECTIONS = ("model", "data", "optim", "train", "parallel")
+_SECTIONS = ("model", "data", "optim", "train", "parallel", "resilience",
+             "obs")
 
 #: Sections of the JAX package's config the trainer does not read yet,
 #: with the JAX package's defaults (a meta.json carries them).
 NOT_PORTED_SECTIONS: dict[str, dict[str, Any]] = {
-    "resilience": {
-        "snapshot_every_steps": 0, "snapshot_keep": 2, "snapshot_dir": "",
-        "handle_signals": True, "max_retries": 2, "retry_base_delay_s": 0.05,
-        "fault": "", "io_retry_s": 3.1, "elastic": False,
-        "membership_dir": "", "regroup_timeout_s": 60.0,
-        "elastic_poll_every_steps": 1, "elastic_min_world": 1,
-        "elastic_coordinator_host": "", "elastic_verify_fingerprint": True,
-        "elastic_join": "auto", "elastic_join_timeout_s": 0.0,
-        "elastic_max_world": 0,
-    },
     "guard": {
         "enabled": False, "action": "skip", "spike_window": 64,
         "spike_z": 8.0, "spike_min_steps": 16, "device_cap": True,
         "max_rollbacks": 3, "lr_ease_steps": 0, "lr_ease_start": 0.1,
         "sdc_every_steps": 0, "sdc_action": "halt", "quarantine_path": "",
-    },
-    "obs": {
-        "run_dir": "", "span_capacity": 4096, "heartbeat_every_steps": 1,
-        "straggler_factor": 3.0, "stale_after_s": 60.0, "min_step_ms": 1.0,
-        "on_straggler": "warn", "perfetto_path": "",
-        "flightrec_capacity": 2048, "prom_path": "",
-        "peak_flops_override": 0.0, "measure_flops": False,
-        "comm_profile_steps": "", "comm_profile_dir": "",
     },
     "serve": {
         "buckets": "1,2,4,8,16,32", "max_wait_ms": 5.0, "max_queue": 256,
@@ -255,7 +272,48 @@ NOT_PORTED: dict[str, Any] = {
     "train.metrics_path": "",
     "train.profile_steps": "",
     "train.profile": "",
+    # Elastic world size (ROADMAP Queue 1 item 9d).
+    "resilience.elastic": False,
+    "resilience.membership_dir": "",
+    "resilience.regroup_timeout_s": 60.0,
+    "resilience.elastic_poll_every_steps": 1,
+    "resilience.elastic_min_world": 1,
+    "resilience.elastic_coordinator_host": "",
+    "resilience.elastic_verify_fingerprint": True,
+    "resilience.elastic_join": "auto",
+    "resilience.elastic_join_timeout_s": 0.0,
+    "resilience.elastic_max_world": 0,
+    # Telemetry beyond the flight recorder (item 10).
+    "obs.span_capacity": 4096,
+    "obs.heartbeat_every_steps": 1,
+    "obs.straggler_factor": 3.0,
+    "obs.stale_after_s": 60.0,
+    "obs.min_step_ms": 1.0,
+    "obs.on_straggler": "warn",
+    "obs.perfetto_path": "",
+    "obs.prom_path": "",
+    "obs.peak_flops_override": 0.0,
+    "obs.measure_flops": False,
+    "obs.comm_profile_steps": "",
+    "obs.comm_profile_dir": "",
 }
+
+#: The ROADMAP Queue 1 item that ports each refused section or field
+#: (longest matching prefix); `model.fused_block_b` stays refused by design.
+_NOT_PORTED_ITEMS = {
+    "resilience": "9d", "guard": "9c", "obs": "10", "serve": "11",
+    "train.profile_dir": "10", "train.obs": "10", "train.metrics_path": "10",
+    "train.profile_steps": "10", "train.profile": "12",
+    "train.recompile_guard": "11", "train.verify_fingerprint": "13",
+}
+
+
+def _roadmap(dotted: str) -> str:
+    """Where the ROADMAP names the work that ports ``dotted``."""
+    for key in (dotted, dotted.partition(".")[0]):
+        if key in _NOT_PORTED_ITEMS:
+            return f"ROADMAP Queue 1 item {_NOT_PORTED_ITEMS[key]}"
+    return "ROADMAP.md"
 
 
 def _coerce(value: str, current: Any):
@@ -306,7 +364,7 @@ def _require_default(dotted: str, value: Any, default: Any) -> None:
     if _typed(dotted, value, default) != default:
         raise NotPortedError(
             f"{dotted}={value!r}: not ported to tpu_dp_torch yet (only the "
-            f"default {default!r} runs; ROADMAP.md)")
+            f"default {default!r} runs; {_roadmap(dotted)})")
 
 
 def check_ported(cfg: Config) -> Config:
@@ -346,6 +404,14 @@ def check_ported(cfg: Config) -> Config:
         raise ValueError("train.steps_per_call > 1 requires "
                          "data.drop_remainder=true")
     _check_update_sharding(cfg.train)
+    if cfg.resilience.fault:
+        from tpu_dp_torch.resilience.faultinject import (
+            FaultPlan,
+            refuse_unported,
+        )
+
+        refuse_unported([p.kind for p in FaultPlan.parse_schedule(
+            cfg.resilience.fault)])
     return cfg
 
 

@@ -1,17 +1,22 @@
 """On-device data augmentation (port of `tpu_dp.data.augment`): pad-4
 random crop + horizontal flip per image, NHWC, applied after normalize.
 
-Deterministic in ``(seed, step, rank)``: each image's two offsets and its
-flip come from a counter-based hash of ``(seed, rank, step, row, draw)``
-computed on the images' device, so a step replays identically, a CUDA
-graph of the step replays the step it captured with the key it reads from
-the device (the train step's step counter), and the ranks of a
-data-parallel run crop and flip their rows independently (with one key,
-row i of every rank would get the same crop). The hash is murmur3's
-32-bit finalizer on int64 tensors, each product split at 16 bits and
-masked to 32, so no operation overflows and the CPU and a card give the
-same bits. The draws are not `jax.random`'s bits; the distribution is
-the same (offsets uniform over 0..2*pad, flip rate 1/2).
+The draws are `jax.random`'s own bits, as the JAX package makes them
+(``jax_threefry_partitionable`` on, the ``threefry2x32`` generator): the
+key of step ``s`` is ``fold_in(PRNGKey(seed), s)`` (``s = step·a + i`` for
+microbatch i of a under gradient accumulation), split into ``k_off,
+k_flip``; the offsets are ``randint(k_off, (N, 2), 0, 2·pad + 1)`` and the
+flips ``bernoulli(k_flip, 0.5, (N,))`` over the global batch of N rows.
+In partitionable mode the bits of element ``j`` of a draw depend only on
+the key and ``j`` (its row-major flat index), so a rank draws its own rows
+``[row0, row0 + n)`` without drawing the rest of the batch.
+
+This module is the plain version: threefry2x32 and the `jax.random`
+functions above on int64 tensors (or Python ints), each value kept in
+[0, 2**32) by masking, so every operation is exact and the CPU and a
+card give the same bits. The train step on a card runs the hand-written
+kernel instead (`tpu_dp_torch.ops.augment`), which reads the step from
+the device counter, so a CUDA graph of the step replays the step it runs.
 """
 
 from __future__ import annotations
@@ -19,36 +24,114 @@ from __future__ import annotations
 import torch
 
 _M32 = 0xFFFFFFFF
-_GOLDEN = 0x9E3779B9
+#: threefry2x32's rotations, by round parity (`jax._src.prng`).
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
 
 
 def _mul32(x, c: int):
-    """``(x * c) mod 2**32`` for x in [0, 2**32): the low half's product
-    (below 2**48) plus the high half's, taken mod 2**16 before its shift."""
+    """``(x * c) mod 2**32`` for x in [0, 2**32) and c < 2**32 without
+    leaving int64: the low half's product (below 2**48) plus the high
+    half's, taken mod 2**16 before its shift."""
     return (((x & 0xFFFF) * c) + ((((x >> 16) * (c & 0xFFFF)) & 0xFFFF)
                                   << 16)) & _M32
 
 
-def _fmix32(h):
-    """murmur3's finalizer: a bijection of [0, 2**32) that mixes every
-    input bit into every output bit. Python ints or int64 tensors."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
+def _rotl(x, d: int):
+    return ((x << d) | (x >> (32 - d))) & _M32
 
 
-def crop_flip_draws(key: torch.Tensor, n: int, seed: int, rank: int = 0,
-                    pad: int = 4):
-    """``(offsets [n, 2], flips [n])`` of ``n`` images for the int64 0-dim
-    ``key`` (the step) on its device: offsets uniform over ``0..2*pad``,
-    flips at 1/2."""
-    base = _fmix32(_fmix32((int(seed) & _M32) ^ _GOLDEN) ^ (int(rank) & _M32))
-    k = _fmix32((key & _M32) ^ base)
-    counters = torch.arange(3 * n, dtype=torch.int64, device=key.device)
-    h = _fmix32(k ^ _mul32(counters + 1, _GOLDEN)).view(n, 3)
-    return h[:, :2] % (2 * pad + 1), (h[:, 2] >> 31).bool()
+def threefry2x32(k1, k2, x1, x2):
+    """`jax._src.prng.threefry2x32_p` (its unrolled lowering): the
+    Threefry-2x32 block cipher, 20 rounds, of the count pair ``(x1, x2)``
+    under the key ``(k1, k2)``; every argument a Python int or an int64
+    tensor in [0, 2**32), broadcast elementwise. Returns the pair."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for r in range(5):
+        for rot in _ROTATIONS[r % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, rot) ^ x1
+        x1 = (x1 + ks[(r + 1) % 3]) & _M32
+        x2 = (x2 + ks[(r + 2) % 3] + r + 1) & _M32
+    return x1, x2
+
+
+def prng_key(seed: int) -> tuple[int, int]:
+    """`jax.random.PRNGKey(seed)` (`threefry_seed`) with ``jax_enable_x64``
+    off, as the JAX package runs: ``(0, seed mod 2**32)``."""
+    return 0, int(seed) & _M32
+
+
+def fold_in(key, data):
+    """`jax.random.fold_in` (`threefry_fold_in`): threefry of the count
+    pair ``(0, data)`` under ``key``; ``data`` is taken as uint32 (an int
+    or an int64 tensor)."""
+    return threefry2x32(key[0], key[1], 0, data & _M32)
+
+
+def split(key, num: int = 2) -> list:
+    """`jax.random.split` in partitionable mode (`_threefry_split_foldlike`):
+    key i is threefry of the count pair ``(i >> 32, i & M)``."""
+    return [threefry2x32(key[0], key[1], i >> 32, i & _M32)
+            for i in range(num)]
+
+
+def random_bits(key, counts: torch.Tensor) -> torch.Tensor:
+    """`jax.random.bits` (32-bit, `_threefry_random_bits_partitionable`) at
+    the row-major flat positions ``counts`` (int64) of the drawn array:
+    ``bits1 ^ bits2`` of threefry of ``(counts >> 32, counts & M)``."""
+    b1, b2 = threefry2x32(key[0], key[1], counts >> 32, counts & _M32)
+    return b1 ^ b2
+
+
+def randint(key, counts: torch.Tensor, minval: int,
+            maxval: int) -> torch.Tensor:
+    """`jax.random.randint` into int32 (`jax._src.random._randint`) at the
+    flat positions ``counts``: split the key, draw higher and lower 32-bit
+    words, and fold them into ``[minval, maxval)`` with the span and
+    multiplier arithmetic of uint32 (wrapping), as JAX does."""
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, counts), random_bits(k2, counts)
+    span = max(int(maxval) - int(minval), 1) & _M32
+    multiplier = (2 ** 16) % span
+    multiplier = ((multiplier * multiplier) & _M32) % span
+    offset = ((_mul32(higher % span, multiplier) + lower % span) & _M32
+              ) % span
+    return int(minval) + offset
+
+
+def uniform(key, counts: torch.Tensor) -> torch.Tensor:
+    """`jax.random.uniform` over [0, 1) in float32 (`_uniform`) at the flat
+    positions ``counts``: the top 23 bits as the mantissa of a float in
+    [1, 2), minus 1 (exact, as is JAX's scale by 1 and shift by 0)."""
+    bits = (random_bits(key, counts) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(key, p: float, counts: torch.Tensor) -> torch.Tensor:
+    """`jax.random.bernoulli` (mode "low"): ``uniform < p`` in float32."""
+    return uniform(key, counts) < torch.tensor(
+        p, dtype=torch.float32, device=counts.device)
+
+
+def crop_flip_draws(key, n: int, seed: int, row0: int = 0,
+                    global_n: int | None = None, pad: int = 4):
+    """``(offsets [n, 2] int64, flips [n] bool)`` of rows ``[row0, row0 +
+    n)`` of a ``global_n``-row batch (default ``row0 + n``) for the step
+    key ``key`` (an int, or an int64 tensor on the draws' device):
+    `tpu_dp.data.augment.random_crop_flip`'s draws under
+    ``fold_in(PRNGKey(seed), key)``, bit for bit."""
+    if global_n is not None and not 0 <= row0 <= row0 + n <= global_n:
+        raise ValueError(f"rows [{row0}, {row0 + n}) outside a batch of "
+                         f"{global_n}")
+    device = key.device if isinstance(key, torch.Tensor) else None
+    k_off, k_flip = split(fold_in(prng_key(seed), key))
+    rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)
+    cells = (2 * rows[:, None] + torch.arange(2, device=device)).reshape(-1)
+    offsets = randint(k_off, cells, 0, 2 * pad + 1).view(n, 2)
+    return offsets, bernoulli(k_flip, 0.5, rows)
 
 
 def random_crop_flip(images: torch.Tensor, offsets: torch.Tensor,
@@ -70,16 +153,23 @@ def random_crop_flip(images: torch.Tensor, offsets: torch.Tensor,
     return padded[idx, rows[:, :, None], cols[:, None, :]]
 
 
-def make_augment_fn(seed: int, fill: float = -1.0, rank: int = 0):
-    """Build ``aug(step, images)``: deterministic in (seed, step, rank).
+def make_augment_fn(seed: int, fill: float = -1.0, row0: int = 0,
+                    global_n: int | None = None):
+    """Build ``aug(step, images, accum=1, micro=0)``: the crops and flips
+    of rows ``[row0, row0 + B)`` of the ``global_n``-row batch under the
+    key ``step·accum + micro`` (`tpu_dp_torch.ops.augment.
+    crop_flip_draws`: the kernel on a card, the plain version on the CPU).
     ``step`` is an int or an int64 0-dim tensor on the images' device (the
     train step passes its device counter, so nothing waits for the host).
     The train step calls it after its on-device normalize, so the default
     ``fill`` of -1 pads black."""
+    from tpu_dp_torch.ops import augment as aug_ops
 
-    def aug(step, images: torch.Tensor) -> torch.Tensor:
-        key = torch.as_tensor(step, dtype=torch.int64, device=images.device)
-        offsets, flips = crop_flip_draws(key, images.shape[0], seed, rank)
+    def aug(step, images: torch.Tensor, accum: int = 1,
+            micro: int = 0) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=torch.int64, device=images.device)
+        offsets, flips = aug_ops.crop_flip_draws(
+            step, images.shape[0], seed, row0, global_n, accum, micro)
         return random_crop_flip(images, offsets, flips, fill=fill)
 
     return aug

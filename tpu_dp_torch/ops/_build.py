@@ -48,7 +48,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> source file under csrc/
-SOURCES = {"conv_block": "conv_block.cu", "xent": "xent.cu"}
+SOURCES = {"conv_block": "conv_block.cu", "xent": "xent.cu",
+           "augment": "augment.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

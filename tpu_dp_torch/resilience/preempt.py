@@ -1,31 +1,111 @@
-"""Resume from the newest usable save (port of the resume half of
-`tpu_dp.resilience.preempt`).
+"""Preemption handling and resume (port of `tpu_dp.resilience.preempt`).
 
-`find_candidates` lists the complete, unquarantined step directories of
-the checkpoint root and the snapshot root, newest step first, epoch
-checkpoints winning ties; each exclusion is logged with its reason.
-`resume_latest` restores the best one; a candidate that fails its
-checksums is quarantined (`quarantine_save_dir`) and the next older one
-restores instead.
+The contract, as in the JAX package:
 
-The snapshot cadence, the preemption handler and the rest of the JAX
-package's resilience section are not ported yet (ROADMAP Queue 1 item 9):
-the port reads snapshot-kind saves (``meta["kind"] == "snapshot"``) but
-does not write them.
+1. SIGTERM/SIGINT sets a flag (`PreemptionHandler`) — a handler does no
+   real work, signal context is too restricted for IO;
+2. the `Trainer` reads the flag at window boundaries, takes a final
+   snapshot and joins it;
+3. a barrier on the process group keeps fast ranks from tearing the
+   group down while slow ranks still issue collectives;
+4. `PreemptedError` propagates out of `fit`, and ``python -m
+   tpu_dp_torch.train`` exits **143** (128 + SIGTERM).
+
+The other half is resume: `find_candidates` lists the complete,
+unquarantined step directories of the checkpoint root and the snapshot
+root, newest step first, epoch checkpoints winning ties; each exclusion
+is logged with its reason. `resume_latest` restores the best one; a
+candidate that fails its checksums is quarantined (`quarantine_save_dir`)
+and the next older one restores instead.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import signal
+import threading
 import time
 from pathlib import Path
+from typing import Any
 
 from tpu_dp_torch import checkpoint as ckpt_lib
 from tpu_dp_torch.checkpoint import QUARANTINED_MARKER
+from tpu_dp_torch.obs import flightrec as _flightrec
 from tpu_dp_torch.obs.counters import counters as _counters
 
 logger = logging.getLogger(__name__)
+
+#: 128 + SIGTERM — the exit status of a graceful preemption shutdown.
+PREEMPTED_EXIT_CODE = 143
+
+
+class PreemptedError(RuntimeError):
+    """Raised out of the training loop after a clean preemption shutdown."""
+
+    exit_code = PREEMPTED_EXIT_CODE
+
+
+class PreemptionHandler:
+    """Install SIGTERM/SIGINT flag-setters for the lifetime of a `with`.
+
+    Repeated signals stay flag-only (the trainer finishes its in-flight
+    window, snapshots, and exits — a second SIGTERM must not corrupt the
+    final write). Handlers only install on the main thread (CPython's
+    rule); elsewhere the handler is a never-set flag. The previous
+    handlers are restored on exit."""
+
+    SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._prev: dict[int, Any] = {}
+        self._installed = False
+        self.last_signal: int | None = None
+
+    @property
+    def requested(self) -> bool:
+        """True once a preemption signal arrived."""
+        return self._event.is_set()
+
+    def _handle(self, signum, frame):
+        self.last_signal = signum
+        self._event.set()
+        # Counters and the flight recorder are lock-free, so publishing
+        # from a handler cannot deadlock; the recorder stamps the signal
+        # even when the process dies before the boundary raise.
+        _counters.inc("preempt.signals")
+        _flightrec.record("preempt_signal", signum=int(signum))
+        logger.warning(
+            "preemption signal %s received — snapshotting at the next step "
+            "boundary, then exiting %d",
+            signal.Signals(signum).name, PREEMPTED_EXIT_CODE)
+
+    def install(self) -> "PreemptionHandler":
+        if self._installed:
+            return self
+        if threading.current_thread() is not threading.main_thread():
+            logger.warning(
+                "preemption handler not installed (not on the main thread)")
+            return self
+        for sig in self.SIGNALS:
+            self._prev[sig] = signal.signal(sig, self._handle)
+        self._installed = True
+        return self
+
+    def uninstall(self) -> None:
+        if not self._installed:
+            return
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        self._prev.clear()
+        self._installed = False
+
+    def __enter__(self):
+        return self.install()
+
+    def __exit__(self, *exc):
+        self.uninstall()
 
 
 def quarantine_save_dir(step_dir: Path, reason: str) -> None:

@@ -35,6 +35,16 @@ final_train_loss, eval, start_epoch, resumed_from (null on a fresh
 run), update_sharding, collective_dtype, bucket_mb and
 momentum_bytes_per_rank.
 
+Resilience as in the repository's ``train.py``: a SIGTERM or SIGINT
+(``resilience.handle_signals``, on by default) takes a final snapshot at
+the next window boundary, joins it and exits **143** after printing
+``preempted: ...``; ``--resilience.snapshot_every_steps=N`` snapshots
+every N updates into ``<ckpt_dir>/snapshots`` (``--resume`` continues
+from the newest complete save, mid-epoch included); every exit from
+training dumps the flight recorder to ``<ckpt_dir>/obs/flightrec_r<rank>.
+json`` (``obs.run_dir``); ``--resilience.fault=kill:step=K`` (or
+``TPU_DP_FAULT``) exits 137 at the first window boundary at or past K.
+
 ``--train.update_sharding=sharded`` trains with the sharded weight update
 (each rank keeps 1/world of the momentum), its gradient exchange in f32,
 ``--train.collective_dtype=bf16`` or ``=int8`` (``--train.
@@ -63,6 +73,7 @@ def main(argv=None) -> int:
 
     from tpu_dp_torch.config import parse_cli
     from tpu_dp_torch.parallel.dist import shutdown
+    from tpu_dp_torch.resilience import PreemptedError
     from tpu_dp_torch.train.trainer import Trainer
 
     # f32 means f32: no TF32 in cuDNN's convs or in matmuls.
@@ -76,7 +87,14 @@ def main(argv=None) -> int:
         except (ValueError, RuntimeError, OSError) as e:
             print(f"train: {e}", file=sys.stderr)
             return 2
-        result = trainer.fit()
+        try:
+            result = trainer.fit()
+        except PreemptedError as e:
+            # The final snapshot is committed: the terminated-by-SIGTERM
+            # status, so a supervisor restarts with --resume.
+            if trainer.ctx.is_main_process:
+                print(f"preempted: {e}", flush=True)
+            return PreemptedError.exit_code
         if not trainer.ctx.is_main_process:
             return 0
         summary = {

@@ -164,14 +164,15 @@ def _sharded_reduce(opt):
 
 def launch_books() -> dict[str, int]:
     """The host-side books of the train step's device work, flat: the
-    kernel wrappers' launch counts (conv by role, xent by direction) and
-    `collectives.counts`. They tick where the host calls a wrapper or
-    issues a collective, so under a CUDA graph they tick at capture only
-    (`MultiStep.captured`, `MultiStep.replays`)."""
-    from tpu_dp_torch.ops import conv_block, xent
+    kernel wrappers' launch counts (conv by role, xent by direction, the
+    augmentation draws) and `collectives.counts`. They tick where the host
+    calls a wrapper or issues a collective, so under a CUDA graph they
+    tick at capture only (`MultiStep.captured`, `MultiStep.replays`)."""
+    from tpu_dp_torch.ops import augment, conv_block, xent
 
     out = {f"conv.{k}": v for k, v in conv_block.launches_by_role.items()}
     out.update({f"xent.{k}": v for k, v in xent.launches.items()})
+    out["augment"] = augment.launches
     out.update(collectives.counts)
     return out
 
@@ -265,8 +266,7 @@ class TrainStep:
             x, y = (images[i], labels[i]) if a > 1 else (images, labels)
             x = _maybe_normalize(x)
             if self.augment_fn is not None:
-                x = self.augment_fn(self.step_t * a + i if a > 1
-                                    else self.step_t, x)
+                x = self.augment_fn(self.step_t, x, a, i)
             last = i == a - 1
             with (contextlib.nullcontext() if self.ddp is None or last
                   else self.ddp.no_sync()):

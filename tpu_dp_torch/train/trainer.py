@@ -28,7 +28,10 @@ then holds bit-identical parameters, buffers, momentum and step (checked),
 and `fit` starts at the saved position: the next epoch after an epoch
 checkpoint, the step after a snapshot's ``steps_done`` (the sampler skips
 the steps already taken). The restored step drives the schedule and the
-augmentation key (seed, step, rank).
+augmentation key. The crop and flip draws are the JAX package's
+`jax.random` bits (`tpu_dp_torch.data.augment`): a rank draws its rows
+``[rank·B, (rank+1)·B)`` of the global (micro)batch, and under the sharded
+update rows ``0..B-1``, as the JAX package's per-shard step does.
 
 Gradient accumulation (``optim.grad_accum_steps`` = a): an update takes
 a microbatches of ``data.batch_size`` (`make_train_step`'s
@@ -67,8 +70,24 @@ trajectory is the streamed feed's, bit for bit. Eval stays streamed.
 The loop never waits on the device inside an epoch: losses and correct
 counts stay device tensors until a log line or the epoch's end fetches
 them; the epoch's one fetch also checks the device's update counter
-against the host's. The snapshot cadence, preemption, guardrails,
-elastic world size and telemetry are not ported yet.
+against the host's.
+
+Resilience, as the JAX package builds it under its default config: the
+IO retry budget (``resilience.io_retry_s``) of every checkpoint and
+snapshot write; `SnapshotManager` (``resilience.snapshot_every_steps``,
+``snapshot_keep``, ``snapshot_dir``), whose host copy is enqueued after
+the window into reusable pinned buffers; `PreemptionHandler`
+(``resilience.handle_signals``): a SIGTERM or SIGINT at any point becomes
+a final snapshot at the next window boundary (or the epoch's end), joined,
+a barrier on the group and `PreemptedError`; the fault injector
+(``resilience.fault`` / ``TPU_DP_FAULT``); and the flight recorder
+(``obs.flightrec_capacity``, dumped into ``obs.run_dir`` or
+``<ckpt_dir>/obs`` on every exit from `fit`). The step-lifecycle hooks
+(`tpu_dp_torch.train.hooks`) run once per window, after its updates:
+flight recorder, snapshot cadence, fault injection, preemption boundary.
+Each rank reads its own preemption flag, as in the JAX package.
+Guardrails, elastic world size and the rest of the telemetry are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +95,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Any
@@ -90,10 +110,21 @@ from tpu_dp_torch.data.augment import make_augment_fn
 from tpu_dp_torch.data.cifar import load_dataset
 from tpu_dp_torch.data.pipeline import DataPipeline
 from tpu_dp_torch.models import build_model, parse_fused_stages
+from tpu_dp_torch.obs import flightrec as _flightrec
 from tpu_dp_torch.obs.counters import counters as _counters
 from tpu_dp_torch.parallel import bucketing, quant
 from tpu_dp_torch.parallel.dist import broadcast_one_to_all, initialize
-from tpu_dp_torch.resilience import resume_latest
+from tpu_dp_torch.resilience import (
+    FaultInjector,
+    PreemptedError,
+    PreemptionHandler,
+    SnapshotManager,
+    configure_io_retry,
+    resume_latest,
+    retry_call,
+)
+from tpu_dp_torch.resilience.faultinject import refuse_unported
+from tpu_dp_torch.train import hooks as hooks_lib
 from tpu_dp_torch.train.optim import make_sgd, shard_optimizer
 from tpu_dp_torch.train.schedule import make_schedule
 from tpu_dp_torch.train.step import (
@@ -233,8 +264,16 @@ class Trainer:
             steps_per_epoch * cfg.train.epochs,
             int(cfg.optim.warmup_epochs * steps_per_epoch),
             cfg.optim.final_lr)
-        augment_fn = (make_augment_fn(seed + 1, rank=self.ctx.rank)
-                      if cfg.data.augment else None)
+        augment_fn = None
+        if cfg.data.augment:
+            # The JAX package's draws: the replicated step augments the
+            # global (micro)batch, whose rows [rank·B, (rank+1)·B) this
+            # rank holds; the sharded update's per-shard body draws its
+            # local rows 0..B-1 on every rank (`make_train_step_shard_map`).
+            b = cfg.data.batch_size
+            augment_fn = make_augment_fn(
+                seed + 1, row0=0 if self.sharded else self.ctx.rank * b,
+                global_n=b if self.sharded else self.ctx.world * b)
         self.state = TrainState(step=0, model=self.model,
                                 optimizer=self.optimizer)
         #: the update body both paths run (its device counter, its lr
@@ -260,9 +299,38 @@ class Trainer:
         self.ckpt_mgr = ckpt_lib.CheckpointManager(
             cfg.train.ckpt_dir, keep=cfg.train.ckpt_keep,
             async_save=cfg.train.ckpt_async)
-        # The JAX package's snapshot root (`resilience.snapshot_dir`'s
-        # default): read on resume; the port writes no snapshots yet.
-        self.snapshot_dir = str(Path(cfg.train.ckpt_dir) / "snapshots")
+        # Resilience, in the JAX package's order: the IO retry budget, the
+        # snapshot manager (always built: with the cadence off the
+        # preemption final still lands there), the preemption handler and
+        # the fault injector.
+        res = cfg.resilience
+        configure_io_retry(res.io_retry_s)
+        self.snapshot_dir = res.snapshot_dir or str(
+            Path(cfg.train.ckpt_dir) / "snapshots")
+        self.snap_mgr = SnapshotManager(
+            self.snapshot_dir, every_steps=res.snapshot_every_steps,
+            keep=res.snapshot_keep, async_save=cfg.train.ckpt_async)
+        self.preempt = PreemptionHandler() if res.handle_signals else None
+        self.fault = FaultInjector.from_spec(res.fault, rank=self.ctx.rank)
+        if self.fault is not None:
+            refuse_unported(self.fault.kinds())
+        # The flight recorder: always on (obs.flightrec_capacity 0 turns it
+        # off), dumped into obs.run_dir or <ckpt_dir>/obs on every exit
+        # from fit.
+        self.obs_dir = Path(cfg.obs.run_dir
+                            or Path(cfg.train.ckpt_dir) / "obs")
+        self.flightrec = None
+        if cfg.obs.flightrec_capacity <= 0:
+            _flightrec.recorder.disable()
+        else:
+            self.flightrec = _flightrec.recorder.configure(
+                rank=self.ctx.rank, dump_dir=self.obs_dir,
+                capacity=cfg.obs.flightrec_capacity, fresh=True,
+                run={"model": cfg.model.name, "world": self.ctx.world,
+                     "devices": self.num_devices,
+                     "global_batch": self.global_batch_size,
+                     "elastic": False, "guard": False, "joined": False})
+        self._build_hooks()
         self.start_epoch = 0
         self.start_step = 0  # step within start_epoch (mid-epoch resume)
         self.resumed_from: str | None = None
@@ -302,9 +370,30 @@ class Trainer:
         return (self.cfg.data.batch_size * self.ctx.world
                 * self.cfg.optim.grad_accum_steps)
 
+    @property
+    def _host_step(self) -> int:
+        """The global step the host has dispatched (the hooks' clock)."""
+        return self.state.step
+
     def _print(self, msg: str) -> None:
         if self.ctx.is_main_process:
             print(msg, flush=True)
+
+    def _log0(self, msg: str, *args, **kwargs) -> None:
+        if self.ctx.is_main_process:
+            log.info(msg, *args, **kwargs)
+
+    def _build_hooks(self) -> None:
+        """The step-lifecycle hooks, in the JAX package's load-bearing
+        order (`tpu_dp_torch.train.hooks`): the flight recorder first, then
+        the snapshot cadence, fault injection, and the preemption boundary
+        last."""
+        hooks: list = []
+        if self.flightrec is not None:
+            hooks.append(hooks_lib.FlightRecorderHook(self))
+        hooks += [hooks_lib.SnapshotHook(self), hooks_lib.FaultHook(self),
+                  hooks_lib.BoundaryHook(self)]
+        self._hooks = hooks
 
     # -- checkpoints and resume ----------------------------------------
 
@@ -388,12 +477,69 @@ class Trainer:
                                "broadcast")
 
     def _ckpt_write_error(self, err: BaseException) -> None:
-        """A failed checkpoint or export write costs durability, loudly —
-        never the run."""
+        """A failed checkpoint or export write costs durability, loudly
+        (the counter, the log and the flight recorder) — never the run."""
         _counters.inc("ckpt.write_errors")
+        _flightrec.record("ckpt_write_error", step=self._host_step,
+                          error=str(err)[:300])
         log.warning("checkpoint write failed (%s) — training continues; "
                     "resume falls back to the newest earlier complete save",
                     err)
+
+    def _snapshot_meta(self, epoch: int, steps_done: int) -> dict[str, Any]:
+        """A snapshot's meta: the mid-epoch resume position (the JAX
+        package's keys)."""
+        return {"kind": "snapshot", "epoch": epoch, "steps_done": steps_done,
+                "config": self.cfg.to_dict(), "seed": self.cfg.train.seed}
+
+    def _take_snapshot(self, epoch: int, steps_done: int,
+                       wait: bool = False) -> bool:
+        """One snapshot and the ``on_snapshot`` hook sweep. False when the
+        write degraded (counted and logged by the snapshot manager; with
+        ``wait`` a failure of the joined write too): the hooks see only
+        snapshots that committed. Every rank calls it at the same boundary
+        (the sharded update's gather is a collective)."""
+        meta = self._snapshot_meta(epoch, steps_done)
+        out = self.snap_mgr.snapshot(self.state, self._host_step, meta)
+        if out is None:
+            return False
+        if wait:
+            try:
+                self.snap_mgr.wait()
+            except (RuntimeError, OSError) as e:
+                self.snap_mgr._record_write_error(self._host_step, e)
+                return False
+        for hook in self._hooks:
+            hook.on_snapshot(epoch, steps_done, self._host_step, meta)
+        return True
+
+    def _preempt_exit(self, epoch: int, steps_done: int) -> None:
+        """The preemption contract: final snapshot (joined) → barrier on
+        the process group → `PreemptedError` (exit 143 from the CLI)."""
+        _flightrec.record("preempt_exit", step=self._host_step, epoch=epoch,
+                          done=steps_done)
+        self._log0("preemption: taking final snapshot at epoch %d step %d "
+                   "(global step %d)", epoch, steps_done, self._host_step)
+        if not self._take_snapshot(epoch, steps_done, wait=True):
+            # Degrade, still honor the 143 contract: the resume falls back
+            # to the newest earlier complete save.
+            self._log0("preemption: final snapshot FAILED — resume will "
+                       "fall back to the newest earlier complete save")
+        if self.ctx.backend is not None:
+            res = self.cfg.resilience
+            try:
+                retry_call(dist.barrier, retries=res.max_retries,
+                           base_delay=res.retry_base_delay_s,
+                           describe="preemption barrier")
+            except Exception:
+                # A half-dead group must not block the others' clean exit:
+                # the snapshot is already committed.
+                self._log0("preemption barrier failed; exiting anyway",
+                           exc_info=True)
+        raise PreemptedError(
+            f"preempted at epoch {epoch}, step-in-epoch {steps_done} "
+            f"(global step {self._host_step}); snapshot committed to "
+            f"{self.snapshot_dir}")
 
     def _save_epoch(self, epoch: int) -> None:
         """The epoch checkpoint (rank 0 writes; the unwrapped module, so no
@@ -406,11 +552,8 @@ class Trainer:
             self._ckpt_write_error(e)
 
     def _export_final(self) -> None:
-        """Join the last epoch save, then write ``final_params.msgpack``."""
-        try:
-            self.ckpt_mgr.wait()
-        except RuntimeError as e:
-            self._ckpt_write_error(e)
+        """Write ``final_params.msgpack`` (the last epoch save was joined by
+        `fit`'s teardown)."""
         try:
             ckpt_lib.save_params(
                 Path(self.cfg.train.ckpt_dir) / "final_params.msgpack",
@@ -440,7 +583,11 @@ class Trainer:
         table = self.resident_train
         feed = (self.train_pipe.windows if table is None
                 else self.train_pipe.index_windows)
+        for hook in self._hooks:
+            hook.on_epoch_start(epoch)
         for n, item in feed(self.steps_per_call, skip_steps=start_step):
+            for hook in self._hooks:
+                hook.on_window_start(self._host_step + 1, n)
             if n == 1:
                 m = self.train_step(self.state, item if table is None
                                     else gather_batch(table, item[0]))
@@ -472,6 +619,11 @@ class Trainer:
                                 % (epoch + 1, i, sum(vals) / len(vals)))
                     pending = [flat[logged + run_steps:]]
                     logged = run_steps = 0
+            # The hook sweep, once per dispatched window (`_build_hooks`'
+            # order); a hook may raise `PreemptedError`.
+            ev = hooks_lib.StepEvent(epoch=epoch, done=i, n=n, window=(m,))
+            for hook in self._hooks:
+                hook.on_step_end(ev)
         if not losses:
             return {"loss": 0.0, "accuracy": 0.0}
         # One fetch: the epoch's losses, the device's update counter and
@@ -497,6 +649,31 @@ class Trainer:
             stats.update(quant_overflow=overflow, quant_clip=clip)
         self.meter.mark()
         return stats
+
+    def _close_resilience(self) -> None:
+        """`fit`'s teardown on every exit path: join the epoch save and the
+        snapshot writes (a failure degrades: counted and logged, never
+        masking the run's outcome), restore the signal handlers, and dump
+        the flight recorder with the JAX package's reason string."""
+        try:
+            self.ckpt_mgr.close()
+        except (RuntimeError, OSError) as e:
+            self._ckpt_write_error(e)
+        self.snap_mgr.close()
+        if self.preempt is not None:
+            self.preempt.uninstall()
+        if self.flightrec is not None:
+            exc = sys.exc_info()
+            reason = "clean" if exc[0] is None else (
+                f"{exc[0].__name__}: {exc[1]}"[:500])
+            self.flightrec.record("exit", step=self._host_step,
+                                  reason=reason)
+            self.flightrec.dump(reason=reason)
+        for hook in self._hooks:
+            try:
+                hook.close()
+            except Exception:
+                self._log0("step hook close failed", exc_info=True)
 
     def evaluate(self) -> dict[str, float]:
         """Test accuracy, loss and example count over every rank's shard,
@@ -534,19 +711,30 @@ class Trainer:
                  "resident" if self._resident_enabled else "streamed")
         t0 = time.perf_counter()
         history = []
-        for epoch in range(self.start_epoch, cfg.train.epochs):
-            stats = self.train_epoch(
-                epoch, self.start_step if epoch == self.start_epoch else 0)
-            history.append(stats)
-            self._print("epoch %d: train loss %.4f acc %.4f (%.1f img/s)"
-                        % (epoch + 1, stats["loss"], stats["accuracy"],
-                           self.meter.images_per_sec))
-            self._save_epoch(epoch)
-            every = cfg.train.eval_every_epochs
-            if every and (epoch + 1) % every == 0:
-                ev = self.evaluate()
-                self._print("epoch %d: eval loss %.4f acc %.4f"
-                            % (epoch + 1, ev["loss"], ev["accuracy"]))
+        try:
+            if self.preempt is not None:
+                self.preempt.install()
+            for epoch in range(self.start_epoch, cfg.train.epochs):
+                stats = self.train_epoch(
+                    epoch, self.start_step if epoch == self.start_epoch
+                    else 0)
+                history.append(stats)
+                self._print("epoch %d: train loss %.4f acc %.4f (%.1f "
+                            "img/s)" % (epoch + 1, stats["loss"],
+                                        stats["accuracy"],
+                                        self.meter.images_per_sec))
+                self._save_epoch(epoch)
+                every = cfg.train.eval_every_epochs
+                if every and (epoch + 1) % every == 0:
+                    ev = self.evaluate()
+                    self._print("epoch %d: eval loss %.4f acc %.4f"
+                                % (epoch + 1, ev["loss"], ev["accuracy"]))
+                # A signal that lands between epochs (or during eval) still
+                # gets the snapshot-and-exit-143 contract.
+                if self.preempt is not None and self.preempt.requested:
+                    self._preempt_exit(epoch + 1, 0)
+        finally:
+            self._close_resilience()
         self._print("Finished Training")
         self._export_final()
         result: dict[str, Any] = {
