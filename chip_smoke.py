@@ -212,7 +212,27 @@ Phases, in order; any failure exits non-zero before the last line:
    with and without the cadence, in turns; (d) the sharded update at NCCL
    world 1: ``preempt:step=15``, its one snapshot and the resume,
    bit-identical to the uninterrupted sharded run;
-15. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+15. ``guard``: the guard (``--guard.enabled=true``) on phase 14's path in
+   one epoch of 30 updates, windows of 10, cuDNN deterministic: (a) the
+   guarded run against the unguarded one: losses, state and eval bit for
+   bit, the books unchanged by counter (20 conv + 1 + 1 xent + 1 draw an
+   update) and by kernel name per replay (the conv and xent kernels equal
+   to the books, guarded and not, at their most over up to three profiler
+   sessions; the draw kernel's count recorded), nothing quarantined, one
+   fence per window; (b) ``nan:step=13`` under ``action=skip``: steps 14-20
+   quarantined (the frozen counter poisons the rest of the window) with
+   their sample ranges, the device counter at batches less skips, the
+   state bit for bit that of the unguarded run that never ran those
+   batches; (c) ``spike:step=15`` under ``action=rollback`` with
+   snapshots every 10: rolled back from 20 to 10 (tombstone, generation
+   1) and finished on the clean run's state bit for bit; (d) ``action=
+   halt`` through a CLI subprocess: ``diverged:``, exit 65; (e) three gloo
+   ranks of the reference ``Net`` on the card (``--guard-worker``),
+   ``sdc:step=3,rank=2`` with the audit every 2 steps: every rank halts
+   naming rank 2 and ``conv1/bias``, the step-3 snapshot quarantined; the
+   windowed ms per update and an epoch's ms per update guarded and not, in
+   turns, and the guard's fence host ms per window;
+16. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 Phases 1-11 keep the streamed feed (``--data.device_resident=off``), so
 their numbers stay comparable with earlier runs.
@@ -222,8 +242,9 @@ the header, the build and the named phases alone (a four-card machine's
 multi-card check), without the kernels' line; ``--only
 resnet50_kernels,resnet50,resnet50_windows,resnet50_ddp`` runs phase 10
 alone, ``--only sharded`` phase 11, ``--only resident,presets`` phases
-12 and 13 and ``--only resilience`` phase 14. ``--ddp-worker SPEC`` is
-phase 7's rank process.
+12 and 13, ``--only resilience`` phase 14 and ``--only guard`` phase 15.
+``--ddp-worker SPEC`` is phase 7's rank process, ``--guard-worker SPEC``
+phase 15's.
 
 Every timed case also prints ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
@@ -347,6 +368,33 @@ RESIL_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
               f"--data.synthetic_test_size={2 * TRAIN_B}",
               f"--train.epochs={RESIL_EPOCHS}", "--train.log_every=100",
               f"--train.steps_per_call={RESIL_K}"]
+#: phase 15: the guarded main path (the preset with the kernel knobs, the
+#: default resident feed, augmentation on): windows of 10, one epoch of 30
+#: updates; the device seam's faults and the SDC ranks' Net run.
+GUARD_K, GUARD_UPDATES = 10, 30
+GUARD_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
+              "--model.fused_bwd=true", "--train.pallas_xent=true",
+              "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
+              f"--data.synthetic_train_size={GUARD_UPDATES * TRAIN_B}",
+              f"--data.synthetic_test_size={2 * TRAIN_B}",
+              "--train.epochs=1", "--train.log_every=100",
+              f"--train.steps_per_call={GUARD_K}"]
+GUARD_NAN_STEP = 13
+GUARD_SPIKE = ["--guard.action=rollback",
+               "--resilience.snapshot_every_steps=10",
+               "--resilience.fault=spike:step=15,scale=1e6",
+               "--guard.spike_min_steps=4", "--guard.spike_window=16",
+               "--guard.spike_z=12"]
+GUARD_SDC_WORLD = 3
+GUARD_SDC_ARGS = ["--data.dataset=synthetic",
+                  "--data.synthetic_train_size=48",
+                  "--data.synthetic_test_size=8", "--train.epochs=1",
+                  "--train.log_every=100", "--train.eval_at_end=false",
+                  "--resilience.handle_signals=false",
+                  "--guard.enabled=true", "--guard.sdc_every_steps=2",
+                  "--guard.sdc_action=halt",
+                  "--resilience.snapshot_every_steps=1",
+                  "--resilience.fault=sdc:step=3,rank=2"]
 
 
 def bf16_ulp(mag: float) -> float:
@@ -4550,6 +4598,334 @@ def phase_resilience(out):
         raise AssertionError(f"resilience checks failed: {failed}")
 
 
+def _guard_args(where, *extra):
+    return GUARD_ARGS + [f"--train.ckpt_dir={where}", *extra]
+
+
+def _guard_oracle(args, drop):
+    """The unguarded main path, one update a call, whose updates of the
+    batches ``drop`` (0-based, in feed order) never run: the guard's
+    never-saw-it oracle (the update counter does not move for them)."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.train.trainer import Trainer
+
+    t = Trainer(parse_cli(args + ["--train.steps_per_call=1"]))
+    real, seen = t.train_step, [0]
+
+    def step(state, batch):
+        seen[0] += 1
+        if seen[0] - 1 in drop:
+            zero = torch.zeros((), device=t.device)
+            return {"loss": zero, "correct": zero.long(),
+                    "count": t.step_body.count(batch["label"])}
+        return real(state, batch)
+
+    t.train_step = step
+    t.fit()
+    return t
+
+
+def guard_worker(spec_path: str) -> int:
+    """One rank of phase 15's SDC audit (``chip_smoke.py --guard-worker
+    SPEC``): joins the gloo group SPEC names on ``cuda:0`` (NCCL refuses
+    two ranks on one card; the checksums are gathered on the host
+    anyway), fits the port's `Trainer` on ``SPEC["args"]`` and writes
+    whether and how it halted to ``SPEC["out"]`` (JSON)."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.parallel.dist import initialize, shutdown
+    from tpu_dp_torch.resilience import DivergedError
+    from tpu_dp_torch.train.trainer import Trainer
+
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(backend="gloo", init_method=spec["init"],
+               world_size=spec["world"], rank=spec["rank"], device="cuda:0",
+               timeout_s=300)
+    rec = {"rank": spec["rank"], "diverged": None}
+    try:
+        t = Trainer(parse_cli(spec["args"]), device="cuda:0")
+        try:
+            t.fit()
+        except DivergedError as e:
+            rec["diverged"] = str(e)
+        rec.update(host_step=t._host_step, device=str(t.device),
+                   backend=t.ctx.backend, world=t.ctx.world,
+                   counters={k: v for k, v in counters.snapshot().items()
+                             if k.startswith("guard.")})
+    finally:
+        shutdown()
+    with open(spec["out"], "w", encoding="utf-8") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _start_guard_ranks(work: str) -> list:
+    """`guard_worker` ranks of the SDC audit, started (rendezvous and
+    records in ``work``, also their ckpt_dir)."""
+    os.makedirs(work, exist_ok=True)
+    procs = []
+    for rank in range(GUARD_SDC_WORLD):
+        spec = {"rank": rank, "world": GUARD_SDC_WORLD,
+                "init": "file://" + os.path.join(work, "rendezvous"),
+                "args": GUARD_SDC_ARGS + [
+                    f"--train.ckpt_dir={os.path.join(work, 'ck')}",
+                    f"--obs.run_dir={os.path.join(work, 'obs')}"],
+                "out": os.path.join(work, f"rank{rank}.json")}
+        path = os.path.join(work, f"spec{rank}.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(spec, f)
+        env = dict(os.environ)
+        env.pop("TPU_DP_FAULT", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--guard-worker",
+             path], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _guard_epoch_ms(t) -> float:
+    """Host ms per update of one more epoch of ``t`` (fenced): the guard's
+    per-window fetch included when it is on."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train_epoch(0)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / GUARD_UPDATES
+
+
+def phase_guard(out):
+    """15: the guard on the main path (module docstring): (a) guarded
+    against unguarded, bit for bit, with the books and the costs; (b)
+    ``nan:step=13`` skipped against the never-saw-it oracle; (c) a spike
+    rolled back to the step-10 snapshot; (d) a halt through the CLI,
+    exit 65; (e) the SDC audit of three gloo ranks on the card naming
+    rank 2. The CLI and the ranks run beside the in-process work; every
+    timing is taken after they ended."""
+    import torch
+
+    from tpu_dp_torch.checkpoint import QUARANTINED_MARKER
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.resilience import QuarantineLog
+    from tpu_dp_torch.train.trainer import Trainer
+
+    checks, rec = {}, {"card": out["card"], "k": GUARD_K,
+                       "updates": GUARD_UPDATES}
+    out["guard"] = rec  # filled in place: kept when a check fails
+    rec["checks"] = checks
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_guard_")
+    where = lambda name: os.path.join(tmp.name, name)  # noqa: E731
+    on_flag = "--guard.enabled=true"
+    procs = []
+    try:
+        # (d) the halt through the CLI: nan:step=5 poisons the rest of the
+        # first window; its boundary halts. (e) the SDC ranks.
+        t0 = time.perf_counter()
+        halt = _train_cli(_guard_args(where("halt"), on_flag,
+                                      "--guard.action=halt",
+                                      "--resilience.fault=nan:step=5"))
+        procs.append(halt)
+        sdc_procs = _start_guard_ranks(where("sdc"))
+        procs += sdc_procs
+        # (a) unguarded, then guarded: the main path, its books read right
+        # after each fit.
+        off = Trainer(parse_cli(_guard_args(where("off"))))
+        res_off, ran_off = _fit_books(off)
+        ref = (list(off.step_losses), _flat_state(off))
+        on = Trainer(parse_cli(_guard_args(where("on"), on_flag)))
+        fences0 = counters.get("guard.fences")
+        res_on, ran_on = _fit_books(on)
+        keys = ("conv.stats", "conv.input_grad", "conv.eval", "xent.forward",
+                "xent.backward", "augment")
+        rec["launches"] = {"on": {k: ran_on[k] for k in keys},
+                           "off": {k: ran_off[k] for k in keys}}
+        fit_fences = counters.get("guard.fences") - fences0
+        checks.update({
+            "a_windows_captured": on.multi_step.graph is not None
+            and off.multi_step.graph is not None
+            and on.resident_train is not None,
+            "a_losses_bit_identical": on.step_losses == ref[0],
+            "a_state_bit_identical": _same_state(_flat_state(on), ref[1]),
+            "a_eval_equal": res_on["eval"] == res_off["eval"],
+            "a_books_unchanged_by_counter":
+                rec["launches"]["on"] == rec["launches"]["off"],
+            "a_books_per_update": _per_update_ok(ran_on, GUARD_UPDATES,
+                                                 len(on.test_pipe))
+            and ran_on["augment"] == GUARD_UPDATES,
+            "a_nothing_quarantined": not QuarantineLog(
+                on.quarantine_path).read(),
+            "a_one_fence_per_window": fit_fences
+            == GUARD_UPDATES // GUARD_K})
+        # The books by kernel name per replay, guarded and not. The
+        # profiler loses records late in a long call and never adds any,
+        # so each kernel's count is its most over the sessions: the conv
+        # and xent kernels' equal to the books, guarded and not. The draw
+        # kernel's is recorded: late in a full call the profiler reads 19
+        # of a replay pair's 20 draw records in every session (phase 14).
+        it = on.train_pipe.index_windows(GUARD_K)
+        _, idx = next(it)
+        it.close()
+        want = {"conv_block_kernel": 20 * GUARD_K, "xent_fwd": GUARD_K,
+                "xent_bwd": GUARD_K, "crop_flip_draws": GUARD_K}
+        by_name = {}
+        for tag, t in (("on", on), ("off", off)):
+            table = t.resident_train
+            ok, sessions = _profiled_books(
+                lambda: t.multi_step(t.state, table, idx), want)
+            by_name[tag] = {"matches_books": ok, "sessions": sessions,
+                            "most": {k: max(s["by_name"][k]
+                                            for s in sessions)
+                                     for k in want}}
+        rec["profiled_per_replay"] = by_name
+        checks["a_books_by_kernel_name"] = all(
+            v["most"][k] == want[k] for v in by_name.values()
+            for k in ("conv_block_kernel", "xent_fwd", "xent_bwd"))
+        # (b) nan:step=13 under action=skip: the counter freezes at 13, so
+        # the rest of that window is quarantined too (disarmed at its
+        # boundary, 20); then the never-saw-it oracle.
+        nan = Trainer(parse_cli(_guard_args(
+            where("nan"), on_flag,
+            f"--resilience.fault=nan:step={GUARD_NAN_STEP}")))
+        nan.fit()
+        quarantined = [r for r in QuarantineLog(nan.quarantine_path).read()
+                       if r["kind"] == "quarantine"]
+        drop = {r["step"] - 1 for r in quarantined}
+        window = range(GUARD_NAN_STEP + 1, 2 * GUARD_K + 1)
+        rec["nan"] = {"quarantined_steps": [r["step"] for r in quarantined],
+                      "reasons": sorted({r["reason"] for r in quarantined}),
+                      "device_counter": int(nan.step_body.step_t),
+                      "host_step": nan._host_step}
+        checks.update({
+            "b_quarantined_rest_of_window": [r["step"] for r in quarantined]
+            == list(window),
+            "b_sample_ranges": all(
+                r["sample_range"] == [(r["step"] - 1) * TRAIN_B,
+                                      r["step"] * TRAIN_B]
+                for r in quarantined),
+            "b_device_counter_is_batches_less_skips":
+                int(nan.step_body.step_t) == nan.state.step
+                == GUARD_UPDATES - len(window)
+                and nan._host_step == GUARD_UPDATES})
+        oracle = _guard_oracle(_guard_args(where("oracle")), drop)
+        checks["b_state_bit_identical_to_oracle"] = _same_state(
+            _flat_state(nan), _flat_state(oracle))
+        for t in (nan, oracle):
+            if t.multi_step is not None:
+                t.multi_step.close()
+        del nan, oracle
+        # (c) spike:step=15 under action=rollback with snapshots every 10:
+        # detected at the boundary at 20, rolled back to the step-10
+        # snapshot, replayed to the end: the clean run's state.
+        sp = Trainer(parse_cli(_guard_args(where("spike"), on_flag,
+                                           *GUARD_SPIKE)))
+        sp.fit()
+        recs = QuarantineLog(sp.quarantine_path).read()
+        tombs = [r for r in recs if r["kind"] == "tombstone"]
+        rec["spike"] = {"records": [{k: r.get(k) for k in (
+            "kind", "step", "from_step", "to_step", "rollback_generation",
+            "field")} for r in recs], "generation": sp._rollback_gen}
+        checks.update({
+            "c_rolled_back_20_to_10": [(r["from_step"], r["to_step"])
+                                       for r in tombs] == [(20, 10)]
+            and sp._rollback_gen == 1,
+            "c_finished": sp.state.step == sp._host_step == GUARD_UPDATES,
+            "c_replay_equals_clean_run": _same_state(_flat_state(sp),
+                                                     ref[1])})
+        sp.multi_step.close()
+        del sp
+        # (d), (e): the subprocesses.
+        hlog, _ = halt.communicate(timeout=600)
+        rec["halt"] = {"rc": halt.returncode, "log_tail": hlog[-1200:]}
+        checks.update({"d_halt_exit_65": halt.returncode == 65,
+                       "d_halt_prints_diverged": "diverged: guard halt: "
+                       "non-finite update" in hlog})
+        ranks = []
+        for rank, p in enumerate(sdc_procs):
+            log, _ = p.communicate(timeout=600)
+            path = where(f"sdc/rank{rank}.json")
+            got = {"rc": p.returncode, "log_tail": log[-1500:]}
+            if os.path.exists(path):
+                with open(path, encoding="utf-8") as f:
+                    got.update(json.load(f))
+            ranks.append(got)
+        rec["subprocesses_wall_s"] = time.perf_counter() - t0
+        qrecs = QuarantineLog(where("sdc/ck/quarantine.jsonl")).read()
+        sdc = [r for r in qrecs if r["kind"] == "sdc"]
+        snaps = where("sdc/ck/snapshots")
+        marked = sorted(d for d in os.listdir(snaps) if os.path.exists(
+            os.path.join(snaps, d, QUARANTINED_MARKER))) if os.path.isdir(
+            snaps) else []
+        rec["sdc"] = {"ranks": ranks, "records": sdc,
+                      "quarantined_saves": marked}
+        checks.update({
+            "e_ranks_on_the_card_under_gloo": all(
+                r.get("rc") == 0 and r.get("device") == "cuda:0"
+                and r.get("backend") == "gloo"
+                and r.get("world") == GUARD_SDC_WORLD for r in ranks),
+            "e_every_rank_halted": all(
+                "suspect rank(s) [2]" in (r.get("diverged") or "")
+                for r in ranks),
+            "e_names_rank_2_and_the_leaf": bool(sdc)
+            and sdc[0]["suspects"] == [2]
+            and sdc[0]["leaves"].get("2") == ["conv1/bias"],
+            "e_saves_after_last_clean_audit_quarantined":
+                marked == ["step_0000000003"]})
+        # Timed on a quiet card: the windowed update guarded and not, and
+        # an epoch's ms per update with the guard's fetch, in turns.
+        win = {"on": [], "off": []}
+        for tag, t in (("on", on), ("off", off), ("off", off), ("on", on)):
+            it = t.train_pipe.index_windows(GUARD_K)
+            _, idx = next(it)
+            it.close()
+            table = t.resident_train
+            win[tag].append(cuda_median_ms(
+                lambda: t.multi_step(t.state, table, idx), reps=5,
+                warm=2) / GUARD_K)
+        rec["windowed_ms_per_update"] = win
+        f0, s0 = counters.get("guard.fences"), counters.get("guard.fence_s")
+        epoch = {"on": [], "off": []}
+        for tag, t in (("on", on), ("off", off), ("off", off), ("on", on)):
+            epoch[tag].append(_guard_epoch_ms(t))
+        rec["epoch_ms_per_update"] = epoch
+        fences = counters.get("guard.fences") - f0
+        rec["fence_ms_timed"] = {
+            "windows": fences, "mean": 1e3 * (counters.get("guard.fence_s")
+                                              - s0) / max(1.0, fences)}
+        for t in (on, off):
+            t.multi_step.close()
+        del on, off
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+        tmp.cleanup()
+    fence = rec["fence_ms_timed"]
+    print(f"[guard] {out['card']}: windowed ms per update on/off "
+          f"{rec['windowed_ms_per_update']}; epoch ms per update on/off "
+          f"{rec['epoch_ms_per_update']}; fence host ms per window "
+          f"{fence['mean']:.3f} (mean of {fence['windows']:g}); nan "
+          f"{rec['nan']}; subprocesses {rec['subprocesses_wall_s']:.1f} s")
+    failed = [n for n, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"guard checks failed: {failed}")
+
+
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     """One kernels-line entry whose times sum ``recs`` (one per launch of
     a step or forward)."""
@@ -4706,13 +5082,15 @@ PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
           phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows,
           phase_resnet50_kernels, phase_resnet50, phase_resnet50_windows,
           phase_resnet50_ddp, phase_sharded, phase_resident, phase_presets,
-          phase_resilience)
+          phase_resilience, phase_guard)
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--ddp-worker"]:
         return ddp_worker(argv[1])
+    if argv[:1] == ["--guard-worker"]:
+        return guard_worker(argv[1])
     # ``--only a,b``: header, build and the named phases (e.g. the
     # multi-card phase alone on a four-card machine); no kernels line.
     only = None

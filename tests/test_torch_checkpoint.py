@@ -375,9 +375,9 @@ def test_config_dicts_load_in_both_packages(tmp_path):
         parse_cli([f"--config={jmeta}"])
     assert parse_cli([f"--config={jmeta}", "--resume"]) == parse_cli(
         args + ["--resume"])
-    bad = jax_config.parse_cli(args + ["--guard.enabled=true"]).to_dict()
+    bad = jax_config.parse_cli(args + ["--serve.max_queue=8"]).to_dict()
     jmeta.write_text(json.dumps({"config": bad}))
-    with pytest.raises(NotPortedError, match="guard.enabled"):
+    with pytest.raises(NotPortedError, match="serve.max_queue"):
         parse_cli([f"--config={jmeta}", "--train.ckpt_dir=x"])
     with pytest.raises(ValueError, match="auto"):
         parse_cli(["--resume=never"])

@@ -3,9 +3,9 @@
 the applicable cases of tests/test_resilience.py).
 
 - Fault plans parse as the JAX package parses them (fields, round trip,
-  errors); the kinds the port cannot fire yet are refused before a run
-  starts, ``nan``/``spike`` with the JAX package's own message and the
-  others naming their ROADMAP item.
+  errors); the kinds the run cannot fire are refused before it starts,
+  ``nan``/``spike`` without the guard with the JAX package's own message
+  and the elastic ones naming their ROADMAP item.
 - Retry: the backoff schedule, retries then success, exhaustion, terminal
   errors, and the IO budget's schedule equal to the JAX package's.
 - Snapshots: cadence crossing, double-buffer isolation and retention; the
@@ -147,10 +147,10 @@ def test_nan_fault_is_refused_with_the_jax_packages_message(tmp_path):
 
 @pytest.mark.parametrize("spec,item", [
     ("spike:step=4,scale=10", "guard.enabled=true"),
-    ("sdc:step=4", "item 9c"), ("leave:step=4", "item 9d"),
+    ("drop:step=2,rank=1", "item 9d"), ("leave:step=4", "item 9d"),
     ("relaunch:step=4,rank=1", "item 9d"), ("drop:step=4", "item 9d"),
     ("slowfs:step=4,ms=5", "item 9d"),
-    ("kill:step=9;sdc:step=4", "item 9c")])
+    ("kill:step=9;relaunch:step=4", "item 9d")])
 def test_faults_of_later_items_are_refused(tmp_path, monkeypatch, spec,
                                            item):
     with pytest.raises(ValueError, match=item):

@@ -182,7 +182,7 @@ def test_augmentation_statistics():
 @pytest.mark.parametrize("knob", [
     "--train.verify_fingerprint=true",
     "--train.recompile_guard=raise", "--resilience.membership_dir=m",
-    "--guard.enabled=true", "--resilience.elastic=true",
+    "--serve.max_queue=8", "--resilience.elastic=true",
     "--obs.prom_path=x", "--train.obs=basic", "--train.profile_dir=p",
     "--model.fused_block_b=4",
     "--train.metrics_path=m.jsonl", "--train.profile_steps=1:2",

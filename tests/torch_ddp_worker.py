@@ -21,7 +21,7 @@ With ``"job": "trainer"`` the rank instead runs the port's `Trainer` on
 the CLI arguments ``args`` (`run_trainer`), and with ``"job": "eval"`` it
 evaluates a fresh `Trainer` once per test-set size of ``sizes``
 (`run_evals`); ``rank_args`` (``{rank: [...]}``) appends arguments for
-one rank.
+one rank, and ``drop`` batches whose update never runs (`run_trainer`).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def flat_state(trainer) -> dict:
 
 
 def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
-                snapshot=False) -> dict:
+                snapshot=False, drop=()) -> dict:
     """The port's `Trainer` on CLI ``args`` (in a group when ``init`` is
     given). ``stop_at_step``: the run is interrupted just before that
     global step, after the pending epoch save is written; with
@@ -56,10 +56,16 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
     after construction (after any resume), the start position, the
     per-step losses, the final state and the eval. A run that ends in
     `PreemptedError` (``resilience.fault=preempt:...``) returns with
-    ``preempted`` set to its message."""
+    ``preempted`` set to its message, one that ends in `DivergedError`
+    (the guard's halt) with ``diverged`` set to its. ``drop``: indices,
+    in feed order, of batches whose update is never run (the guard's
+    never-saw-it oracle; one update a call): they count no loss and leave
+    the state and the update counter alone. Also returned: the host's
+    batch clock (``host_step``) and the guard's counters."""
     from tpu_dp_torch.checkpoint import CheckpointManager
     from tpu_dp_torch.config import parse_cli
-    from tpu_dp_torch.resilience import PreemptedError
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.resilience import DivergedError, PreemptedError
     from tpu_dp_torch.train.trainer import Trainer
 
     cfg = parse_cli(args)
@@ -79,12 +85,26 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
             return real(state, batch)
 
         trainer.train_step = step
+    if drop:
+        real_step, seen = trainer.train_step, [0]
+
+        def dropping(state, batch):
+            seen[0] += 1
+            if seen[0] - 1 in drop:
+                zero = torch.zeros(())
+                return {"loss": zero, "correct": zero.long(),
+                        "count": trainer.step_body.count(batch["label"])}
+            return real_step(state, batch)
+
+        trainer.train_step = dropping
     result = None
-    out["preempted"] = None
+    out["preempted"] = out["diverged"] = None
     try:
         result = trainer.fit()
     except PreemptedError as e:
         out["preempted"] = str(e)
+    except DivergedError as e:
+        out["diverged"] = str(e)
     except _Stop:
         trainer.ckpt_mgr.wait()
         if snapshot:
@@ -96,7 +116,10 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
                 trainer.state, meta)
     out.update(losses=list(trainer.step_losses), final=flat_state(trainer),
                eval=None if result is None else result.get("eval"),
-               spe=len(trainer.train_pipe))
+               spe=len(trainer.train_pipe), host_step=trainer._host_step,
+               step=trainer.state.step,
+               counters={k: v for k, v in counters.snapshot().items()
+                         if k.startswith("guard.")})
     return out
 
 
@@ -130,7 +153,8 @@ def main(spec_path: str) -> int:
             if spec["job"] == "trainer":
                 out = run_trainer(args, **group,
                                   stop_at_step=spec.get("stop_at_step"),
-                                  snapshot=spec.get("snapshot", False))
+                                  snapshot=spec.get("snapshot", False),
+                                  drop=set(spec.get("drop", ())))
             else:
                 out = run_evals(args, spec["sizes"], **group)
         finally:

@@ -1,7 +1,8 @@
 """Configuration of the port (the parts of `tpu_dp.config` it reads).
 
 Training: the `ModelConfig` / `DataConfig` / `OptimConfig` /
-`TrainConfig` / `ParallelConfig` fields the trainer implements, the presets and `parse_cli`
+`TrainConfig` / `ParallelConfig` / `ResilienceConfig` / `GuardConfig` /
+`ObsConfig` fields the trainer implements, the presets and `parse_cli`
 (``--preset=name`` or ``--config=file``, ``--resume``, then
 ``--section.field=value``), with the JAX package's defaults and preset
 values. Every other field the JAX package knows is listed in `NOT_PORTED`
@@ -144,6 +145,41 @@ class ResilienceConfig:
 
 
 @dataclass
+class GuardConfig:
+    """Training guardrails (`tpu_dp_torch.resilience.guard`): the
+    NaN/divergence sentinel on the device, bad-batch quarantine, the
+    cross-replica SDC audit and auto-rollback; the JAX package's fields
+    and defaults."""
+
+    # Master switch: the sentinel in every train step (the health summary
+    # and the guarded update on the device) and the policy at window
+    # boundaries. Off, the step is the unguarded one, bit for bit.
+    enabled: bool = False
+    # warn | skip | rollback | halt: "skip" quarantines the batch (its
+    # update withheld on the device), "rollback" rewinds to the newest
+    # complete save, "halt" raises DivergedError (exit 65).
+    action: str = "skip"
+    # Spike detector: robust z-score over the trailing window of applied
+    # steps, armed after spike_min_steps observations.
+    spike_window: int = 64
+    spike_z: float = 8.0
+    spike_min_steps: int = 16
+    # Under action=skip, arm the device-side loss cap from the window.
+    device_cap: bool = True
+    # Rollbacks without progress before the policy escalates to halt.
+    max_rollbacks: int = 3
+    # LR ease-in after a rollback: lr_ease_start back to 1.0 over
+    # lr_ease_steps steps (0 = off).
+    lr_ease_steps: int = 0
+    lr_ease_start: float = 0.1
+    # Cross-replica SDC audit cadence in optimizer steps (0 = off).
+    sdc_every_steps: int = 0
+    sdc_action: str = "halt"  # warn | halt
+    # quarantine.jsonl sink ("" = <train.ckpt_dir>/quarantine.jsonl).
+    quarantine_path: str = ""
+
+
+@dataclass
 class ObsConfig:
     """The telemetry fields the port runs: the flight recorder's."""
 
@@ -160,6 +196,7 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    guard: GuardConfig = field(default_factory=GuardConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
 
     def override(self, dotted: str, value: str) -> None:
@@ -237,17 +274,11 @@ class Config:
 
 
 _SECTIONS = ("model", "data", "optim", "train", "parallel", "resilience",
-             "obs")
+             "guard", "obs")
 
 #: Sections of the JAX package's config the trainer does not read yet,
 #: with the JAX package's defaults (a meta.json carries them).
 NOT_PORTED_SECTIONS: dict[str, dict[str, Any]] = {
-    "guard": {
-        "enabled": False, "action": "skip", "spike_window": 64,
-        "spike_z": 8.0, "spike_min_steps": 16, "device_cap": True,
-        "max_rollbacks": 3, "lr_ease_steps": 0, "lr_ease_start": 0.1,
-        "sdc_every_steps": 0, "sdc_action": "halt", "quarantine_path": "",
-    },
     "serve": {
         "buckets": "1,2,4,8,16,32", "max_wait_ms": 5.0, "max_queue": 256,
         "slo_ms": 50.0, "shed_headroom_ms": 0.0, "obs_dir": "",
@@ -301,7 +332,7 @@ NOT_PORTED: dict[str, Any] = {
 #: The ROADMAP Queue 1 item that ports each refused section or field
 #: (longest matching prefix); `model.fused_block_b` stays refused by design.
 _NOT_PORTED_ITEMS = {
-    "resilience": "9d", "guard": "9c", "obs": "10", "serve": "11",
+    "resilience": "9d", "obs": "10", "serve": "11",
     "train.profile_dir": "10", "train.obs": "10", "train.metrics_path": "10",
     "train.profile_steps": "10", "train.profile": "12",
     "train.recompile_guard": "11", "train.verify_fingerprint": "13",
@@ -370,7 +401,9 @@ def _require_default(dotted: str, value: Any, default: Any) -> None:
 def check_ported(cfg: Config) -> Config:
     """Raise `NotPortedError` for a configuration the port cannot run
     (a model other than net, resnet18 and resnet50, more than one device
-    per process), `ValueError` for one that is invalid (a feed mode other
+    per process), `ValueError` for one that is invalid (an enabled guard's
+    knobs, `check_guard`; a ``nan:``/``spike:`` fault without the guard;
+    a feed mode other
     than auto|on|off; the device-resident feed forced on, gradient
     accumulation or a window above 1, each with a ragged final batch;
     gradient accumulation below 1, a negative window; the sharded
@@ -404,6 +437,8 @@ def check_ported(cfg: Config) -> Config:
         raise ValueError("train.steps_per_call > 1 requires "
                          "data.drop_remainder=true")
     _check_update_sharding(cfg.train)
+    if cfg.guard.enabled:
+        check_guard(cfg.guard)
     if cfg.resilience.fault:
         from tpu_dp_torch.resilience.faultinject import (
             FaultPlan,
@@ -411,8 +446,21 @@ def check_ported(cfg: Config) -> Config:
         )
 
         refuse_unported([p.kind for p in FaultPlan.parse_schedule(
-            cfg.resilience.fault)])
+            cfg.resilience.fault)], guard_enabled=cfg.guard.enabled)
     return cfg
+
+
+def check_guard(guard: GuardConfig) -> None:
+    """The JAX package's checks of an enabled guard, in its order and with
+    its messages (its `GuardHook` and `GuardPolicy`): ``sdc_action``,
+    ``action``, ``spike_window``, ``spike_z``."""
+    from tpu_dp_torch.resilience.guard import GuardPolicy
+
+    if guard.sdc_action not in ("warn", "halt"):
+        raise ValueError(
+            f"guard.sdc_action must be warn|halt, got {guard.sdc_action!r}")
+    GuardPolicy(action=guard.action, spike_window=guard.spike_window,
+                spike_z=guard.spike_z)
 
 
 def _check_update_sharding(train: TrainConfig) -> None:

@@ -230,6 +230,28 @@ def broadcast_one_to_all(x, group=None):
     return box[0]
 
 
+def cross_rank_gather(payload, group=None):
+    """Every rank's ``payload`` (a small numpy array of one shape and
+    dtype on every rank), stacked ``[world, ...]`` in rank order, on every
+    rank (port of the JAX package's `cross_rank_gather`, the guard's SDC
+    audit transport). An all-gather, not a broadcast: every rank must see
+    a divergence. The bytes travel as uint8 on a CPU tensor under gloo,
+    on the rank's card under NCCL. Alone: the stack of one."""
+    import numpy as np
+
+    arr = np.ascontiguousarray(np.asarray(payload))
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return arr[None]
+    dev = (_ctx.device if _ctx is not None and _ctx.backend == "nccl"
+           else torch.device("cpu"))
+    mine = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy()).to(dev)
+    parts = [torch.empty_like(mine)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    raw = torch.stack(parts).cpu().numpy()
+    return raw.view(arr.dtype).reshape((len(parts),) + arr.shape)
+
+
 def describe(device=None) -> dict:
     """Topology summary for the run header: what this process drives, and
     its place in the group."""

@@ -1,12 +1,27 @@
 """Resilience of the port (of `tpu_dp.resilience`): step snapshots, the
-preemption handler and resume, the IO retry budget and deterministic
-fault injection. The guard (ROADMAP Queue 1 item 9c) and elastic world
-size (item 9d) are not ported yet."""
+preemption handler and resume, the IO retry budget, deterministic fault
+injection and the training guard (the divergence policy, the quarantine
+log and the SDC audit). Elastic world size (ROADMAP Queue 1 item 9d) is
+not ported yet."""
 
 from tpu_dp_torch.resilience.faultinject import (
+    GUARD_KINDS,
     KILL_EXIT_CODE,
     FaultInjector,
     FaultPlan,
+)
+from tpu_dp_torch.resilience.guard import (
+    DIVERGED_EXIT_CODE,
+    DivergedError,
+    GuardPolicy,
+    GuardTrigger,
+    QuarantineLog,
+    digest_of_sums,
+    leaf_paths,
+    live_records,
+    params_checksum,
+    robust_stats,
+    sdc_verdict,
 )
 from tpu_dp_torch.resilience.preempt import (
     PREEMPTED_EXIT_CODE,
@@ -24,8 +39,11 @@ from tpu_dp_torch.resilience.retry import (
 )
 from tpu_dp_torch.resilience.snapshot import SnapshotManager
 
-__all__ = ["KILL_EXIT_CODE", "PREEMPTED_EXIT_CODE", "FaultInjector",
-           "FaultPlan", "PeerFailedError", "PreemptedError",
-           "PreemptionHandler", "SnapshotManager", "configure_io_retry",
-           "find_candidates", "io_retry_params", "quarantine_save_dir",
-           "resume_latest", "retry_call"]
+__all__ = ["DIVERGED_EXIT_CODE", "GUARD_KINDS", "KILL_EXIT_CODE",
+           "PREEMPTED_EXIT_CODE", "DivergedError", "FaultInjector",
+           "FaultPlan", "GuardPolicy", "GuardTrigger", "PeerFailedError",
+           "PreemptedError", "PreemptionHandler", "QuarantineLog",
+           "SnapshotManager", "configure_io_retry", "digest_of_sums",
+           "find_candidates", "io_retry_params", "leaf_paths",
+           "live_records", "params_checksum", "quarantine_save_dir",
+           "resume_latest", "retry_call", "robust_stats", "sdc_verdict"]

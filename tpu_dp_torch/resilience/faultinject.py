@@ -2,16 +2,19 @@
 `tpu_dp.resilience.faultinject`: the same grammar, plans, firing order and
 exit code; the port never imports the JAX package).
 
-The port runs the step-boundary kinds ``kill``, ``preempt``, ``delay``
-and the storage kinds ``ioerr``, ``enospc``, ``torn`` and ``bitrot``.
-`refuse_unported` turns away the rest before a run starts, since a fault
-that silently never fires is the worst property an injector can have:
-``nan``/``spike`` with the JAX package's own message (their seam is the
-guard's sentinel step, ROADMAP Queue 1 item 9c), ``sdc`` (the guard's SDC
-audit, item 9c), ``leave``/``relaunch`` (elastic world size, item 9d),
-``drop`` (the JAX package's retrying host ring; the port's collectives go
-through `torch.distributed`) and ``slowfs`` (it slows the membership
-ledger's reads, and the port has no ledger before item 9d).
+The port runs the step-boundary kinds ``kill``, ``preempt``, ``delay``,
+the storage kinds ``ioerr``, ``enospc``, ``torn`` and ``bitrot``, and the
+guard's kinds (`GUARD_KINDS`): ``nan`` and ``spike`` through the
+sentinel step's seam (`device_fault`, `disarm_device`; they need
+``guard.enabled``, refused otherwise with the JAX package's message) and
+``sdc``, a bit flip in this rank's parameters (`take_sdc`; the Trainer's
+``_inject_sdc``). `refuse_unported` turns away the rest before a run
+starts, since a fault that silently never fires is the worst property an
+injector can have: ``leave``/``relaunch`` (elastic world size, ROADMAP
+Queue 1 item 9d), ``drop`` (the JAX package's retrying host ring; the
+port's collectives go through `torch.distributed`) and ``slowfs`` (it
+slows the membership ledger's reads, and the port has no ledger before
+item 9d).
 
 The JAX package's text follows.
 
@@ -119,7 +122,6 @@ KILL_EXIT_CODE = 137
 #: kinds the port refuses until the ROADMAP item that brings their seam:
 #: kind -> (item, what it needs).
 UNPORTED_KINDS = {
-    "sdc": ("9c", "the guard's cross-replica SDC audit (guard.*)"),
     "leave": ("9d", "elastic world size (resilience.elastic)"),
     "relaunch": ("9d", "elastic world size (resilience.elastic)"),
     "drop": ("9d", "the JAX package's retrying host ring; the port's "
@@ -128,13 +130,14 @@ UNPORTED_KINDS = {
 }
 
 
-def refuse_unported(kinds: Sequence[str]) -> None:
-    """Raise for a fault kind the port cannot fire: ``nan``/``spike``
-    with the JAX package's message (the guard is not ported, so
-    ``guard.enabled`` is false), the `UNPORTED_KINDS` with the ROADMAP
-    item that brings them."""
+def refuse_unported(kinds: Sequence[str], guard_enabled: bool = False
+                    ) -> None:
+    """Raise for a fault kind the run cannot fire: ``nan``/``spike``
+    without ``guard_enabled``, with the JAX package's message (their seam
+    is the sentinel step), and the `UNPORTED_KINDS` with the ROADMAP item
+    that brings them."""
     seam = [k for k in kinds if k in ("nan", "spike")]
-    if seam:
+    if seam and not guard_enabled:
         raise ValueError(
             f"TPU_DP_FAULT {seam[0]!r} requires guard.enabled=true "
             f"(the injection seam lives in the sentinel-enabled step "
@@ -349,3 +352,44 @@ class FaultInjector:
                 self.rank, plan.delay_ms, global_step,
             )
             time.sleep(plan.delay_ms / 1000.0)
+
+    # -- guardrail faults ------------------------------------------------
+
+    def device_fault(self) -> "FaultPlan | None":
+        """The armed ``nan:``/``spike:`` plan for this rank, or None.
+
+        The Trainer folds it into the sentinel's guard input (the seam
+        fires at ``step_t == plan.step`` on the device) and disarms it
+        through `disarm_device` at the first boundary past it. The seam
+        carries one fault, so composed schedules get at most one device
+        plan armed at a time (earliest-step first)."""
+        armed = [self.plans[i] for i in range(len(self.plans))
+                 if not self._fired[i]
+                 and self.plans[i].kind in ("nan", "spike")
+                 and (self.plans[i].rank < 0
+                      or self.plans[i].rank == self.rank)]
+        if not armed:
+            return None
+        return min(armed, key=lambda p: p.step)
+
+    def disarm_device(self, global_step: int) -> None:
+        """One-shot the device seam: past the fault step, stop arming it
+        (the sentinel's frozen step counter cannot disarm itself).
+
+        Strictly past: the device fires while ``step_t == K``, which is
+        the window whose END boundary is host step K+1; disarming at
+        ``>= K`` would strip the seam from the very window that fires it.
+        Until then every update of a window that reaches K with the
+        counter frozen there (each one quarantined) fires again, as in the
+        JAX package."""
+        for i, p in enumerate(self.plans):
+            if p.kind in ("nan", "spike") and global_step > p.step:
+                self._fired[i] = True
+
+    def take_sdc(self, global_step: int) -> "FaultPlan | None":
+        """Consume a due ``sdc:`` plan (the Trainer flips the bit)."""
+        for i, p in enumerate(self.plans):
+            if p.kind == "sdc" and self._due(i, global_step):
+                self._fired[i] = True
+                return p
+        return None

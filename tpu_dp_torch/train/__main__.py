@@ -45,6 +45,15 @@ training dumps the flight recorder to ``<ckpt_dir>/obs/flightrec_r<rank>.
 json`` (``obs.run_dir``); ``--resilience.fault=kill:step=K`` (or
 ``TPU_DP_FAULT``) exits 137 at the first window boundary at or past K.
 
+``--guard.enabled=true`` trains under the guard (the sentinel step, the
+quarantine log ``<ckpt_dir>/quarantine.jsonl``, ``guard.action`` skip,
+rollback, halt or warn, the SDC audit every ``guard.sdc_every_steps``);
+a halt prints ``diverged: ...`` and exits **65**, never 143, so a
+supervisor does not restart into the same divergence; the JSON line then
+carries a ``guard`` rollup. ``--resilience.fault=nan:step=K`` (or
+``spike:step=K,scale=S``, ``sdc:step=K,rank=R``) injects the guard's
+faults.
+
 ``--train.update_sharding=sharded`` trains with the sharded weight update
 (each rank keeps 1/world of the momentum), its gradient exchange in f32,
 ``--train.collective_dtype=bf16`` or ``=int8`` (``--train.
@@ -73,7 +82,8 @@ def main(argv=None) -> int:
 
     from tpu_dp_torch.config import parse_cli
     from tpu_dp_torch.parallel.dist import shutdown
-    from tpu_dp_torch.resilience import PreemptedError
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.resilience import DivergedError, PreemptedError
     from tpu_dp_torch.train.trainer import Trainer
 
     # f32 means f32: no TF32 in cuDNN's convs or in matmuls.
@@ -95,6 +105,13 @@ def main(argv=None) -> int:
             if trainer.ctx.is_main_process:
                 print(f"preempted: {e}", flush=True)
             return PreemptedError.exit_code
+        except DivergedError as e:
+            # The guard's halt: training is mathematically compromised.
+            # Exit 65 (EX_DATAERR), not 143, so a supervisor does not
+            # restart into the same divergence.
+            if trainer.ctx.is_main_process:
+                print(f"diverged: {e}", flush=True)
+            return DivergedError.exit_code
         if not trainer.ctx.is_main_process:
             return 0
         summary = {
@@ -118,6 +135,15 @@ def main(argv=None) -> int:
             "bucket_mb": cfg.train.bucket_mb,
             "momentum_bytes_per_rank": trainer.momentum_bytes_per_rank,
         }
+        if trainer.guard_enabled:
+            summary["guard"] = {
+                "quarantined": int(counters.get("guard.quarantined")),
+                "spikes": int(counters.get("guard.spike")),
+                "rollbacks": int(counters.get("guard.rollbacks")),
+                "sdc_audits": int(counters.get("guard.sdc_audits")),
+                "sdc_mismatches": int(counters.get("guard.sdc_mismatches")),
+                "quarantine_log": str(trainer.quarantine_path),
+            }
         print(json.dumps(summary), flush=True)
         return 0
     finally:

@@ -3,8 +3,8 @@
 
 The loop fires four fixed lifecycle points and each cross-cutting
 subsystem registers a `StepHook` instead of editing the loop. The hot
-path pays one list iteration per dispatched window; no hook here reads a
-device value.
+path pays one list iteration per dispatched window; no hook but the
+guard's reads a device value.
 
 Lifecycle (per `Trainer.train_epoch`):
 
@@ -20,21 +20,30 @@ Lifecycle (per `Trainer.train_epoch`):
 
 Hook order is load-bearing and owned by `Trainer._build_hooks`, as in the
 JAX package: the flight recorder first (it must record the very boundary
-a later hook raises out of), then the snapshot cadence, then fault
-injection (a kill at step K lands after the step-K snapshot, the
-kill/resume contract), and the preemption boundary last (it raises, and
-everything before it must have run for the final state to be coherent).
-The JAX package's guard, heartbeat and profiler hooks belong to ROADMAP
-Queue 1 items 9c and 10 and are not ported yet.
+a later hook raises out of), then the guard (a triggering window must
+not be snapshotted before its rollback picks a target), the snapshot
+cadence, fault injection (a kill at step K lands after the step-K
+snapshot, the kill/resume contract), and the preemption boundary last
+(it raises, and everything before it must have run for the final state
+to be coherent). The JAX package's heartbeat and profiler hooks belong
+to ROADMAP Queue 1 item 10 and are not ported yet.
+
+`GuardHook` is the one hook that reads the device: one fetch of the
+window's health per window (the guard's fence).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any
 
+import numpy as np
+import torch
+
 from tpu_dp_torch.obs import flightrec as _flightrec
+from tpu_dp_torch.obs.counters import counters as _counters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,18 +84,35 @@ class SnapshotHook(StepHook):
 
     def on_step_end(self, ev: StepEvent) -> None:
         tr = self.tr
+        if tr._sdc_suspect_active:
+            # An SDC audit found live divergence (the guard hook, earlier
+            # in this sweep): a snapshot now would be a fresh "newest
+            # complete" save carrying the corruption.
+            tr._log0("snapshot suppressed at step %d: SDC suspicion active",
+                     tr._host_step)
+            return
         if tr.snap_mgr.due(tr._host_step):
             tr._take_snapshot(ev.epoch, ev.done)
 
 
 class FaultHook(StepHook):
     """Deterministic fault injection (``resilience.fault`` /
-    ``TPU_DP_FAULT``, tests only): fires the plans whose step boundary was
+    ``TPU_DP_FAULT``, tests only): applies a due ``sdc:`` bit flip,
+    disarms the device seam's ``nan:``/``spike:`` plans once the boundary
+    passed their step, then fires the plans whose step boundary was
     reached (`FaultInjector.on_step`)."""
 
     def on_step_end(self, ev: StepEvent) -> None:
-        if self.tr.fault is not None:
-            self.tr.fault.on_step(self.tr._host_step)
+        tr = self.tr
+        if tr.fault is None:
+            return
+        # sdc and the disarm before on_step: a due kill never returns, and
+        # every other fault at that boundary lands first.
+        plan = tr.fault.take_sdc(tr._host_step)
+        if plan is not None:
+            tr._inject_sdc(plan)
+        tr.fault.disarm_device(tr._host_step)
+        tr.fault.on_step(tr._host_step)
 
 
 class FlightRecorderHook(StepHook):
@@ -131,3 +157,213 @@ class BoundaryHook(StepHook):
         tr = self.tr
         if tr.preempt is not None and tr.preempt.requested:
             tr._preempt_exit(ev.epoch, ev.done)
+
+
+class GuardHook(StepHook):
+    """Training guardrails (`tpu_dp_torch.resilience.guard`; the JAX
+    package's `GuardHook`).
+
+    - Before a window (`guard_in`): the sentinel's input, the armed device
+      loss cap (spike skip), the LR ease after a rollback and the
+      ``nan:``/``spike:`` fault seam.
+    - After it (`on_step_end`): ONE fetch of the window's ``loss_raw``,
+      ``grad_norm`` and ``applied`` (the guard's fence), the host's update
+      counter settled to the device's, the policy fed, the quarantine
+      records written (rank 0) and the escalation: `Trainer._GuardRollback`
+      or `DivergedError`; the cross-replica SDC audit on its cadence. On
+      an SDC finding under ``sdc_action=halt`` every save newer than the
+      last clean audit is quarantine-marked and the run halts.
+
+    Every rank computes the same decision from the same values (the
+    sentinel's are equal on every rank), with no coordination beyond the
+    audit's all-gather. Left out until ROADMAP Queue 1 item 9d: the
+    elastic branches (evicting the SDC suspect, ``mark_suspect``, deferring
+    a rollback while a quiesce converges) and ``on_regroup``; until item
+    10 (``train.metrics_path``): the ``guard_*`` metrics events.
+    """
+
+    def __init__(self, trainer):
+        super().__init__(trainer)
+        from tpu_dp_torch.resilience.guard import GuardPolicy, QuarantineLog
+
+        cfg = trainer.cfg.guard  # checked by `config.check_guard`
+        self.policy = GuardPolicy(
+            action=cfg.action, spike_window=cfg.spike_window,
+            spike_z=cfg.spike_z, spike_min_steps=cfg.spike_min_steps,
+            device_cap=cfg.device_cap, max_rollbacks=cfg.max_rollbacks)
+        self.log = QuarantineLog(trainer.quarantine_path)
+        self._leaf_paths = None
+        self._sdc_marker = -1      # cadence-crossing marker (audit)
+        self._last_clean_audit = 0  # newest step a clean audit covered
+        self._ease_from: int | None = None  # LR ease-in anchor step
+
+    # -- pre-dispatch ---------------------------------------------------
+
+    def guard_in(self, first_step: int, n: int) -> dict:
+        """The sentinel input for the window [first_step, first_step+n)."""
+        from tpu_dp_torch.train.step import default_guard_in
+
+        tr = self.tr
+        gi = default_guard_in()
+        cap = self.policy.loss_cap()
+        if math.isfinite(cap):
+            gi["loss_cap"] = np.float32(cap)
+        if self._ease_from is not None:
+            cfg = tr.cfg.guard
+            t = (first_step - self._ease_from) / max(1, cfg.lr_ease_steps)
+            if t >= 1.0:
+                self._ease_from = None
+            else:
+                gi["lr_scale"] = np.float32(
+                    cfg.lr_ease_start
+                    + (1.0 - cfg.lr_ease_start) * max(0.0, t))
+        if tr.fault is not None:
+            plan = tr.fault.device_fault()
+            if plan is not None:
+                gi["fault_step"] = int(plan.step)
+                gi["fault_scale"] = np.float32(
+                    np.nan if plan.kind == "nan" else plan.scale)
+        return gi
+
+    # -- rollback bookkeeping ------------------------------------------
+
+    def arm_lr_ease(self, from_step: int) -> None:
+        if self.tr.cfg.guard.lr_ease_steps > 0:
+            self._ease_from = int(from_step)
+
+    def on_rollback_rewind(self, to_step: int) -> None:
+        """Re-arm the audit cadence below the old high-water step (the
+        snapshot manager's `rewind` contract): without it the replayed
+        steps, exactly those that diverged, would go unaudited."""
+        self._sdc_marker = int(to_step)
+
+    # -- post-window ----------------------------------------------------
+
+    def on_step_end(self, ev: StepEvent) -> None:
+        tr = self.tr
+        first = tr._host_step - ev.n + 1
+        # The guard's fence, its host time in ``guard.fence_s`` over
+        # ``guard.fences``.
+        t0 = time.perf_counter()
+        vals = torch.stack([
+            torch.cat([m[k].reshape(-1).double() for m in ev.window])
+            for k in ("loss_raw", "grad_norm", "applied")], 1).tolist()
+        _counters.inc("guard.fence_s", time.perf_counter() - t0)
+        _counters.inc("guard.fences")
+        records = [{"step": first + k, "loss": v[0], "gnorm": v[1],
+                    "applied": int(v[2])} for k, v in enumerate(vals)]
+        skipped = sum(1 for r in records if not r["applied"])
+        if skipped:
+            tr.step_body.settle(tr.state, skipped)
+        triggers = self.policy.observe(records)
+        escalate = None
+        for t in triggers:
+            self._record_trigger(ev, t, first)
+            if t.action in ("rollback", "halt"):
+                escalate = t
+        if escalate is not None:
+            self._escalate(ev, escalate)
+        cfg = tr.cfg.guard
+        if cfg.sdc_every_steps > 0 and not tr._sdc_suspect_active:
+            prev = self._sdc_marker if self._sdc_marker >= 0 else 0
+            if (tr._host_step // cfg.sdc_every_steps
+                    > prev // cfg.sdc_every_steps):
+                self._sdc_marker = tr._host_step
+                self._sdc_audit(ev)
+
+    def _record_trigger(self, ev: StepEvent, t, first: int) -> None:
+        tr = self.tr
+        _counters.inc(f"guard.{t.kind}")
+        _flightrec.record("guard_trigger", step=t.step, trigger=t.kind,
+                          action=t.action, reason=t.reason)
+        tr._log0("guard: %s (action=%s)", t.reason, t.action)
+        if t.kind in ("nonfinite", "cap"):
+            _counters.inc("guard.quarantined")
+        if tr.ctx.rank != 0:
+            return
+        if t.kind in ("nonfinite", "cap"):
+            # The quarantined batch's sample-id range: the step's slice of
+            # the epoch's deterministic shuffle, (step in epoch) x global
+            # batch, re-identifiable from (seed, epoch).
+            pos = ev.done - ev.n + (t.step - first)
+            gbs = tr.global_batch_size
+            self.log.quarantine(
+                epoch=ev.epoch, step=t.step,
+                sample_range=(pos * gbs, (pos + 1) * gbs),
+                rank=tr.ctx.rank, reason=t.reason)
+        elif t.kind == "spike":
+            self.log.record("spike", step=t.step, field=t.field,
+                            value=t.value, z=t.z, action=t.action)
+
+    def _escalate(self, ev: StepEvent, t) -> None:
+        from tpu_dp_torch.resilience.guard import DivergedError
+        from tpu_dp_torch.train.trainer import _GuardRollback
+
+        tr = self.tr
+        if t.action == "halt":
+            _counters.inc("guard.halts")
+            _flightrec.record("guard_halt", step=tr._host_step,
+                              reason=t.reason)
+            raise DivergedError(f"guard halt: {t.reason}")
+        raise _GuardRollback(ev.epoch, ev.done, t)
+
+    # -- SDC audit ------------------------------------------------------
+
+    def _sdc_audit(self, ev: StepEvent) -> None:
+        from tpu_dp_torch.parallel.dist import cross_rank_gather
+        from tpu_dp_torch.resilience.guard import (
+            DivergedError,
+            digest_of_sums,
+            leaf_paths,
+            params_checksum,
+            sdc_verdict,
+        )
+
+        tr = self.tr
+        if self._leaf_paths is None:
+            self._leaf_paths = leaf_paths(tr.model)
+        sums = params_checksum(tr.model)
+        verdict = sdc_verdict(cross_rank_gather(sums), self._leaf_paths)
+        _counters.inc("guard.sdc_audits")
+        if verdict["consistent"]:
+            self._last_clean_audit = tr._host_step
+            return
+        _counters.inc("guard.sdc_mismatches")
+        _flightrec.record("guard_sdc", step=tr._host_step,
+                          suspects=list(verdict["suspects"]),
+                          majority=verdict["majority"])
+        detail = {
+            "step": tr._host_step,
+            "suspects": verdict["suspects"],
+            "majority": verdict["majority"],
+            "leaves": {str(r): v[:8] for r, v in verdict["leaves"].items()},
+            "last_clean_step": self._last_clean_audit,
+            "digest": digest_of_sums(sums)[:16],
+        }
+        tr._log0("guard: SDC audit MISMATCH at step %d — suspect rank(s) %s "
+                 "(divergent leaves: %s); params disagree bitwise across "
+                 "the data axis", tr._host_step, verdict["suspects"],
+                 detail["leaves"])
+        halting = tr.cfg.guard.sdc_action == "halt"
+        if tr.ctx.rank == 0:
+            self.log.record("sdc", **detail)
+            if halting:
+                # Every save since the last clean audit may carry the
+                # corruption: no rollback or resume may trust one. (warn
+                # records only.)
+                tr._quarantine_saves_after(
+                    self._last_clean_audit,
+                    reason=f"sdc mismatch at step {tr._host_step} "
+                           f"(suspects {verdict['suspects']})")
+        if not halting:
+            return
+        tr._sdc_suspect_active = True
+        _counters.inc("guard.halts")
+        raise DivergedError(
+            f"SDC audit mismatch at step {tr._host_step}: suspect rank(s) "
+            f"{verdict['suspects']} hold bitwise-divergent params "
+            f"(divergent leaves: {detail['leaves']}); halting before the "
+            f"corruption reaches another snapshot")
+
+    def close(self) -> None:
+        self.log.close()

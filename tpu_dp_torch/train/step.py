@@ -35,6 +35,18 @@ under int8 with the optimizer's residuals); the optimizer then updates its
 shard and all-gathers the parameters. Under int8 the step's metrics gain
 ``quant_overflow`` and ``quant_clip``, summed over the ranks in the
 metrics' one all-reduce.
+
+The guard's sentinel (``guard.enabled``; the JAX package's ``sentinel=
+True`` step, `default_guard_in`, `_inject_guard_fault`, `_grad_health`
+and `_sentinel_tail`): `TrainStep` built with ``sentinel=True`` takes one
+more input, the guard tensor (`TrainStep.guard_tensor`: the loss cap, the
+learning-rate scale and the fault seam's step and scale), and computes
+each update and then selects against it, on the device, with no host
+read, so a CUDA graph of a window captures it: a non-finite update, or
+one whose global loss is over the cap, leaves the parameters, the
+momentum, the BatchNorm statistics, the int8 residuals and the update
+counter as they were (`TrainStep._sentinel_update`). Its metrics gain
+``loss_raw``, ``grad_norm`` and ``applied``.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import time
 import warnings
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -118,18 +131,24 @@ def data_parallel(model, ctx):
     return ddp
 
 
-def _global_metrics(loss, correct, count, group, extra=()):
+def _global_metrics(loss, correct, count, group, extra=(), fsum=None):
     """``(loss, correct, count, *extra)`` over every rank's batch from this
     rank's mean ``loss`` and its ``correct``, ``count`` and ``extra``
     (integer counts, summed) tensors, in one all-reduce of ``[loss·count,
     correct, count, *extra]``. Under NCCL the all-reduce orders the
-    streams and does not wait on the host."""
+    streams and does not wait on the host. ``fsum``, an f32 scalar (the
+    sentinel's partial sum of squares under the sharded update), rides the
+    same all-reduce and comes back summed, last."""
+    parts = [loss * count] + [t.to(loss.dtype) for t in (correct, count)
+                              + tuple(extra)]
     total = collectives.psum(torch.stack(
-        [loss * count] + [t.to(loss.dtype) for t in (correct, count)
-                          + tuple(extra)]), group)
+        parts + ([fsum.to(loss.dtype)] if fsum is not None else [])), group)
+    tail = ()
+    if fsum is not None:
+        total, tail = total[:-1], (total[-1],)
     ints = total[1:].to(torch.int64).unbind()
     return (total[0] / total[2].clamp(min=1.0), ints[0], ints[1],
-            *(t.to(e.dtype) for t, e in zip(ints[2:], extra)))
+            *(t.to(e.dtype) for t, e in zip(ints[2:], extra)), *tail)
 
 
 def _sharded_reduce(opt):
@@ -177,6 +196,16 @@ def launch_books() -> dict[str, int]:
     return out
 
 
+def default_guard_in() -> dict:
+    """The neutral guard input (the JAX package's `default_guard_in`):
+    ``loss_cap`` +inf (disarmed), ``lr_scale`` 1.0, ``fault_step`` -1
+    (the seam never fires) and ``fault_scale`` 1.0. Fed to the sentinel
+    it is a bitwise identity: the multiplies are by 1.0 and every select
+    picks the new value."""
+    return {"loss_cap": math.inf, "lr_scale": 1.0, "fault_step": -1,
+            "fault_scale": 1.0}
+
+
 class TrainStep:
     """``step(state, batch) -> metrics``: one optimizer update (see
     `make_train_step`). `update` is its device body, which `MultiStep`
@@ -189,11 +218,15 @@ class TrainStep:
     (clamped at the table's end, from where the schedule is constant), and
     the augmentation is keyed by it. The host's ``state.step`` stays the
     truth for checkpoints and logs; `sync_counter` writes it to the device
-    when the two part (a new state, a restore)."""
+    when the two part (a new state, a restore).
+
+    With ``sentinel`` the body is `_sentinel_update` and the counter
+    advances by the updates applied: the host learns how many from the
+    window's ``applied`` metrics and `settle` corrects ``state.step``."""
 
     def __init__(self, model, optimizer, schedule, use_pallas_xent=False,
                  augment_fn=None, device=None, process_group=None,
-                 accum_steps=1):
+                 accum_steps=1, sentinel=False):
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.model, self.optimizer, self.schedule = model, optimizer, schedule
@@ -201,9 +234,12 @@ class TrainStep:
         self.sharded = (optimizer if getattr(optimizer, "is_sharded_update",
                                              False) else None)
         int8 = self.sharded is not None and self.sharded.int8
+        #: the guard's sentinel (`_sentinel_update`).
+        self.sentinel = bool(sentinel)
         #: what `update` returns, in order.
         self.metric_names = ("loss", "correct") + (
-            ("quant_overflow", "quant_clip") if int8 else ())
+            ("loss_raw", "grad_norm", "applied") if self.sentinel else ()
+        ) + (("quant_overflow", "quant_clip") if int8 else ())
         self.loss_impl = _select_loss_impl(use_pallas_xent)
         self.augment_fn = augment_fn
         self.process_group = process_group
@@ -219,6 +255,24 @@ class TrainStep:
         self.lr_table = lr_table(schedule, self.device)
         self.step_t = torch.zeros((), dtype=torch.int64, device=self.device)
         self._step_host = 0  # what step_t holds, as the host knows it
+        self._neutral = (self.guard_tensor(default_guard_in())
+                         if self.sentinel else None)
+        self._kept = None  # the sentinel's (live, kept) tensor lists
+
+    def guard_tensor(self, guard_in: dict | None = None) -> torch.Tensor:
+        """The sentinel's input on the device: f64 ``[loss_cap, lr_scale,
+        fault_step, fault_scale]`` from a guard-input dict
+        (`default_guard_in`'s keys; the floats rounded to f32, as the JAX
+        package feeds them; f64 holds each and the step exactly). None:
+        the neutral input, kept on the device."""
+        if guard_in is None and self._neutral is not None:
+            return self._neutral
+        g = default_guard_in() if guard_in is None else guard_in
+        vals = [float(np.float32(g["loss_cap"])),
+                float(np.float32(g["lr_scale"])), float(int(g["fault_step"])),
+                float(np.float32(g["fault_scale"]))]
+        return torch.tensor(vals, dtype=torch.float64).to(
+            self.device, non_blocking=True)
 
     def sync_counter(self, state: TrainState) -> None:
         """Make the device counter ``state.step`` (a write only when the
@@ -231,6 +285,13 @@ class TrainStep:
         """The host's side of ``n`` updates the device has been given."""
         state.step += n
         self._step_host += n
+
+    def settle(self, state: TrainState, skipped: int) -> None:
+        """The host's side of ``skipped`` quarantined updates among those
+        it advanced by (`advance`): the sentinel advanced the device
+        counter by the applied ones only."""
+        state.step -= skipped
+        self._step_host -= skipped
 
     def count(self, labels: torch.Tensor) -> int:
         """Examples an update counts: ``accum_steps`` microbatches of
@@ -245,18 +306,11 @@ class TrainStep:
                 f"train step on {self.device} wants batches led by {want}, "
                 f"got {tuple(images.shape)} on {images.device}")
 
-    def update(self, images: torch.Tensor, labels: torch.Tensor):
-        """One optimizer update on the device: ``(loss, correct)``, 0-dim
-        device tensors (the global batch's under a group), then the int8
-        codec's counts when it runs (`metric_names`). With
-        ``accum_steps`` a > 1 the batch is ``[a, B, ...]``: the
-        microbatches run in order, augmentation keyed by ``step·a + i``,
-        BatchNorm's running statistics carried from one to the next,
-        gradients summed (DDP reduces only the last microbatch's backward:
-        the earlier ones run under ``no_sync``, so one gradient all-reduce
-        per update) and then divided by a; the loss is the microbatches'
-        mean, ``correct`` their sum. The sharded update reduces once,
-        after the division (`_sharded_reduce`)."""
+    def _forward_backward(self, images, labels, factor=None):
+        """The microbatches' forward and backward (`update`): ``(loss,
+        correct)`` of the rank's batch, the gradients left in ``.grad``
+        (DDP's mean across ranks). ``factor``, the sentinel's fault seam,
+        multiplies each microbatch's loss before its backward."""
         a = self.accum_steps
         if not self.inner.training:
             self.model.train()
@@ -272,6 +326,8 @@ class TrainStep:
                   else self.ddp.no_sync()):
                 logits = self.model(x)
                 loss = self.loss_impl(logits, y)
+                if factor is not None:
+                    loss = loss * factor
                 loss.backward()
             hit = (logits.detach().argmax(dim=-1) == y).sum()
             loss = loss.detach()
@@ -281,8 +337,32 @@ class TrainStep:
             torch._foreach_div_([p.grad for p in self.inner.parameters()
                                  if p.grad is not None], float(a))
             loss_sum = loss_sum / a
+        return loss_sum, correct
+
+    def _lr(self) -> torch.Tensor:
+        """The schedule's learning rate at the device counter (0-dim)."""
         at = self.step_t.clamp(max=self.lr_table.numel() - 1).view(1)
-        lr = self.lr_table.index_select(0, at).view(())
+        return self.lr_table.index_select(0, at).view(())
+
+    def update(self, images: torch.Tensor, labels: torch.Tensor,
+               guard: torch.Tensor | None = None):
+        """One optimizer update on the device: ``(loss, correct)``, 0-dim
+        device tensors (the global batch's under a group), then the int8
+        codec's counts when it runs (`metric_names`). With
+        ``accum_steps`` a > 1 the batch is ``[a, B, ...]``: the
+        microbatches run in order, augmentation keyed by ``step·a + i``,
+        BatchNorm's running statistics carried from one to the next,
+        gradients summed (DDP reduces only the last microbatch's backward:
+        the earlier ones run under ``no_sync``, so one gradient all-reduce
+        per update) and then divided by a; the loss is the microbatches'
+        mean, ``correct`` their sum. The sharded update reduces once,
+        after the division (`_sharded_reduce`). With the sentinel the body
+        is `_sentinel_update` on ``guard`` (`guard_tensor`; None: the
+        neutral input)."""
+        if self.sentinel:
+            return self._sentinel_update(images, labels, guard)
+        loss_sum, correct = self._forward_backward(images, labels)
+        lr = self._lr()
         extra = ()
         if self.sharded is None:
             self.optimizer.step(lr)
@@ -292,25 +372,126 @@ class TrainStep:
         self.step_t.add_(1)
         if self.world > 1:
             # The ranks' batches are equal: the global count is known here.
-            n = a * int(labels.shape[-1])
+            n = self.accum_steps * int(labels.shape[-1])
             loss_sum, correct, _, *extra = _global_metrics(
                 loss_sum, correct, torch.full_like(loss_sum, n),
                 self.process_group, extra)
         return (loss_sum, correct, *extra)
 
-    def __call__(self, state: TrainState, batch) -> dict:
+    def _state_tensors(self) -> list[torch.Tensor]:
+        """What an update may change besides the counter: the parameters,
+        the buffers (BatchNorm's running statistics, written during the
+        forward), the momentum buffers, or the sharded update's momentum
+        shard and int8 residual rows."""
+        params = list(self.inner.parameters())
+        out = params + list(self.inner.buffers())
+        if self.sharded is None:
+            out += [self.optimizer.state[p]["momentum_buffer"]
+                    for p in params
+                    if self.optimizer.state[p].get("momentum_buffer")
+                    is not None]
+        else:
+            if self.sharded.momentum_shard is not None:
+                out.append(self.sharded.momentum_shard)
+            out += list(self.sharded.residual_rows.values())
+        return out
+
+    @torch.no_grad()
+    def _keep(self) -> None:
+        """Copy the state tensors into the sentinel's kept copies (made at
+        the first update, outside any capture; the copies are persistent,
+        so a captured window reads and writes the same ones)."""
+        if self._kept is None:
+            live = self._state_tensors()
+            self._kept = (live, [torch.empty_like(t) for t in live])
+        torch._foreach_copy_(self._kept[1], self._kept[0])
+
+    @torch.no_grad()
+    def _select(self, applied: torch.Tensor) -> None:
+        """Each state tensor back to its kept copy unless ``applied``: a
+        select, so a NaN update is dropped bit for bit."""
+        for live, kept in zip(*self._kept):
+            torch.where(applied, live, kept, out=live)
+
+    def _sentinel_update(self, images, labels, guard=None):
+        """The sentinel's update (the JAX package's `_inject_guard_fault`,
+        `_grad_health` and `_sentinel_tail`): ``(loss, correct, loss_raw,
+        grad_norm, applied, *codec counts)``.
+
+        - The state is kept (`_keep`) before the forward, which updates
+          BatchNorm's running statistics in place.
+        - The fault seam: at ``step_t == fault_step`` each microbatch's
+          loss is multiplied by ``fault_scale`` before its backward (NaN
+          for ``nan:``, a large scale for ``spike:``). The JAX package
+          multiplies the gradients before their cross-replica reduction;
+          under DDP the gradients are reduced by the time ``backward``
+          returns, so the port scales the loss instead, which scales this
+          rank's gradients before DDP's all-reduce, and the reduced
+          gradients and the global loss then carry the fault to every
+          rank. A rank-gated fault thus gives every rank the same
+          decision, as in the JAX package. Disarmed, it is a multiply by
+          1.0: the loss and every gradient bit for bit.
+        - The health: f32 Σg² over every gradient (under the sharded
+          update over this rank's reduced shard, summed over the ranks in
+          the metrics' all-reduce), finiteness of the global loss and of
+          that sum; ``applied = finite & (loss <= loss_cap)``, all from
+          values equal on every rank (the reduced gradients and the
+          global loss, reduced here before the update).
+        - The update at the table's learning rate times ``lr_scale``, then
+          `_select`: parameters, momentum, statistics and residuals keep
+          their old values unless applied, and the counter advances by
+          ``applied``; so the augmentation key and the learning rate of a
+          quarantined update come round again, as in the JAX package.
+        - ``loss`` and ``correct`` are 0 on a skipped update; ``loss_raw``
+          and ``grad_norm`` are unmasked."""
+        g = self.guard_tensor() if guard is None else guard
+        self._keep()
+        factor = torch.where(self.step_t == g[2], g[3], 1.0).float()
+        loss, correct = self._forward_backward(images, labels, factor)
+        lr = self._lr() * g[1].float()
+        extra, fsum = (), None
+        if self.sharded is None:
+            grads = [p.grad for p in self.inner.parameters()
+                     if p.grad is not None]
+        else:
+            grad, extra = _sharded_reduce(self.sharded)
+            grads = [grad]
+        sumsq = torch.stack(torch._foreach_norm(grads)).float().square().sum()
+        if self.world > 1:
+            n = self.accum_steps * int(labels.shape[-1])
+            fsum = sumsq if self.sharded is not None else None
+            loss, correct, _, *extra = _global_metrics(
+                loss, correct, torch.full_like(loss, n), self.process_group,
+                extra, fsum)
+            if fsum is not None:
+                *extra, sumsq = extra
+        finite = torch.isfinite(loss.float()) & torch.isfinite(sumsq)
+        applied = finite & (loss.float() <= g[0].float())
+        if self.sharded is None:
+            self.optimizer.step(lr)
+        else:
+            self.sharded.update(grad, lr)
+        self._select(applied)
+        self.step_t.add_(applied.to(torch.int64))
+        return (torch.where(applied, loss, 0.0),
+                torch.where(applied, correct, 0), loss, sumsq.sqrt(),
+                applied.to(torch.int32), *extra)
+
+    def __call__(self, state: TrainState, batch, guard_in=None) -> dict:
         images, labels = batch["image"], batch["label"]
         self.check_batch(images, ())
         self.sync_counter(state)
         lr = self.schedule(state.step)
-        out = dict(zip(self.metric_names, self.update(images, labels)))
+        guard = (self.guard_tensor(guard_in) if self.sentinel else None)
+        out = dict(zip(self.metric_names,
+                       self.update(images, labels, guard)))
         self.advance(state, 1)
         return {**out, "count": self.count(labels), "lr": lr}
 
 
 def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
                     augment_fn=None, device=None, process_group=None,
-                    accum_steps=1) -> TrainStep:
+                    accum_steps=1, sentinel=False) -> TrainStep:
     """Build ``step(state, batch) -> metrics`` for ``model``/``optimizer``
     (`TrainStep`; ``optimizer`` is `tpu_dp_torch.train.optim.SGD`).
 
@@ -326,9 +507,14 @@ def make_train_step(model, optimizer, schedule, use_pallas_xent=False,
     rank the metrics are the global batch's (``count`` = the rank's
     examples times the world). ``optimizer`` may be an
     `optim.ShardedUpdate` (``model`` then unwrapped): the sharded update.
+    ``sentinel`` builds the guard's sentinel step: ``step(state, batch,
+    guard_in)`` with ``guard_in`` a `default_guard_in` dict (None: the
+    neutral one), metrics ``loss_raw``, ``grad_norm`` and ``applied``
+    besides; the caller corrects the host's counter (`TrainStep.settle`).
     """
     return TrainStep(model, optimizer, schedule, use_pallas_xent,
-                     augment_fn, device, process_group, accum_steps)
+                     augment_fn, device, process_group, accum_steps,
+                     sentinel)
 
 
 #: eager updates before a window is captured: torch's CUDA-graph notes
@@ -346,7 +532,10 @@ class MultiStep:
     ``{"image": [K, (a,) B, ...], "label": [K, (a,) B]}`` on the device;
     metrics come back stacked per update (``loss``, ``correct`` and any
     codec counts as [K] tensors, ``lr`` a list, ``count`` per update),
-    equal to K calls of the train step.
+    equal to K calls of the train step. With the train step's sentinel
+    the call takes the window's guard input too (``loop(state, pool,
+    guard_in)``; its guard tensor is one more static input of the graph)
+    and the metrics carry the sentinel's per update.
 
     On a card, with NCCL or no group, the window is a CUDA graph of
     ``train_step.update`` K times, reading slot i of static input
@@ -396,8 +585,12 @@ class MultiStep:
 
     def _window(self, *inputs):
         """K updates, slot i of the inputs each: the body eager windows run
-        and the graph captures."""
-        out = [self.step.update(*self._slot(inputs, i))
+        and the graph captures. With the sentinel the last input is the
+        guard tensor, read by every update of the window."""
+        guard = None
+        if self.step.sentinel:
+            inputs, guard = inputs[:-1], inputs[-1]
+        out = [self.step.update(*self._slot(inputs, i), guard)
                for i in range(self.k)]
         return tuple(torch.stack(col) for col in zip(*out))
 
@@ -448,14 +641,18 @@ class MultiStep:
             self.graph.reset()
         self.graph = self._static = self._out = None
 
-    def __call__(self, state: TrainState, pool) -> dict:
-        return self._run(state, (pool["image"], pool["label"]))
+    def __call__(self, state: TrainState, pool, guard_in=None) -> dict:
+        return self._run(state, (pool["image"], pool["label"]), guard_in)
 
-    def _run(self, state: TrainState, inputs: tuple) -> dict:
+    def _run(self, state: TrainState, inputs: tuple, guard_in=None) -> dict:
         """The window on ``inputs``, the tensors the graph copies into its
         static buffers (led by ``[K, (a,) B]``; the last one's last dim is
-        the batch)."""
+        the batch). With the sentinel the guard tensor of ``guard_in``
+        (`TrainStep.guard_tensor`) is one more of them."""
         self.step.check_batch(inputs[0], (self.k,))
+        count = self.step.count(inputs[-1])
+        if self.step.sentinel:
+            inputs = inputs + (self.step.guard_tensor(guard_in),)
         lrs = [self.step.schedule(state.step + i) for i in range(self.k)]
         if not self.graphed:
             self.step.sync_counter(state)
@@ -481,7 +678,7 @@ class MultiStep:
                     t.record_stream(cur)
         self.step.advance(state, self.k)
         return {**dict(zip(self.step.metric_names, out)),
-                "count": self.step.count(inputs[-1]), "lr": lrs}
+                "count": count, "lr": lrs}
 
 
 def gather_batch(table: dict, idx: torch.Tensor) -> dict:
@@ -531,11 +728,12 @@ class ResidentMultiStep(MultiStep):
         super()._capture(*inputs)
         self._captured_key = _table_key(self.table)
 
-    def __call__(self, state: TrainState, table: dict, idx) -> dict:
+    def __call__(self, state: TrainState, table: dict, idx,
+                 guard_in=None) -> dict:
         if self.graph is not None and _table_key(table) != self._captured_key:
             self.close()
         self.table = table
-        return self._run(state, (idx,))
+        return self._run(state, (idx,), guard_in)
 
 
 def make_multi_step(train_step: TrainStep, num_steps: int,

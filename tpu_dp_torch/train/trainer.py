@@ -86,12 +86,28 @@ a barrier on the group and `PreemptedError`; the fault injector
 (`tpu_dp_torch.train.hooks`) run once per window, after its updates:
 flight recorder, snapshot cadence, fault injection, preemption boundary.
 Each rank reads its own preemption flag, as in the JAX package.
-Guardrails, elastic world size and the rest of the telemetry are not
-ported yet.
+
+The guard (``guard.enabled``; `tpu_dp_torch.resilience.guard`): the train
+step is the sentinel step (`make_train_step`'s ``sentinel``), each window
+gets its guard input from `hooks.GuardHook` (the armed loss cap, the LR
+ease, the ``nan:``/``spike:`` seam) and the hook, right after the flight
+recorder, fetches the window's health once, settles ``state.step`` to the
+device's counter, writes ``quarantine.jsonl`` (``guard.quarantine_path``)
+and escalates: ``action=rollback`` raises `_GuardRollback` out of
+`train_epoch` and `fit` rewinds to the newest complete, non-quarantined
+save (`_execute_guard_rollback`: rank 0 decides and broadcasts, the state
+restored in place so a captured window keeps training the same tensors),
+``halt`` raises `DivergedError` (exit 65 from the CLI). Two clocks, as in
+the JAX package: ``state.step`` counts applied updates (the schedule's and
+the augmentation's step), `_host_step` dispatched batches (the hooks', the
+snapshots' and the faults' clock, the snapshots' ``global_step``); they
+part on every quarantined batch. Elastic world size and the rest of the
+telemetry are not ported yet.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import hashlib
 import logging
 import os
@@ -120,6 +136,8 @@ from tpu_dp_torch.resilience import (
     PreemptionHandler,
     SnapshotManager,
     configure_io_retry,
+    find_candidates,
+    quarantine_save_dir,
     resume_latest,
     retry_call,
 )
@@ -139,6 +157,21 @@ from tpu_dp_torch.train.step import (
 from tpu_dp_torch.utils.meter import ThroughputMeter
 
 log = logging.getLogger("tpu_dp_torch.train")
+
+
+class _GuardRollback(Exception):
+    """Raised out of `train_epoch` by the guard hook when the divergence
+    policy escalates to rollback: rewind to the newest complete (and
+    non-quarantined) save before the next step
+    (`Trainer._execute_guard_rollback`). Internal control flow; never
+    escapes `fit()`."""
+
+    def __init__(self, epoch: int, done: int, trigger):
+        super().__init__(
+            f"guard rollback at epoch {epoch} step {done}: {trigger.reason}")
+        self.epoch = int(epoch)
+        self.done = int(done)
+        self.trigger = trigger
 
 
 class Trainer:
@@ -202,15 +235,11 @@ class Trainer:
             mode == "auto" and cfg.data.drop_remainder
             and ds_bytes <= budget)
         self._resident_train = None
+        #: the guard (module doc): the sentinel step and `GuardHook`.
+        self.guard_enabled = bool(cfg.guard.enabled)
 
-        self.model = build_model(
-            cfg.model.name, num_classes=num_classes,
-            dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32,
-            fused_stages=parse_fused_stages(cfg.model.fused_stages),
-            fused_bwd=cfg.model.fused_bwd,
-            generator=torch.Generator().manual_seed(seed),
-            process_group=group,
-        ).to(self.device)
+        self._num_classes = num_classes
+        self.model = self._init_model(group).to(self.device)
         steps_per_epoch = len(self.train_pipe)
         spc = cfg.train.steps_per_call
         if spc == 0:
@@ -282,7 +311,8 @@ class Trainer:
         self.step_body = make_train_step(
             self.ddp or self.model, self.optimizer, self.schedule,
             use_pallas_xent=cfg.train.pallas_xent, augment_fn=augment_fn,
-            device=self.device, process_group=group, accum_steps=accum)
+            device=self.device, process_group=group, accum_steps=accum,
+            sentinel=self.guard_enabled)
         self.train_step = self.step_body
         make_window = (make_multi_step_resident if self._resident_enabled
                        else make_multi_step)
@@ -313,7 +343,15 @@ class Trainer:
         self.preempt = PreemptionHandler() if res.handle_signals else None
         self.fault = FaultInjector.from_spec(res.fault, rank=self.ctx.rank)
         if self.fault is not None:
-            refuse_unported(self.fault.kinds())
+            refuse_unported(self.fault.kinds(), self.guard_enabled)
+        # Guardrail run state: the rollback generation stamps every
+        # quarantine record and snapshot written after a rewind, and an SDC
+        # finding suppresses snapshots (`hooks.SnapshotHook`).
+        self._rollback_gen = 0
+        self._sdc_suspect_active = False
+        #: the batch clock (module doc); set from the update counter after
+        #: a resume, as in the JAX package.
+        self._host_step = 0
         # The flight recorder: always on (obs.flightrec_capacity 0 turns it
         # off), dumped into obs.run_dir or <ckpt_dir>/obs on every exit
         # from fit.
@@ -329,13 +367,29 @@ class Trainer:
                 run={"model": cfg.model.name, "world": self.ctx.world,
                      "devices": self.num_devices,
                      "global_batch": self.global_batch_size,
-                     "elastic": False, "guard": False, "joined": False})
+                     "elastic": False, "guard": self.guard_enabled,
+                     "joined": False})
         self._build_hooks()
         self.start_epoch = 0
         self.start_step = 0  # step within start_epoch (mid-epoch resume)
         self.resumed_from: str | None = None
         if cfg.train.resume:
             self._maybe_resume()
+        self._host_step = int(self.state.step)
+        #: the batch clock at `step_losses`' first entry (`fit` resets it).
+        self._losses_from = self._host_step
+
+    def _init_model(self, group=None) -> torch.nn.Module:
+        """The model as a fresh run initializes it (on the CPU), from the
+        seed."""
+        cfg = self.cfg
+        return build_model(
+            cfg.model.name, num_classes=self._num_classes,
+            dtype=torch.bfloat16 if cfg.model.bf16 else torch.float32,
+            fused_stages=parse_fused_stages(cfg.model.fused_stages),
+            fused_bwd=cfg.model.fused_bwd,
+            generator=torch.Generator().manual_seed(cfg.train.seed),
+            process_group=group)
 
     @property
     def num_devices(self) -> int:
@@ -371,9 +425,11 @@ class Trainer:
                 * self.cfg.optim.grad_accum_steps)
 
     @property
-    def _host_step(self) -> int:
-        """The global step the host has dispatched (the hooks' clock)."""
-        return self.state.step
+    def quarantine_path(self) -> Path:
+        """The quarantine.jsonl sink (``guard.quarantine_path``, by default
+        ``<ckpt_dir>/quarantine.jsonl``)."""
+        return Path(self.cfg.guard.quarantine_path
+                    or Path(self.cfg.train.ckpt_dir) / "quarantine.jsonl")
 
     def _print(self, msg: str) -> None:
         if self.ctx.is_main_process:
@@ -386,11 +442,15 @@ class Trainer:
     def _build_hooks(self) -> None:
         """The step-lifecycle hooks, in the JAX package's load-bearing
         order (`tpu_dp_torch.train.hooks`): the flight recorder first, then
-        the snapshot cadence, fault injection, and the preemption boundary
-        last."""
+        the guard, the snapshot cadence, fault injection, and the
+        preemption boundary last."""
+        self._guard_hook = (hooks_lib.GuardHook(self) if self.guard_enabled
+                            else None)
         hooks: list = []
         if self.flightrec is not None:
             hooks.append(hooks_lib.FlightRecorderHook(self))
+        if self._guard_hook is not None:
+            hooks.append(self._guard_hook)
         hooks += [hooks_lib.SnapshotHook(self), hooks_lib.FaultHook(self),
                   hooks_lib.BoundaryHook(self)]
         self._hooks = hooks
@@ -489,8 +549,13 @@ class Trainer:
     def _snapshot_meta(self, epoch: int, steps_done: int) -> dict[str, Any]:
         """A snapshot's meta: the mid-epoch resume position (the JAX
         package's keys)."""
-        return {"kind": "snapshot", "epoch": epoch, "steps_done": steps_done,
+        meta = {"kind": "snapshot", "epoch": epoch, "steps_done": steps_done,
                 "config": self.cfg.to_dict(), "seed": self.cfg.train.seed}
+        if self._rollback_gen:
+            # A post-rollback save names its generation (the tombstoned
+            # quarantine records of the pass it replaced).
+            meta["rollback_generation"] = self._rollback_gen
+        return meta
 
     def _take_snapshot(self, epoch: int, steps_done: int,
                        wait: bool = False) -> bool:
@@ -551,6 +616,180 @@ class Trainer:
         except (RuntimeError, OSError) as e:
             self._ckpt_write_error(e)
 
+    def _inject_sdc(self, plan) -> None:
+        """Apply an ``sdc:`` fault: flip the top exponent bit (bit 30 of an
+        f32) of the first element of each parameter leaf matching the
+        plan's ``leaf=`` glob over the JAX leaf paths (default: the first
+        leaf), on this rank's replica only (tests only). In place: a
+        captured window reads the flipped bit, and the version bump makes
+        the packed eval weights repack. A high bit, not a low one, as in
+        the JAX package: a denormal flip of a zero leaf would be absorbed
+        by the next identical update, leaving nothing to audit."""
+        from tpu_dp_torch.compat import param_leaves
+
+        named = dict(self.model.named_parameters())
+        leaves = param_leaves(named)
+        paths = [key for key, _, _ in leaves]
+        targets = ([p for p in paths if fnmatch.fnmatch(p, plan.leaf)]
+                   if plan.leaf else paths[:1])
+        if not targets:
+            raise ValueError(
+                f"sdc fault leaf={plan.leaf!r} matches no params leaf; "
+                f"available: {paths[:8]}...")
+        self._log0("fault injection: sdc bit-flip on rank %d at step %d "
+                   "(leaves %s)", self.ctx.rank, self._host_step, targets)
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+        with torch.no_grad():
+            for key, name, index in leaves:
+                if key not in targets:
+                    continue
+                p = named[name]
+                width = p.element_size()
+                bits = p.detach().view(-1).view(ints[width])
+                j = int(index[0])  # element 0 of the JAX leaf
+                bits[j:j + 1].bitwise_xor_(1 << (8 * width - 2))
+
+    def _quarantine_saves_after(self, clean_step: int, reason: str) -> None:
+        """Mark every complete save newer than ``clean_step`` untrusted
+        (rank 0, the writer): no rollback or resume lands on a save that
+        may carry the corruption (`find_candidates` skips them)."""
+        for source, step in find_candidates(self.cfg.train.ckpt_dir,
+                                            self.snapshot_dir):
+            if step > int(clean_step):
+                quarantine_save_dir(source, reason)
+                self._log0("guard: quarantined save %s (step %d > last "
+                           "clean audit %d)", source, step, clean_step)
+
+    # -- guard rollback ---------------------------------------------------
+
+    def _rollback_resume(self) -> dict:
+        """Where a rollback resumes: the newest complete readable save
+        (``epoch``, ``steps_done``, ``global_step`` and ``snapshot_dir``,
+        the JAX package's keys), or a fresh start at step 0. The elastic
+        consumption lineage is item 9d's."""
+        for source, step in find_candidates(self.cfg.train.ckpt_dir,
+                                            self.snapshot_dir):
+            try:
+                meta = ckpt_lib.read_meta(source)
+            except (OSError, ValueError):
+                self._log0("rollback: %s has unreadable meta; skipping",
+                           source)
+                continue
+            if meta.get("kind") == "snapshot":
+                return {"epoch": int(meta.get("epoch", 0)),
+                        "steps_done": int(meta.get("steps_done", 0)),
+                        "global_step": int(meta.get("global_step",
+                                                    max(step, 0))),
+                        "snapshot_dir": str(source)}
+            return {"epoch": int(meta.get("epoch", -1)) + 1,
+                    "steps_done": 0, "global_step": max(step, 0),
+                    "snapshot_dir": str(source)}
+        return {"epoch": 0, "steps_done": 0, "global_step": 0,
+                "snapshot_dir": None}
+
+    def _load_rollback_state(self, resume: dict) -> dict:
+        """Restore ``resume["snapshot_dir"]`` into the state in place; a
+        candidate that fails its checksums is quarantined and the next
+        older one tried. Returns the resume that loaded (``snapshot_dir``
+        None: nothing usable, the caller starts fresh)."""
+        while resume.get("snapshot_dir"):
+            source = Path(resume["snapshot_dir"])
+            try:
+                ckpt_lib.load_checkpoint(source, self.state)
+                return resume
+            except ckpt_lib.CorruptCheckpointError as e:
+                _counters.inc("ckpt.corrupt_candidates")
+                quarantine_save_dir(source, f"checksum refusal: {e}")
+                _flightrec.record("ckpt_corrupt_fallback",
+                                  step=self._host_step, dir=str(source))
+                self._log0("rollback restore: %s failed checksum "
+                           "verification (%s) — marked corrupt, falling "
+                           "back to the next-older complete candidate",
+                           source, e)
+                resume = self._rollback_resume()
+        return resume
+
+    @torch.no_grad()
+    def _fresh_state(self) -> None:
+        """The state of a fresh start, written in place (a captured window
+        keeps the same tensors): the seed's model, zero momentum (and zero
+        int8 residuals), step 0."""
+        self.model.load_state_dict(self._init_model().state_dict())
+        if self.sharded:
+            if self.optimizer.momentum_shard is not None:
+                self.optimizer.momentum_shard.zero_()
+            for rows in self.optimizer.residual_rows.values():
+                rows.zero_()
+        else:
+            for st in self.optimizer.state.values():
+                if st.get("momentum_buffer") is not None:
+                    st["momentum_buffer"].zero_()
+        self.state.step = 0
+
+    def _execute_guard_rollback(self, sig: _GuardRollback) -> tuple[int, int]:
+        """Rewind to the newest complete, non-quarantined save and replay
+        (``guard.action=rollback``); returns the ``(epoch, start_step)`` to
+        continue from. Every rank reaches the decision at the same
+        boundary; rank 0, the save writer, joins its writes in flight,
+        picks and restores the save and broadcasts the position and the
+        state (each host has its own disk). The restore writes the live
+        tensors in place, so a captured window replays on the restored
+        state; the next window writes the restored step to the device
+        counter. The rolled-back records are tombstoned, and every later
+        record carries the bumped ``rollback_generation``."""
+        from_step = self._host_step
+        hook = self._guard_hook
+        # Past max_rollbacks without progress this raises DivergedError.
+        hook.policy.on_rollback()
+        if self.fault is not None:
+            # The guard hook raised before the fault hook's disarm: the
+            # replay must not re-arm the seam that caused the rollback.
+            self.fault.disarm_device(from_step)
+        self._log0("guard: rolling back from step %d — %s", from_step,
+                   sig.trigger.reason)
+        resume = None
+        if self.ctx.is_main_process:
+            # A save still being written is no candidate yet: joining the
+            # writes first makes the choice independent of the disk's
+            # speed (a failed one degrades, as everywhere).
+            try:
+                self.ckpt_mgr.wait()
+            except (RuntimeError, OSError) as e:
+                self._ckpt_write_error(e)
+            try:
+                self.snap_mgr.wait()
+            except (RuntimeError, OSError) as e:
+                self.snap_mgr._record_write_error(self._host_step, e)
+            resume = self._load_rollback_state(self._rollback_resume())
+        if self.ctx.world > 1:
+            resume = broadcast_one_to_all(resume)
+        if resume["snapshot_dir"] is None:
+            self._fresh_state()  # the same seed on every rank
+        elif self.ctx.world > 1:
+            self._broadcast_state()
+        self._host_step = int(resume["global_step"])
+        position = (int(resume["epoch"]), int(resume["steps_done"]))
+        self._rollback_gen += 1
+        if self.ctx.is_main_process:
+            hook.log.tombstone(from_step=from_step, to_step=self._host_step,
+                               reason=sig.trigger.reason)
+        hook.log.generation = self._rollback_gen
+        self.snap_mgr.rewind(self._host_step)
+        hook.on_rollback_rewind(self._host_step)
+        hook.arm_lr_ease(self._host_step)
+        # The rolled-back updates' losses are undone work.
+        del self.step_losses[max(0, self._host_step - self._losses_from):]
+        _counters.inc("guard.rollbacks")
+        _flightrec.record("guard_rollback", step=self._host_step,
+                          from_step=from_step, to_step=self._host_step,
+                          gen=self._rollback_gen, reason=sig.trigger.reason)
+        self._log0("guard: rolled back %d step(s) — resuming at epoch %d "
+                   "step %d (global step %d, generation %d)",
+                   from_step - self._host_step, position[0], position[1],
+                   self._host_step, self._rollback_gen)
+        return position
+
     def _export_final(self) -> None:
         """Write ``final_params.msgpack`` (the last epoch save was joined by
         `fit`'s teardown)."""
@@ -588,13 +827,19 @@ class Trainer:
         for n, item in feed(self.steps_per_call, skip_steps=start_step):
             for hook in self._hooks:
                 hook.on_window_start(self._host_step + 1, n)
+            # The sentinel's input (guard on only): the armed loss cap, the
+            # LR ease and the nan/spike seam.
+            guard = (() if self._guard_hook is None else
+                     (self._guard_hook.guard_in(self._host_step + 1, n),))
             if n == 1:
                 m = self.train_step(self.state, item if table is None
-                                    else gather_batch(table, item[0]))
+                                    else gather_batch(table, item[0]),
+                                    *guard)
                 c = m["correct"]
             else:
-                m = (self.multi_step(self.state, item) if table is None
-                     else self.multi_step(self.state, table, item))
+                m = (self.multi_step(self.state, item, *guard)
+                     if table is None
+                     else self.multi_step(self.state, table, item, *guard))
                 c = m["correct"].sum()
             if "quant_overflow" in m:
                 c8 = torch.stack([m["quant_overflow"].sum(),
@@ -620,14 +865,23 @@ class Trainer:
                     pending = [flat[logged + run_steps:]]
                     logged = run_steps = 0
             # The hook sweep, once per dispatched window (`_build_hooks`'
-            # order); a hook may raise `PreemptedError`.
+            # order); a hook may raise `PreemptedError`, `_GuardRollback`
+            # or `DivergedError`.
+            self._host_step += n
             ev = hooks_lib.StepEvent(epoch=epoch, done=i, n=n, window=(m,))
-            for hook in self._hooks:
-                hook.on_step_end(ev)
+            try:
+                for hook in self._hooks:
+                    hook.on_step_end(ev)
+            except _GuardRollback:
+                # The epoch's losses so far: the rollback keeps those of
+                # the updates before its target.
+                self.step_losses.extend(torch.cat(losses).double().tolist())
+                raise
         if not losses:
             return {"loss": 0.0, "accuracy": 0.0}
-        # One fetch: the epoch's losses, the device's update counter and
-        # the int8 codec's block counts.
+        # One fetch: the epoch's losses, the device's update counter (the
+        # host's `state.step`, settled by the guard's fetch when it skips)
+        # and the int8 codec's block counts.
         flat = torch.cat(losses).double()
         tail = [self.step_body.step_t.double().view(1)]
         if quant_counts is not None:
@@ -711,13 +965,20 @@ class Trainer:
                  "resident" if self._resident_enabled else "streamed")
         t0 = time.perf_counter()
         history = []
+        self._losses_from = self._host_step
         try:
             if self.preempt is not None:
                 self.preempt.install()
-            for epoch in range(self.start_epoch, cfg.train.epochs):
-                stats = self.train_epoch(
-                    epoch, self.start_step if epoch == self.start_epoch
-                    else 0)
+            epoch, start_step = self.start_epoch, self.start_step
+            while epoch < cfg.train.epochs:
+                try:
+                    stats = self.train_epoch(epoch, start_step)
+                except _GuardRollback as sig:
+                    # The policy condemned the trajectory: rewind to the
+                    # newest trusted save and replay (DivergedError past
+                    # the budget).
+                    epoch, start_step = self._execute_guard_rollback(sig)
+                    continue
                 history.append(stats)
                 self._print("epoch %d: train loss %.4f acc %.4f (%.1f "
                             "img/s)" % (epoch + 1, stats["loss"],
@@ -733,6 +994,7 @@ class Trainer:
                 # gets the snapshot-and-exit-143 contract.
                 if self.preempt is not None and self.preempt.requested:
                     self._preempt_exit(epoch + 1, 0)
+                epoch, start_step = epoch + 1, 0
         finally:
             self._close_resilience()
         self._print("Finished Training")
