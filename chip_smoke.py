@@ -232,7 +232,22 @@ Phases, in order; any failure exits non-zero before the last line:
    naming rank 2 and ``conv1/bias``, the step-3 snapshot quarantined; the
    windowed ms per update and an epoch's ms per update guarded and not, in
    turns, and the guard's fence host ms per window;
-16. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+16. ``obs``: the telemetry (``--train.obs``) on phase 15's path, the guard
+   off, cuDNN deterministic: one epoch of 30 updates in windows of 10 at
+   off, basic and full: the books identical by counter and by kernel
+   name per replay, the parameters bit for bit,
+   the host's synchronisations (`torch.cuda.set_sync_debug_mode` plus
+   `Event.synchronize` calls, with their calling lines) over each fit and
+   over one more epoch equal at basic and one more a window at full; at
+   full one ``metrics.jsonl`` record per update, the ``obs.mfu`` gauge
+   within 10% of the MFU of the window's CUDA-event time (the card's
+   dense bf16 peak), the ``device`` span within 10% of that time, the
+   memory gauges, a valid ``trace.perfetto.json``, one heartbeat a window
+   and the promfiles; ``--train.profile_steps=10:20``: a CUDA-only Chrome
+   trace holding the conv and xent kernels of the two windows in range
+   and no other's, with the flight recorder's ``profile_start`` and
+   ``profile_stop``; an epoch's ms per update at each mode, in turns;
+17. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 Phases 1-11 keep the streamed feed (``--data.device_resident=off``), so
 their numbers stay comparable with earlier runs.
@@ -242,7 +257,8 @@ the header, the build and the named phases alone (a four-card machine's
 multi-card check), without the kernels' line; ``--only
 resnet50_kernels,resnet50,resnet50_windows,resnet50_ddp`` runs phase 10
 alone, ``--only sharded`` phase 11, ``--only resident,presets`` phases
-12 and 13, ``--only resilience`` phase 14 and ``--only guard`` phase 15.
+12 and 13, ``--only resilience`` phase 14, ``--only guard`` phase 15 and
+``--only obs`` phase 16.
 ``--ddp-worker SPEC`` is phase 7's rank process, ``--guard-worker SPEC``
 phase 15's.
 
@@ -385,6 +401,20 @@ GUARD_SPIKE = ["--guard.action=rollback",
                "--resilience.fault=spike:step=15,scale=1e6",
                "--guard.spike_min_steps=4", "--guard.spike_window=16",
                "--guard.spike_z=12"]
+#: phase 16: the telemetry on the main path (the preset with the kernel
+#: knobs, the default resident feed, augmentation on, the guard off):
+#: windows of 10, one epoch of 30 updates, at train.obs off, basic and
+#: full; the profiler's step range (two windows, snapped outward).
+OBS_K, OBS_UPDATES = 10, 30
+OBS_MODES = ("off", "basic", "full")
+OBS_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
+            "--model.fused_bwd=true", "--train.pallas_xent=true",
+            "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
+            f"--data.synthetic_train_size={OBS_UPDATES * TRAIN_B}",
+            f"--data.synthetic_test_size={2 * TRAIN_B}",
+            "--train.epochs=1", "--train.log_every=100",
+            f"--train.steps_per_call={OBS_K}"]
+OBS_PROFILE = (10, 20)
 GUARD_SDC_WORLD = 3
 GUARD_SDC_ARGS = ["--data.dataset=synthetic",
                   "--data.synthetic_train_size=48",
@@ -3338,6 +3368,7 @@ def _sharded_fit(args, where, snapshot_at=6):
     from tpu_dp_torch.config import parse_cli
     from tpu_dp_torch.train.trainer import Trainer
 
+    began = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -3353,18 +3384,23 @@ def _sharded_fit(args, where, snapshot_at=6):
 
     t.train_step = step
     res, ran = _fit_books(t)
+    fit_s = time.perf_counter() - began
     fit_state = _flat_state(t)
     # What this run added at its peak (earlier runs' trainers stay).
     peak = torch.cuda.max_memory_allocated() - before
     batch = next(iter(t.train_pipe))
+    began = time.perf_counter()
     ok, sessions = _profiled_books(
         lambda: real(t.state, batch),
         {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1})
+    profiled_s = time.perf_counter() - began
     rec = {"t": t, "res": res, "ran": ran, "params6": snap,
            "fit_state": fit_state, "state": _flat_state(t),
            "profiled_ok": ok,
            "profiled": sessions[-1], "peak_memory_bytes": peak,
-           "step_ms": cuda_median_ms(lambda: real(t.state, batch), reps=10)}
+           "step_ms": cuda_median_ms(lambda: real(t.state, batch), reps=10),
+           "seconds": {"fit": fit_s, "profiled": profiled_s,
+                       "sessions": len(sessions)}}
     return rec
 
 
@@ -3382,6 +3418,13 @@ def phase_sharded(out):
 
     k, updates = 10, 40
     checks, rec = {}, {"card": out["card"], "k": k}
+    # Seconds of each part, for the call's time budget.
+    stage_s, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        stage_s[name], last[0] = now - last[0], now
+
     det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
         True, False)
@@ -3451,7 +3494,7 @@ def phase_sharded(out):
                     "momentum_bytes_per_rank": mom,
                     "residual_bytes_per_rank": res_bytes,
                     "peak_memory_bytes": r["peak_memory_bytes"],
-                    "checks": c}
+                    "seconds": r["seconds"], "checks": c}
                 checks.update({f"a_{name}_{n}": v for n, v in c.items()})
             leaves = leaf_sizes(rep["t"].model.named_parameters())
             rec["a"] = {
@@ -3479,6 +3522,7 @@ def phase_sharded(out):
                                        "peak_memory_bytes")}
                  for n, v in a.items()}))
             del rep, f32
+            lap("a")
             # (b) windows of 10 against eager, per wire: (a)'s 30 eager
             # updates are the eager half (the same arguments).
             rec["b"] = {}
@@ -3502,6 +3546,7 @@ def phase_sharded(out):
                                            "images_per_s_meter",
                                            "capture_bytes")}))
             del runs
+            lap("b")
             # (c) phase 8's interrupted and resumed run under int8 at 25 MB.
             ck_args = CKPT_ARGS + _sharded_args("int8", 25.0)
             cruns = {}
@@ -3544,6 +3589,7 @@ def phase_sharded(out):
             rec["c"] = {"losses_full": full.step_losses,
                         "losses_resumed": resumed.step_losses}
             del cruns, full, resumed
+            lap("c")
             # (d) ResNet-50, int8 at 25 MB, 10 updates.
             r50 = Trainer(parse_cli(_r50_args(
                 tmp.name, 10, extra=["--data.augment=false"]
@@ -3565,6 +3611,8 @@ def phase_sharded(out):
                         "quant": {n: res50["history"][-1].get(n) for n in
                                   ("quant_overflow", "quant_clip")}}
             del r50
+            lap("d")
+            rec["seconds"] = stage_s
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
             det)
@@ -3572,6 +3620,9 @@ def phase_sharded(out):
     rec["checks"] = checks
     out["sharded"] = rec
     b = rec["b"]
+    print(f"[sharded] seconds {json.dumps(rec['seconds'])}; per fit "
+          + json.dumps({n: v["seconds"] for n, v in rec["a"].items()
+                        if isinstance(v, dict) and "seconds" in v}))
     print(f"[sharded] {out['card']}: eager step / windowed ms per update: "
           f"replicated {rec['windows_replicated']['eager_step_ms']:.3f} / "
           f"{rec['windows_replicated']['windowed_ms_per_update']:.3f}; "
@@ -4926,6 +4977,315 @@ def phase_guard(out):
         raise AssertionError(f"guard checks failed: {failed}")
 
 
+@contextlib.contextmanager
+def _counted_syncs():
+    """Count the host's synchronisations with the card in the block: the
+    calls `torch.cuda.set_sync_debug_mode("warn")` reports (fetches,
+    stream and device synchronizes) and `torch.cuda.Event.synchronize`
+    calls, which that mode does not see. Fills the yielded dict's
+    ``debug`` and ``event``, and ``sites``: how many of them each calling
+    line of the port (or of this script) made, innermost first. Only the
+    mode's own warning counts: the first switch to "warn" in a process
+    also warns, once, that the mode is a prototype."""
+    import traceback
+    import warnings
+
+    import torch
+
+    got = {"debug": 0, "event": 0, "sites": {}}
+    real = torch.cuda.Event.synchronize
+
+    def site():
+        frames = [f for f in traceback.extract_stack()[:-2]
+                  if "tpu_dp_torch" in f.filename
+                  or f.filename.endswith("chip_smoke.py")]
+        key = " < ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                         for f in frames[::-1][:3])
+        got["sites"][key] = got["sites"].get(key, 0) + 1
+
+    def counted(self):
+        got["event"] += 1
+        site()
+        return real(self)
+
+    def seen(message, *args, **kwargs):
+        if "called a synchronizing cuda operation" in str(message).lower():
+            got["debug"] += 1
+            site()
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.Event.synchronize = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield got
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+            torch.cuda.Event.synchronize = real
+
+
+def _obs_epoch_ms(t) -> float:
+    """Host ms per update of one more epoch of ``t`` (fenced): the
+    telemetry's per-window work included at its mode."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train_epoch(0)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / OBS_UPDATES
+
+
+def phase_obs(out):
+    """16: the telemetry on the main path (module docstring): the same run
+    at train.obs off, basic and full (books, parameters, host
+    synchronisations, the artifacts, MFU and the device span against CUDA
+    events), the profiler's step range by kernel name, and the cost of
+    each mode per update, in turns."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.obs import costs, flightrec
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.obs.export import validate_trace
+    from tpu_dp_torch.obs.health import HeartbeatWriter
+    from tpu_dp_torch.obs.promfile import parse_promfile
+    from tpu_dp_torch.train.trainer import Trainer
+
+    checks, rec = {}, {"card": out["card"], "k": OBS_K,
+                       "updates": OBS_UPDATES}
+    out["obs"] = rec  # filled in place: kept when a check fails
+    rec["checks"] = checks
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    where = lambda name: os.path.join(tmp.name, name)  # noqa: E731
+    runs, keys = {}, ("conv.stats", "conv.input_grad", "conv.eval",
+                      "xent.forward", "xent.backward", "augment")
+    try:
+        for mode in OBS_MODES:
+            t = Trainer(parse_cli(OBS_ARGS + [
+                f"--train.ckpt_dir={where(mode)}", f"--train.obs={mode}",
+                f"--obs.prom_path={where(mode + '.prom')}"]))
+            with _counted_syncs() as syncs:
+                _, ran = _fit_books(t)
+            runs[mode] = {"t": t, "ran": {k: ran[k] for k in keys},
+                          "syncs": syncs, "state": _flat_state(t),
+                          "mfu": counters.get("obs.mfu", None),
+                          "mem": {k: v for k, v in counters.snapshot()
+                                  .items() if k.startswith("device.mem")}}
+        windows = OBS_UPDATES // OBS_K
+        rec["launches"] = {m: r["ran"] for m, r in runs.items()}
+        rec["syncs_per_fit"] = {m: r["syncs"] for m, r in runs.items()}
+        off, basic, full = (runs[m] for m in OBS_MODES)
+        fit = {m: r["syncs"]["debug"] + r["syncs"]["event"]
+               for m, r in runs.items()}
+        # Where a fit's syncs differ from off's, by calling line.
+        ref = off["syncs"]["sites"]
+        rec["sync_sites_vs_off"] = {
+            m: {k: n - ref.get(k, 0) for k, n in runs[m]["syncs"]["sites"]
+                .items() if n != ref.get(k, 0)}
+            | {k: -n for k, n in ref.items()
+               if k not in runs[m]["syncs"]["sites"]}
+            for m in ("basic", "full")}
+        checks.update({
+            "fit_basic_adds_no_sync": fit["basic"] == fit["off"],
+            "fit_full_adds_one_sync_a_window": fit["full"] == fit["off"]
+            + windows and full["syncs"]["event"] == windows,
+            "windows_captured": all(r["t"].multi_step.graph is not None
+                                    and r["t"].resident_train is not None
+                                    for r in runs.values()),
+            "books_unchanged_by_counter": off["ran"] == basic["ran"]
+            == full["ran"],
+            "books_per_update": _per_update_ok(
+                off["ran"], OBS_UPDATES, len(off["t"].test_pipe))
+            and off["ran"]["augment"] == OBS_UPDATES,
+            "state_bit_identical": _same_state(basic["state"], off["state"])
+            and _same_state(full["state"], off["state"])})
+        # The books by kernel name per replay, in every mode, over two
+        # replays a session. The profiler never adds records; late in a
+        # whole call it loses one a session (a draw or a conv record, in
+        # every session: `PERF.md` §2), so each kernel's count is its
+        # most over up to two sessions, none above its books, and the
+        # records short of the books at most that one. The counter books
+        # above are exact and bind.
+        want = {"conv_block_kernel": 20 * OBS_K, "xent_fwd": OBS_K,
+                "xent_bwd": OBS_K}
+        by_name, short = {}, {}
+        for mode, r in runs.items():
+            t = r["t"]
+            it = t.train_pipe.index_windows(OBS_K)
+            _, idx = next(it)
+            it.close()
+            table = t.resident_train
+            _, sessions = _profiled_books(
+                lambda: t.multi_step(t.state, table, idx), want, n=2,
+                tries=2)
+            by_name[mode] = {k: max(s["by_name"][k] for s in sessions)
+                             for k in want}
+            short[mode] = sum(2 * (want[k] - v)
+                              for k, v in by_name[mode].items())
+        rec["profiled_per_replay"] = by_name
+        rec["profiled_records_short"] = short
+        checks["books_by_kernel_name"] = all(
+            v[k] <= want[k] for v in by_name.values() for k in want) and all(
+            0 <= n <= 1 for n in short.values())
+        # The artifacts of the full run, and basic's.
+        t = full["t"]
+        recs = [json.loads(line) for line in
+                open(t.metrics_path, encoding="utf-8")]
+        per_update = [r for r in recs if "spans" in r and "epoch" not in r]
+        with open(t.obs_dir / "trace.perfetto.json", encoding="utf-8") as f:
+            trace = json.load(f)
+        beats = open(t.obs_dir / "heartbeat_r00000.jsonl",
+                     encoding="utf-8").read().splitlines()
+        proms = {m: parse_promfile(open(where(m + ".prom"),
+                                        encoding="utf-8").read())
+                 for m in ("basic", "full")}
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+        mem = full["mem"]
+        checks.update({
+            "full_one_record_per_update": [r["step"] for r in per_update]
+            == list(range(1, OBS_UPDATES + 1)),
+            "basic_records_no_h2d_or_device": all(
+                set(r["spans"]) == {"data_wait", "dispatch"}
+                for r in map(json.loads, open(basic["t"].metrics_path,
+                                              encoding="utf-8"))
+                if "spans" in r),
+            "promfiles_parse": all("tpu_dp_obs_step_time_ms" in p
+                                   for p in proms.values())
+            and "tpu_dp_obs_mfu" in proms["full"],
+            "perfetto_trace_valid": validate_trace(trace) == []
+            and len([e for e in trace["traceEvents"] if e["ph"] == "X"
+                     and e["name"] == "device"]) == OBS_UPDATES,
+            "one_beat_per_window": len(beats) == windows,
+            "memory_gauges": 0 < mem.get("device.mem_in_use_bytes", 0)
+            < total_mem and mem.get("device.mem_limit_bytes.0") == total_mem})
+        rec["memory_gauges"] = mem
+        # MFU and the device span against the card's own CUDA-event time
+        # of the window the run replayed.
+        it = t.train_pipe.index_windows(OBS_K)
+        _, idx = next(it)
+        it.close()
+        table = t.resident_train
+        event_ms = cuda_median_ms(lambda: t.multi_step(t.state, table, idx),
+                                  reps=5, warm=2) / OBS_K
+        cost = costs.registry.get("resident_loop[w10]")
+        peak = costs.peak_flops(torch.cuda.get_device_name(0))
+        mine = (None if cost is None or peak is None else
+                cost.flops_per_step_per_chip / (event_ms / 1e3) / peak)
+        last = per_update[-OBS_K:]
+        device_ms = statistics.median(r["spans"]["device"] for r in last)
+        rec.update(event_ms_per_update=event_ms, mfu_gauge=full["mfu"],
+                   mfu_cuda_events=mine, peak_flops=peak,
+                   flops_per_step=None if cost is None
+                   else cost.flops_per_step_per_chip,
+                   device_span_ms_per_update=device_ms,
+                   spans_last_window={k: statistics.median(
+                       r["spans"][k] for r in last)
+                       for k in last[0]["spans"]},
+                   mfu_basic_dispatch_rate=basic["mfu"])
+        checks.update({
+            "mfu_in_0_1": full["mfu"] is not None and 0 < full["mfu"] <= 1,
+            "mfu_within_10pct_of_cuda_events": mine is not None
+            and full["mfu"] is not None
+            and abs(full["mfu"] - mine) <= 0.1 * mine,
+            "device_span_within_10pct": abs(device_ms - event_ms)
+            <= 0.1 * event_ms})
+        # The profiler's step range: armed before the window holding step
+        # 10, stopped after the one holding step 19; the Chrome trace
+        # holds those two windows' kernels and no other's.
+        a, b = OBS_PROFILE
+        prof_dir = where("profile")
+        flightrec.recorder.reset()
+        pt = Trainer(parse_cli(OBS_ARGS + [
+            f"--train.ckpt_dir={where('prof_ck')}",
+            f"--train.profile_steps={a}:{b}",
+            f"--train.profile_dir={prof_dir}"]))
+        pt.fit()
+        with open(os.path.join(prof_dir, "trace_r00000.json"),
+                  encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "kernel"]
+        in_range = 2 * OBS_K  # windows [1, 10] and [11, 20]
+        got = {k: sum(1 for n in kernels if k in n.lower()) for k in want}
+        span = {k: v * in_range // OBS_K for k, v in want.items()}
+        kinds = [e["kind"] for e in flightrec.recorder.events()]
+        rec["profile"] = {"range": OBS_PROFILE, "kernels": got,
+                          "books_in_range": span,
+                          "cuda_only": not any(e.get("cat") == "cpu_op"
+                                               for e in events)}
+        checks.update({
+            "profile_kernels_in_range_only": all(
+                0.98 * span[k] <= got[k] <= span[k] for k in want),
+            "profile_cuda_activity_only": rec["profile"]["cuda_only"],
+            "profile_flightrec_events": kinds.count("profile_start")
+            == kinds.count("profile_stop") == 1})
+        pt.multi_step.close()
+        del pt
+        # The cost of each mode per update, in turns on a quiet card: an
+        # epoch of 30 updates fenced at its end. fit closed the heartbeat
+        # writers: the timed epochs beat into fresh ones.
+        for mode in ("basic", "full"):
+            t = runs[mode]["t"]
+            t.heartbeat = HeartbeatWriter(t.obs_dir / "timed", rank=0)
+        # The host's synchronisations over one more epoch's windows (and
+        # its one closing fetch) at each mode.
+        syncs = {}
+        for mode in OBS_MODES:
+            t = runs[mode]["t"]
+            torch.cuda.synchronize()
+            with _counted_syncs() as syncs[mode]:
+                t.train_epoch(0)
+            torch.cuda.synchronize()
+        rec["syncs"] = syncs
+        total = {m: v["debug"] + v["event"] for m, v in syncs.items()}
+        checks.update({
+            "basic_adds_no_sync": total["basic"] == total["off"],
+            "full_adds_one_sync_a_window": total["full"] == total["off"]
+            + windows and syncs["full"]["event"] == windows})
+        # Three turns a mode, each mode's median: one stalled epoch (a
+        # shared host) does not make the cost.
+        epoch = {m: [] for m in OBS_MODES}
+        for mode in OBS_MODES + OBS_MODES[::-1] + OBS_MODES:
+            epoch[mode].append(_obs_epoch_ms(runs[mode]["t"]))
+        rec["epoch_ms_per_update"] = epoch
+        mid = {m: statistics.median(v) for m, v in epoch.items()}
+        rec["full_cost_ms_per_update"] = mid["full"] - mid["off"]
+        rec["basic_cost_ms_per_update"] = mid["basic"] - mid["off"]
+        for r in runs.values():
+            if r["t"].heartbeat is not None:
+                r["t"].heartbeat.close()
+            r["t"].multi_step.close()
+            del r["t"]
+        runs.clear()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+        tmp.cleanup()
+    syncs = {m: s["debug"] + s["event"] for m, s in rec["syncs"].items()}
+    fit = {m: s["debug"] + s["event"] for m, s in rec["syncs_per_fit"].items()}
+    print(f"[obs] host syncs per fit off/basic/full {fit}; by calling line "
+          f"against off's {json.dumps(rec['sync_sites_vs_off'])}")
+    print(f"[obs] {out['card']}: host syncs per epoch off/basic/full {syncs} "
+          f"(Event.synchronize {[s['event'] for s in rec['syncs'].values()]}"
+          f"); MFU gauge {rec['mfu_gauge']} vs CUDA events "
+          f"{rec['mfu_cuda_events']} (event ms per update "
+          f"{rec['event_ms_per_update']:.3f}, device span "
+          f"{rec['device_span_ms_per_update']:.3f}); epoch ms per update "
+          f"{rec['epoch_ms_per_update']}; full costs "
+          f"{rec['full_cost_ms_per_update']:.3f} ms per update, basic "
+          f"{rec['basic_cost_ms_per_update']:.3f}; profile "
+          f"{rec['profile']['kernels']}")
+    failed = [n for n, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"obs checks failed: {failed}")
+
+
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     """One kernels-line entry whose times sum ``recs`` (one per launch of
     a step or forward)."""
@@ -5082,7 +5442,7 @@ PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
           phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows,
           phase_resnet50_kernels, phase_resnet50, phase_resnet50_windows,
           phase_resnet50_ddp, phase_sharded, phase_resident, phase_presets,
-          phase_resilience, phase_guard)
+          phase_resilience, phase_guard, phase_obs)
 
 
 def main(argv=None) -> int:

@@ -18,12 +18,14 @@ item 9d).
   leaf, every rank halts (`DivergedError`), and the saves newer than the
   last clean audit are quarantined: none at ``sdc:step=2`` with the audit
   at every boundary (the guard runs before the snapshot, as in the JAX
-  package), the step-3 snapshot at ``sdc:step=3`` with the audit every 2.
+  package), the step-3 snapshot at ``sdc:step=3`` with the audit every 2;
+  rank 0's ``metrics.jsonl`` holds the JAX package's ``guard_sdc`` event.
 - On a card: the checksum of CUDA tensors equals that of their CPU copy.
 """
 
 from __future__ import annotations
 
+import json
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -174,6 +176,25 @@ def test_sdc_audit_names_rank_2_and_halts(runs, case):
     snaps = where / "ck" / "snapshots"
     assert sorted(d.name for d in snaps.iterdir()
                   if (d / QUARANTINED_MARKER).exists()) == marked
+
+
+@pytest.mark.parametrize("case", sorted(_SDC))
+def test_sdc_audit_writes_the_jax_packages_metrics_event(runs, case):
+    """Rank 0 writes the audit's finding into metrics.jsonl as the JAX
+    package's ``guard_sdc`` event: the quarantine record's fields."""
+    where, _ = runs[f"sdc-{case}"]
+    recs = [json.loads(line) for line in
+            (where / "ck" / "metrics.jsonl").read_text().splitlines()]
+    events = [r for r in recs if r.get("event") == "guard_sdc"]
+    assert len(events) == 1
+    (sdc,) = [r for r in QuarantineLog(where / "ck" / "quarantine.jsonl")
+              .read() if r["kind"] == "sdc"]
+    assert sorted(events[0]) == ["digest", "event", "last_clean_step",
+                                 "leaves", "majority", "schema", "step",
+                                 "suspects", "ts"]
+    for k in ("step", "suspects", "majority", "leaves", "last_clean_step",
+              "digest"):
+        assert events[0][k] == sdc[k], k
 
 
 @pytest.mark.card

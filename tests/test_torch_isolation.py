@@ -30,6 +30,15 @@ PKG = ROOT / "tpu_dp_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_dp", "msgpack")
 
 
+#: The telemetry modules: standard library only at import (post-hoc
+#: tools and watchers load them without torch or a card).
+_TELEMETRY = ("tpu_dp_torch.metrics", "tpu_dp_torch.metrics.metrics",
+              "tpu_dp_torch.obs", "tpu_dp_torch.obs.chips",
+              "tpu_dp_torch.obs.costs", "tpu_dp_torch.obs.health",
+              "tpu_dp_torch.obs.promfile", "tpu_dp_torch.obs.export",
+              "tpu_dp_torch.utils.profiling")
+
+
 def _modules() -> list[str]:
     import tpu_dp_torch
 
@@ -46,7 +55,8 @@ def test_every_module_imports_without_jax_or_tpu_dp():
               "tpu_dp_torch.train.__main__", "tpu_dp_torch.parallel.dist",
               "tpu_dp_torch.parallel.collectives",
               "tpu_dp_torch.checkpoint", "tpu_dp_torch.serialization",
-              "tpu_dp_torch.resilience.preempt", "tpu_dp_torch.models.net"):
+              "tpu_dp_torch.resilience.preempt", "tpu_dp_torch.models.net",
+              *_TELEMETRY):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
@@ -58,6 +68,21 @@ def test_every_module_imports_without_jax_or_tpu_dp():
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
         text=True, timeout=240, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", _TELEMETRY)
+def test_telemetry_module_imports_alone_without_torch_or_jax(module):
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0]"
+        f" in {FORBIDDEN + ('torch', 'numpy')!r})))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 

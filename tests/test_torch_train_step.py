@@ -183,9 +183,10 @@ def test_augmentation_statistics():
     "--train.verify_fingerprint=true",
     "--train.recompile_guard=raise", "--resilience.membership_dir=m",
     "--serve.max_queue=8", "--resilience.elastic=true",
-    "--obs.prom_path=x", "--train.obs=basic", "--train.profile_dir=p",
+    "--obs.comm_profile_steps=1:2", "--obs.comm_profile_dir=c",
+    "--serve.max_wait_ms=1",
     "--model.fused_block_b=4",
-    "--train.metrics_path=m.jsonl", "--train.profile_steps=1:2",
+    "--serve.replicas=2", "--resilience.regroup_timeout_s=5",
     "--profile=t.json",
     "--parallel.num_devices=2"])
 def test_cli_refuses_unported_knobs(knob):

@@ -61,7 +61,10 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
     in feed order, of batches whose update is never run (the guard's
     never-saw-it oracle; one update a call): they count no loss and leave
     the state and the update counter alone. Also returned: the host's
-    batch clock (``host_step``) and the guard's counters."""
+    batch clock (``host_step``), the guard's counters and the issues rank
+    0's health monitor reported (``train.obs`` on; dicts)."""
+    import dataclasses
+
     from tpu_dp_torch.checkpoint import CheckpointManager
     from tpu_dp_torch.config import parse_cli
     from tpu_dp_torch.obs.counters import counters
@@ -75,7 +78,16 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
     trainer = Trainer(cfg, device="cpu")
     out = {"restored": flat_state(trainer), "resumed_from":
            trainer.resumed_from,
-           "start": (trainer.start_epoch, trainer.start_step)}
+           "start": (trainer.start_epoch, trainer.start_step),
+           "health_issues": []}
+    if trainer.health is not None:
+        real_report = trainer.health.report
+
+        def report(issues):
+            out["health_issues"] += [dataclasses.asdict(i) for i in issues]
+            return real_report(issues)
+
+        trainer.health.report = report
     if stop_at_step is not None:
         real = trainer.train_step
 

@@ -107,6 +107,20 @@ class TrainConfig:
     # Target MB of f32 gradient per exchange of the sharded update (one
     # collective set per bucket, reverse leaf order); 0 = one exchange.
     bucket_mb: float = 0.0
+    # torch.profiler Chrome traces into this dir when set: the whole of
+    # fit, or only train.profile_steps.
+    profile_dir: str | None = None
+    # Runtime telemetry (`tpu_dp_torch.obs`). "off": the untelemetered
+    # loop. "basic": per-window data_wait/dispatch spans, efficiency
+    # gauges, cross-rank heartbeats, no added host synchronisation.
+    # "full": adds the h2d and fence-to-fence device spans (one CUDA-event
+    # synchronize per window) and one metrics.jsonl record per update.
+    obs: str = "off"  # off | basic | full
+    # metrics.jsonl sink ("" = <train.ckpt_dir>/metrics.jsonl).
+    metrics_path: str = ""
+    # Step-ranged profiling: "START:END" global steps traced into
+    # train.profile_dir (which must be set) instead of the whole run.
+    profile_steps: str = ""
 
 
 @dataclass
@@ -181,11 +195,41 @@ class GuardConfig:
 
 @dataclass
 class ObsConfig:
-    """The telemetry fields the port runs: the flight recorder's."""
+    """Telemetry tuning (`tpu_dp_torch.obs`; enabled by ``train.obs``),
+    the JAX package's fields and defaults but the comm-attribution pair
+    (``comm_profile_*``, ROADMAP Queue 1 item 10b)."""
 
-    run_dir: str = ""  # "" = <train.ckpt_dir>/obs (flightrec_r<rank>.json)
+    # Shared telemetry dir ("" = <train.ckpt_dir>/obs): heartbeat files,
+    # the flight recorder's dumps and the Perfetto export land here.
+    run_dir: str = ""
+    # Span ring-buffer length (per-step records kept for rollups/export).
+    span_capacity: int = 4096
+    # Heartbeat cadence in optimizer steps (crossing discipline, like
+    # snapshots); 0 disables heartbeats while keeping spans/counters.
+    heartbeat_every_steps: int = 1
+    # Straggler threshold: flagged when a rank's step time exceeds this
+    # factor x the median of the other ranks at the same observation.
+    straggler_factor: float = 3.0
+    # Hang threshold: a heartbeat older than this is a stale/hung rank.
+    stale_after_s: float = 60.0
+    # Median floor (ms) of the straggler ratio's denominator.
+    min_step_ms: float = 1.0
+    # What rank 0 does when the monitor flags an issue: warn | raise.
+    on_straggler: str = "warn"
+    # Perfetto trace output ("" = <run_dir>/trace.perfetto.json), written
+    # by rank 0 at the end of fit.
+    perfetto_path: str = ""
     # Ring size of the always-on flight recorder; 0 disables it.
     flightrec_capacity: int = 2048
+    # Prometheus text file ("" = off), rewritten at log boundaries, epoch
+    # ends and exit; multi-process runs suffix it with .r<rank>.
+    prom_path: str = ""
+    # Peak FLOP/s override for MFU (0 = the card's dense bf16 peak from
+    # `tpu_dp_torch.obs.chips`; unknown cards publish no MFU).
+    peak_flops_override: float = 0.0
+    # Count one train step's FLOPs (FlopCounterMode, on the plain path)
+    # instead of the analytic per-model estimate.
+    measure_flops: bool = False
 
 
 @dataclass
@@ -296,12 +340,8 @@ NOT_PORTED: dict[str, Any] = {
     # tile_of`), so there is no per-block knob to give it and only the
     # automatic default runs.
     "model.fused_block_b": 0,
-    "train.profile_dir": None,
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
-    "train.obs": "off",
-    "train.metrics_path": "",
-    "train.profile_steps": "",
     "train.profile": "",
     # Elastic world size (ROADMAP Queue 1 item 9d).
     "resilience.elastic": False,
@@ -314,17 +354,7 @@ NOT_PORTED: dict[str, Any] = {
     "resilience.elastic_join": "auto",
     "resilience.elastic_join_timeout_s": 0.0,
     "resilience.elastic_max_world": 0,
-    # Telemetry beyond the flight recorder (item 10).
-    "obs.span_capacity": 4096,
-    "obs.heartbeat_every_steps": 1,
-    "obs.straggler_factor": 3.0,
-    "obs.stale_after_s": 60.0,
-    "obs.min_step_ms": 1.0,
-    "obs.on_straggler": "warn",
-    "obs.perfetto_path": "",
-    "obs.prom_path": "",
-    "obs.peak_flops_override": 0.0,
-    "obs.measure_flops": False,
+    # The in-run comm/compute attribution (item 10b).
     "obs.comm_profile_steps": "",
     "obs.comm_profile_dir": "",
 }
@@ -332,9 +362,8 @@ NOT_PORTED: dict[str, Any] = {
 #: The ROADMAP Queue 1 item that ports each refused section or field
 #: (longest matching prefix); `model.fused_block_b` stays refused by design.
 _NOT_PORTED_ITEMS = {
-    "resilience": "9d", "obs": "10", "serve": "11",
-    "train.profile_dir": "10", "train.obs": "10", "train.metrics_path": "10",
-    "train.profile_steps": "10", "train.profile": "12",
+    "resilience": "9d", "obs": "10b", "serve": "11",
+    "train.profile": "12",
     "train.recompile_guard": "11", "train.verify_fingerprint": "13",
 }
 
@@ -407,8 +436,9 @@ def check_ported(cfg: Config) -> Config:
     than auto|on|off; the device-resident feed forced on, gradient
     accumulation or a window above 1, each with a ragged final batch;
     gradient accumulation below 1, a negative window; the sharded
-    update's knobs as the JAX package refuses them), with the JAX
-    package's messages."""
+    update's knobs as the JAX package refuses them; a telemetry mode
+    other than off|basic|full, a step range without a trace dir), with
+    the JAX package's messages."""
     if cfg.parallel.num_devices not in (None, 1):
         raise NotPortedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: one "
@@ -437,6 +467,7 @@ def check_ported(cfg: Config) -> Config:
         raise ValueError("train.steps_per_call > 1 requires "
                          "data.drop_remainder=true")
     _check_update_sharding(cfg.train)
+    _check_telemetry(cfg)
     if cfg.guard.enabled:
         check_guard(cfg.guard)
     if cfg.resilience.fault:
@@ -448,6 +479,21 @@ def check_ported(cfg: Config) -> Config:
         refuse_unported([p.kind for p in FaultPlan.parse_schedule(
             cfg.resilience.fault)], guard_enabled=cfg.guard.enabled)
     return cfg
+
+
+def _check_telemetry(cfg: Config) -> None:
+    """The JAX package's checks of the telemetry knobs, with its messages
+    (its `Trainer` and `StepProfiler`): ``train.obs``, then
+    ``train.profile_steps`` (its form, and ``train.profile_dir`` with it)."""
+    from tpu_dp_torch.utils.profiling import parse_profile_steps
+
+    if cfg.train.obs not in ("off", "basic", "full"):
+        raise ValueError(
+            f"train.obs must be off|basic|full, got {cfg.train.obs!r}")
+    if (parse_profile_steps(cfg.train.profile_steps) is not None
+            and not cfg.train.profile_dir):
+        raise ValueError(
+            "profile_steps needs train.profile_dir for the trace output")
 
 
 def check_guard(guard: GuardConfig) -> None:

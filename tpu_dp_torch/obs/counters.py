@@ -1,8 +1,9 @@
 """Process-wide counter/gauge registry — the numbers every subsystem emits.
 
 Copy of `tpu_dp.obs.counters` for the PyTorch port (the port never imports
-the JAX package). Not carried over: the JAX-backed device-memory gauge
-and the metric-name registries the JAX package's linter reads.
+the JAX package), its device-memory gauges read from PyTorch's allocator
+(`update_device_memory_gauges`). Not carried over: the metric-name
+registries the JAX package's linter reads.
 
 The stack already *generates* operational signals nobody collects: retry
 attempts (`resilience/retry.py`), silent-recompile retraces
@@ -91,3 +92,41 @@ class Counters:
 #: The process-wide registry every subsystem publishes into.
 counters = Counters()
 
+
+
+def update_device_memory_gauges(registry: Counters | None = None,
+                                devices=None) -> dict[str, float]:
+    """Publish per-card memory gauges from PyTorch's caching allocator.
+
+    Gauges: ``device.mem_in_use_bytes.<i>`` (`torch.cuda.memory_allocated`)
+    and ``device.mem_limit_bytes.<i>`` (the card's ``total_memory``) per
+    card ``i`` of ``devices`` (default: the current card), plus the
+    cross-card max ``device.mem_in_use_bytes``; the JAX package's names.
+    Without CUDA (the CPU) nothing is published: absence of the gauge
+    means "not measured", never a fake zero. Reads host-side allocator
+    books only: no device synchronisation. Returns the gauges written.
+    """
+    reg = counters if registry is None else registry
+    import torch  # lazy: keep this module importable without torch
+
+    written: dict[str, float] = {}
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return written
+    if devices is None:
+        devices = [torch.cuda.current_device()]
+    in_use_max = None
+    for dev in devices:
+        dev = torch.device(dev)
+        if dev.type != "cuda":
+            continue
+        i = torch.cuda.current_device() if dev.index is None else dev.index
+        in_use = float(torch.cuda.memory_allocated(i))
+        written[f"device.mem_in_use_bytes.{i}"] = in_use
+        written[f"device.mem_limit_bytes.{i}"] = float(
+            torch.cuda.get_device_properties(i).total_memory)
+        in_use_max = max(in_use_max or 0.0, in_use)
+    if in_use_max is not None:
+        written["device.mem_in_use_bytes"] = in_use_max
+    for name, value in written.items():
+        reg.gauge(name, value)
+    return written

@@ -54,6 +54,22 @@ carries a ``guard`` rollup. ``--resilience.fault=nan:step=K`` (or
 ``spike:step=K,scale=S``, ``sdc:step=K,rank=R``) injects the guard's
 faults.
 
+Telemetry as in the repository's ``train.py``: rank 0 always appends
+schema-3 records to ``<ckpt_dir>/metrics.jsonl`` (``--train.
+metrics_path``): an epoch record, the eval record, the guard's events.
+``--train.obs=basic`` adds per-window ``data_wait``/``dispatch`` spans,
+the MFU/goodput gauges and per-rank heartbeats (``<obs dir>/heartbeat_r
+<rank>.jsonl``, rank 0 flagging stragglers and stale ranks) with no added
+host synchronisation; ``--train.obs=full`` adds the ``h2d`` and
+``device`` spans (one CUDA-event synchronize a window) and one record per
+update; with either, rank 0 writes ``<obs dir>/trace.perfetto.json`` and
+the JSON line carries ``obs`` and ``efficiency`` rollups.
+``--obs.prom_path=P`` rewrites a Prometheus text file (``P.r<rank>``
+with more than one rank). ``--train.profile_dir=D`` traces the run with
+`torch.profiler` into ``D/trace_r<rank>.json`` (a Chrome trace, CUDA
+activity only on a card), ``--train.profile_steps=A:B`` only those
+updates (snapped outward to windows).
+
 ``--train.update_sharding=sharded`` trains with the sharded weight update
 (each rank keeps 1/world of the momentum), its gradient exchange in f32,
 ``--train.collective_dtype=bf16`` or ``=int8`` (``--train.
@@ -144,6 +160,11 @@ def main(argv=None) -> int:
                 "sdc_mismatches": int(counters.get("guard.sdc_mismatches")),
                 "quarantine_log": str(trainer.quarantine_path),
             }
+        obs = trainer.obs_summary()
+        if obs is not None:
+            summary["obs"] = obs
+            if "efficiency" in obs:
+                summary["efficiency"] = obs["efficiency"]
         print(json.dumps(summary), flush=True)
         return 0
     finally:

@@ -23,10 +23,11 @@ JAX package: the flight recorder first (it must record the very boundary
 a later hook raises out of), then the guard (a triggering window must
 not be snapshotted before its rollback picks a target), the snapshot
 cadence, fault injection (a kill at step K lands after the step-K
-snapshot, the kill/resume contract), and the preemption boundary last
-(it raises, and everything before it must have run for the final state
-to be coherent). The JAX package's heartbeat and profiler hooks belong
-to ROADMAP Queue 1 item 10 and are not ported yet.
+snapshot, the kill/resume contract), heartbeats (an injected ``delay:``
+is attributed to the step it fired at), the step-ranged profiler, and
+the preemption boundary last (it raises, and everything before it must
+have run for the final state to be coherent). The JAX package's comm
+profiler hook waits for ROADMAP Queue 1 item 10b.
 
 `GuardHook` is the one hook that reads the device: one fetch of the
 window's health per window (the guard's fence).
@@ -115,12 +116,65 @@ class FaultHook(StepHook):
         tr.fault.on_step(tr._host_step)
 
 
+class HeartbeatHook(StepHook):
+    """Per-rank liveness beats (`tpu_dp_torch.obs.health.HeartbeatWriter`):
+    boundary-to-boundary wall time per step since the last accepted beat.
+    Without fences (obs=basic) this is a dispatch rate; sustained,
+    backpressure makes it track the device rate."""
+
+    def __init__(self, trainer):
+        super().__init__(trainer)
+        self._t_boundary = time.perf_counter()
+        self._steps = 0
+
+    def on_epoch_start(self, epoch: int) -> None:
+        self._t_boundary = time.perf_counter()
+        self._steps = 0
+
+    def on_step_end(self, ev: StepEvent) -> None:
+        tr = self.tr
+        if tr.heartbeat is None:
+            return
+        now = time.perf_counter()
+        self._steps += ev.n
+        try:
+            accepted = tr.heartbeat.beat(
+                tr._host_step, (now - self._t_boundary) / self._steps * 1e3)
+        except OSError:
+            # Best-effort telemetry on a shared filesystem: a failed beat
+            # never aborts training. Logged once; the monitor sees the gap
+            # as staleness.
+            if not tr._hb_write_failed:
+                tr._hb_write_failed = True
+                tr._log0("heartbeat write failed (suppressing further "
+                         "warnings)", exc_info=True)
+            accepted = False
+        if accepted:
+            self._t_boundary, self._steps = now, 0
+
+
+class ProfilerHook(StepHook):
+    """Step-ranged profiling (``train.profile_steps=START:END``)."""
+
+    def on_window_start(self, first_step: int, n: int) -> None:
+        # BEFORE dispatch: the window about to run is steps [first_step,
+        # first_step + n); arming at the post-window boundary would trace
+        # the window after the requested range.
+        if self.tr._step_profiler is not None:
+            self.tr._step_profiler.on_window_start(first_step, n)
+
+    def on_step_end(self, ev: StepEvent) -> None:
+        if self.tr._step_profiler is not None:
+            self.tr._step_profiler.on_step(self.tr._host_step)
+
+
 class FlightRecorderHook(StepHook):
     """The black box's feed (`tpu_dp_torch.obs.flightrec`): one ``step``
-    event per window boundary (no device fetch: the window's wall time),
-    the hang-dump sentinel polled, and one ``snapshot`` event per commit.
-    Decisions (preemption, write errors, injected storage faults) are
-    recorded where they are made."""
+    event per window boundary (no device fetch: the window's wall time,
+    the rollback generation and the efficiency gauges the trainer already
+    computed), the hang-dump sentinel polled, and one ``snapshot`` event
+    per commit. Decisions (preemption, write errors, injected storage
+    faults) are recorded where they are made."""
 
     def __init__(self, trainer):
         super().__init__(trainer)
@@ -132,11 +186,18 @@ class FlightRecorderHook(StepHook):
                           epoch=epoch)
 
     def on_step_end(self, ev: StepEvent) -> None:
+        tr = self.tr
         now = time.perf_counter()
-        _flightrec.record("step", step=self.tr._host_step, epoch=ev.epoch,
-                          n=ev.n,
-                          window_ms=round((now - self._t_boundary) * 1e3, 3))
+        fields = {"epoch": ev.epoch, "n": ev.n,
+                  "window_ms": round((now - self._t_boundary) * 1e3, 3)}
         self._t_boundary = now
+        if tr._rollback_gen:
+            fields["gen"] = tr._rollback_gen
+        eff = tr._last_efficiency
+        if eff:
+            fields.update({k: eff[k] for k in ("mfu", "goodput")
+                           if k in eff})
+        _flightrec.record("step", step=tr._host_step, **fields)
         path = _flightrec.recorder.poll_dump_request()
         if path is not None:
             self.tr._log0("flight recorder: hang-dump request honored -> %s",
@@ -176,10 +237,11 @@ class GuardHook(StepHook):
 
     Every rank computes the same decision from the same values (the
     sentinel's are equal on every rank), with no coordination beyond the
-    audit's all-gather. Left out until ROADMAP Queue 1 item 9d: the
-    elastic branches (evicting the SDC suspect, ``mark_suspect``, deferring
-    a rollback while a quiesce converges) and ``on_regroup``; until item
-    10 (``train.metrics_path``): the ``guard_*`` metrics events.
+    audit's all-gather. Rank 0 writes the ``guard_quarantine``,
+    ``guard_spike`` and ``guard_sdc`` events into ``metrics.jsonl``. Left
+    out until ROADMAP Queue 1 item 9d: the elastic branches (evicting the
+    SDC suspect, ``mark_suspect``, deferring a rollback while a quiesce
+    converges) and ``on_regroup``.
     """
 
     def __init__(self, trainer):
@@ -287,13 +349,19 @@ class GuardHook(StepHook):
             # batch, re-identifiable from (seed, epoch).
             pos = ev.done - ev.n + (t.step - first)
             gbs = tr.global_batch_size
-            self.log.quarantine(
+            rec = self.log.quarantine(
                 epoch=ev.epoch, step=t.step,
                 sample_range=(pos * gbs, (pos + 1) * gbs),
                 rank=tr.ctx.rank, reason=t.reason)
+            tr._log_metrics({"event": "guard_quarantine", "step": t.step,
+                             "reason": t.reason,
+                             "sample_range": rec["sample_range"]})
         elif t.kind == "spike":
             self.log.record("spike", step=t.step, field=t.field,
                             value=t.value, z=t.z, action=t.action)
+            tr._log_metrics({"event": "guard_spike", "step": t.step,
+                             "field": t.field, "value": t.value, "z": t.z,
+                             "action": t.action})
 
     def _escalate(self, ev: StepEvent, t) -> None:
         from tpu_dp_torch.resilience.guard import DivergedError
@@ -347,6 +415,7 @@ class GuardHook(StepHook):
         halting = tr.cfg.guard.sdc_action == "halt"
         if tr.ctx.rank == 0:
             self.log.record("sdc", **detail)
+            tr._log_metrics({"event": "guard_sdc", **detail})
             if halting:
                 # Every save since the last clean audit may carry the
                 # corruption: no rollback or resume may trust one. (warn

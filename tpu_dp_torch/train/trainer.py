@@ -101,14 +101,33 @@ restored in place so a captured window keeps training the same tensors),
 the JAX package: ``state.step`` counts applied updates (the schedule's and
 the augmentation's step), `_host_step` dispatched batches (the hooks', the
 snapshots' and the faults' clock, the snapshots' ``global_step``); they
-part on every quarantined batch. Elastic world size and the rest of the
-telemetry are not ported yet.
+part on every quarantined batch.
+
+Telemetry (`tpu_dp_torch.obs`), as the JAX package builds it: rank 0
+appends schema-3 records to ``metrics.jsonl`` (``train.metrics_path``, by
+default ``<ckpt_dir>/metrics.jsonl``) at every ``train.obs`` mode: one per
+epoch, the eval record, the guard's events. ``train.obs=basic`` records
+each window's ``data_wait`` and ``dispatch`` spans (split over its
+updates), the efficiency gauges (``obs.mfu``, ``obs.goodput``,
+``obs.step_time_ms``: `obs.costs`) and heartbeats, with no added host
+synchronisation; rank 0 checks every rank's heartbeats at the log
+boundary (already a fetch) and at epoch ends. ``full`` adds the ``h2d``
+span (device time still spent placing the window's input after the host
+had it, from CUDA events) and the fence-to-fence ``device`` span (one
+CUDA-event synchronize per window, after its dispatch) and one record per
+update. Nothing is recorded inside a captured window. ``obs.prom_path``
+is rewritten at log boundaries, epoch ends and exit; rank 0 writes
+``trace.perfetto.json`` at the end of `fit`; ``train.profile_dir`` traces
+the whole of `fit` with `torch.profiler`, or only ``train.profile_steps``.
+Elastic world size (and its membership stamps on records) is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import fnmatch
 import hashlib
+import json
 import logging
 import os
 import sys
@@ -126,8 +145,10 @@ from tpu_dp_torch.data.augment import make_augment_fn
 from tpu_dp_torch.data.cifar import load_dataset
 from tpu_dp_torch.data.pipeline import DataPipeline
 from tpu_dp_torch.models import build_model, parse_fused_stages
+from tpu_dp_torch.obs import costs as _costs
 from tpu_dp_torch.obs import flightrec as _flightrec
 from tpu_dp_torch.obs.counters import counters as _counters
+from tpu_dp_torch.obs.counters import update_device_memory_gauges
 from tpu_dp_torch.parallel import bucketing, quant
 from tpu_dp_torch.parallel.dist import broadcast_one_to_all, initialize
 from tpu_dp_torch.resilience import (
@@ -155,8 +176,29 @@ from tpu_dp_torch.train.step import (
     make_train_step,
 )
 from tpu_dp_torch.utils.meter import ThroughputMeter
+from tpu_dp_torch.utils.profiling import (
+    ChromeTrace,
+    StepProfiler,
+    parse_profile_steps,
+    profile_trace,
+)
 
 log = logging.getLogger("tpu_dp_torch.train")
+
+
+def _timing_event(device) -> torch.cuda.Event:
+    """A timing CUDA event recorded now on ``device``'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _iso_ts(epoch_seconds: float) -> str:
+    """ISO-8601 UTC stamp for metrics records (millisecond resolution)."""
+    from datetime import datetime, timezone
+
+    return datetime.fromtimestamp(
+        epoch_seconds, timezone.utc).isoformat(timespec="milliseconds")
 
 
 class _GuardRollback(Exception):
@@ -369,6 +411,8 @@ class Trainer:
                      "global_batch": self.global_batch_size,
                      "elastic": False, "guard": self.guard_enabled,
                      "joined": False})
+        self._build_telemetry()
+        self._register_program_costs()
         self._build_hooks()
         self.start_epoch = 0
         self.start_step = 0  # step within start_epoch (mid-epoch resume)
@@ -439,11 +483,102 @@ class Trainer:
         if self.ctx.is_main_process:
             log.info(msg, *args, **kwargs)
 
+    def _build_telemetry(self) -> None:
+        """The live telemetry of ``train.obs`` (module doc): nothing at
+        off, where the loop runs untelemetered; at basic and full the span
+        ring, this rank's heartbeat writer, rank 0's health monitor and
+        the efficiency meter (its peak the card's dense bf16 one, or
+        ``obs.peak_flops_override``; an unknown card publishes no MFU).
+        The step-ranged profiler at any mode."""
+        from tpu_dp_torch.obs.health import HealthMonitor, HeartbeatWriter
+        from tpu_dp_torch.obs.spans import SpanRecorder
+
+        cfg = self.cfg
+        self._metrics_file = None  # opened by _log_metrics (rank 0)
+        self._hb_write_failed = False  # one-shot heartbeat-failure warning
+        self._prom_failed = False  # one-shot prom-write failure warning
+        self.obs_mode = cfg.train.obs
+        self.spans = self.heartbeat = self.health = None
+        self._eff = None
+        self._last_efficiency: dict | None = None
+        if self.obs_mode != "off":
+            self.spans = SpanRecorder(capacity=cfg.obs.span_capacity)
+            if cfg.obs.heartbeat_every_steps > 0:
+                # Every rank appends to its own heartbeat file.
+                self.heartbeat = HeartbeatWriter(
+                    self.obs_dir, rank=self.ctx.rank,
+                    every_steps=cfg.obs.heartbeat_every_steps)
+            if self.heartbeat is not None and self.ctx.is_main_process:
+                self.health = HealthMonitor(
+                    self.obs_dir, world=self.ctx.world,
+                    straggler_factor=cfg.obs.straggler_factor,
+                    stale_after_s=cfg.obs.stale_after_s,
+                    min_step_ms=cfg.obs.min_step_ms,
+                    on_flag=cfg.obs.on_straggler,
+                    logger=lambda msg: log.warning("health: %s", msg))
+            peak = cfg.obs.peak_flops_override or None
+            if peak is None and self.device.type == "cuda":
+                peak = _costs.peak_flops(
+                    torch.cuda.get_device_name(self.device))
+            self._eff = _costs.EfficiencyMeter(
+                peak=peak, capacity=cfg.obs.span_capacity)
+        # torch.profiler: one Chrome trace per rank (`utils.profiling`).
+        self._tracer = ChromeTrace(rank=self.ctx.rank,
+                                   cuda=self.device.type == "cuda")
+        profile_range = parse_profile_steps(cfg.train.profile_steps)
+        self._step_profiler = None
+        if profile_range is not None:
+            self._step_profiler = StepProfiler(
+                cfg.train.profile_dir, *profile_range,
+                start_fn=self._tracer.start, stop_fn=self._tracer.stop)
+
+    def _register_program_costs(self) -> None:
+        """Stamp one optimizer step's per-card cost into the process-wide
+        cost registry under "train_step", aliased to the windowed tags the
+        loop dispatches (`obs.costs`): the analytic per-model estimate, or
+        with ``obs.measure_flops`` (and telemetry on) one step counted by
+        `obs.costs.count_train_flops` on the model's plain path, checked
+        against the analytic count."""
+        cfg = self.cfg
+        per_chip = self.global_batch_size / max(1, self.num_devices)
+        model = cfg.model.name
+        cost = _costs.registry.register_analytic("train_step", model,
+                                                 per_chip)
+        if cfg.obs.measure_flops and self.obs_mode != "off":
+            b, accum = cfg.data.batch_size, cfg.optim.grad_accum_steps
+            shape = (b, *self.train_ds.images.shape[1:])
+            try:
+                plain = build_model(
+                    model, num_classes=self._num_classes,
+                    dtype=torch.bfloat16 if cfg.model.bf16
+                    else torch.float32)
+                step_flops = accum * _costs.count_train_flops(
+                    plain, torch.empty(shape),
+                    torch.empty(b, dtype=torch.int64))
+            except Exception:
+                self._log0("obs.measure_flops: counting the step failed; "
+                           "keeping the analytic estimate", exc_info=True)
+                step_flops = None
+            if step_flops:
+                resolved, source, check = _costs.resolve_flops_per_step(
+                    None, step_flops, 1, per_chip,
+                    _costs.train_flops_per_image(model))
+                cost = _costs.registry.register("train_step", resolved,
+                                                source=source, check=check)
+                self._log0("obs: measured step cost %.3g FLOPs/step/card "
+                           "(%s, check=%s)", resolved, source, check)
+        if cost is not None:
+            for tag in ("multi_step", "resident_loop[w1]",
+                        f"resident_loop[w{self.steps_per_call}]"):
+                _costs.registry.alias(tag, "train_step")
+            _counters.gauge("obs.flops_per_step_per_chip",
+                            cost.flops_per_step_per_chip)
+
     def _build_hooks(self) -> None:
         """The step-lifecycle hooks, in the JAX package's load-bearing
         order (`tpu_dp_torch.train.hooks`): the flight recorder first, then
-        the guard, the snapshot cadence, fault injection, and the
-        preemption boundary last."""
+        the guard, the snapshot cadence, fault injection, heartbeats, the
+        step-ranged profiler, and the preemption boundary last."""
         self._guard_hook = (hooks_lib.GuardHook(self) if self.guard_enabled
                             else None)
         hooks: list = []
@@ -452,6 +587,7 @@ class Trainer:
         if self._guard_hook is not None:
             hooks.append(self._guard_hook)
         hooks += [hooks_lib.SnapshotHook(self), hooks_lib.FaultHook(self),
+                  hooks_lib.HeartbeatHook(self), hooks_lib.ProfilerHook(self),
                   hooks_lib.BoundaryHook(self)]
         self._hooks = hooks
 
@@ -775,6 +911,8 @@ class Trainer:
             hook.log.tombstone(from_step=from_step, to_step=self._host_step,
                                reason=sig.trigger.reason)
         hook.log.generation = self._rollback_gen
+        if self.heartbeat is not None:
+            self.heartbeat.rewind(self._host_step)
         self.snap_mgr.rewind(self._host_step)
         hook.on_rollback_rewind(self._host_step)
         hook.arm_lr_ease(self._host_step)
@@ -784,11 +922,113 @@ class Trainer:
         _flightrec.record("guard_rollback", step=self._host_step,
                           from_step=from_step, to_step=self._host_step,
                           gen=self._rollback_gen, reason=sig.trigger.reason)
+        if self.spans is not None:
+            self.spans.record_window(self._host_step, 1,
+                                     {"guard_rollback": 0.0},
+                                     gen=self._rollback_gen)
+        self._log_metrics({
+            "event": "guard_rollback", "from_step": from_step,
+            "to_step": self._host_step, "trigger": sig.trigger.reason,
+            "resume_epoch": position[0], "resume_step": position[1]})
         self._log0("guard: rolled back %d step(s) — resuming at epoch %d "
                    "step %d (global step %d, generation %d)",
                    from_step - self._host_step, position[0], position[1],
                    self._host_step, self._rollback_gen)
         return position
+
+    # -- telemetry sinks ---------------------------------------------------
+
+    @property
+    def metrics_path(self) -> Path:
+        """The metrics.jsonl sink (``train.metrics_path``, by default
+        ``<ckpt_dir>/metrics.jsonl``)."""
+        return Path(self.cfg.train.metrics_path
+                    or Path(self.cfg.train.ckpt_dir) / "metrics.jsonl")
+
+    def _log_metrics(self, record: dict) -> None:
+        """Append a schema-3 JSON line to the metrics sink (rank 0 only),
+        stamped with ``ts`` (ISO-8601 UTC), the host ``step``, ``schema:
+        3`` and, after a guard rollback, ``rollback_generation``; the
+        caller's fields win (per-update records carry their own measured
+        ts and step). The sink is opened once and held (append and flush
+        per record: obs=full writes one per update), closed in `fit`'s
+        teardown; a record after it (the eval line) reopens it."""
+        if not self.ctx.is_main_process:
+            return
+        rec = {"ts": _iso_ts(time.time()), "step": self._host_step,
+               "schema": 3}
+        if self._rollback_gen:
+            rec["rollback_generation"] = self._rollback_gen
+        rec.update(record)
+        if self._metrics_file is None or self._metrics_file.closed:
+            path = self.metrics_path
+            path.parent.mkdir(parents=True, exist_ok=True)
+            self._metrics_file = open(path, "a")
+        self._metrics_file.write(json.dumps(rec) + "\n")
+        self._metrics_file.flush()
+
+    def _write_prom(self) -> None:
+        """Atomically rewrite the Prometheus textfile (``obs.prom_path``;
+        ``.r<rank>`` suffixed when there is more than one rank). A failure
+        warns once and never aborts training."""
+        path = self.cfg.obs.prom_path
+        if not path:
+            return
+        from tpu_dp_torch.obs.promfile import write_promfile
+
+        out = Path(path)
+        if self.ctx.world > 1:
+            out = out.with_name(out.name + f".r{self.ctx.rank}")
+        try:
+            write_promfile(out, labels={"rank": str(self.ctx.rank)})
+        except OSError:
+            if not self._prom_failed:
+                self._prom_failed = True
+                self._log0("prometheus textfile write failed (suppressing "
+                           "further warnings)", exc_info=True)
+
+    def _check_health(self) -> None:
+        """Rank 0's health pass over every rank's heartbeats: the
+        hang-dump sentinel first (into the directory the flight recorders
+        poll), then the report (``obs.on_straggler=raise`` raises
+        `HealthError`)."""
+        if self.health is None:
+            return
+        issues = self.health.check()
+        if self.flightrec is not None:
+            self.health.request_dump(issues,
+                                     dump_dir=self.flightrec.dump_dir)
+        self.health.report(issues)
+
+    def export_trace(self) -> Path | None:
+        """Write the Perfetto/Chrome trace JSON of this rank's spans
+        (``obs.perfetto_path``, by default ``<obs dir>/trace.perfetto.
+        json``); rank 0 only. None when obs is off or not rank 0."""
+        if self.spans is None or not self.ctx.is_main_process:
+            return None
+        from tpu_dp_torch.obs.export import export_perfetto
+
+        path = Path(self.cfg.obs.perfetto_path
+                    or self.obs_dir / "trace.perfetto.json")
+        out = export_perfetto(
+            path, self.spans.records(), rank=self.ctx.rank,
+            counter_points=[{"ts": time.time(),
+                             "counters": _counters.snapshot()}])
+        self._log0("perfetto trace: %s (%d step records)", out,
+                   len(self.spans))
+        return out
+
+    def obs_summary(self) -> dict[str, Any] | None:
+        """Span rollup, counter snapshot and efficiency rollup for the
+        CLI's JSON line; None when obs is off."""
+        if self.spans is None:
+            return None
+        out = {"mode": self.obs_mode, "spans_ms": self.spans.rollup(),
+               "counters": _counters.snapshot()}
+        eff = self._eff.rollup() if self._eff is not None else None
+        if eff is not None:
+            out["efficiency"] = eff
+        return out
 
     def _export_final(self) -> None:
         """Write ``final_params.msgpack`` (the last epoch save was joined by
@@ -822,15 +1062,40 @@ class Trainer:
         table = self.resident_train
         feed = (self.train_pipe.windows if table is None
                 else self.train_pipe.index_windows)
+        # Telemetry (train.obs != off): host stamps bracket each window,
+        # t0 -> t1 data_wait (the feed, the pre-dispatch hooks), t1 -> t3
+        # dispatch, and at full t3 -> t4 device (the window's one fence)
+        # and h2d from CUDA events; nothing inside the dispatched window.
+        spans = self.spans
+        obs_full = self.obs_mode == "full"
+        fence = obs_full and self.device.type == "cuda"
         for hook in self._hooks:
             hook.on_epoch_start(epoch)
-        for n, item in feed(self.steps_per_call, skip_steps=start_step):
+        it = iter(feed(self.steps_per_call, skip_steps=start_step))
+        while True:
+            if spans is not None:
+                # The window's wall-clock start, before next(): the
+                # data_wait slice sits in its real place on the timeline.
+                ts_wall = time.time()
+                t0 = time.perf_counter()
+                if fence:
+                    asked = _timing_event(self.device)
+            try:
+                n, item = next(it)
+            except StopIteration:
+                break
             for hook in self._hooks:
                 hook.on_window_start(self._host_step + 1, n)
             # The sentinel's input (guard on only): the armed loss cap, the
             # LR ease and the nan/spike seam.
             guard = (() if self._guard_hook is None else
                      (self._guard_hook.guard_in(self._host_step + 1, n),))
+            if spans is not None:
+                t1 = time.perf_counter()
+                if fence:
+                    # After the feed's copy (or its wait on the copy) on
+                    # this stream: the input is usable when this completes.
+                    handed = _timing_event(self.device)
             if n == 1:
                 m = self.train_step(self.state, item if table is None
                                     else gather_batch(table, item[0]),
@@ -846,6 +1111,9 @@ class Trainer:
                                   m["quant_clip"].sum()]).to(torch.int64)
                 quant_counts = (c8 if quant_counts is None
                                 else quant_counts + c8)
+            if spans is not None:
+                self._observe_window(n, ts_wall, t0, t1, obs_full,
+                                     (asked, handed) if fence else None)
             loss = m["loss"].reshape(-1)
             losses.append(loss)
             pending.append(loss)
@@ -864,6 +1132,10 @@ class Trainer:
                                 % (epoch + 1, i, sum(vals) / len(vals)))
                     pending = [flat[logged + run_steps:]]
                     logged = run_steps = 0
+                    # Rank 0 reads every rank's heartbeats at this boundary
+                    # (already a fetch), then the promfile.
+                    self._check_health()
+                    self._write_prom()
             # The hook sweep, once per dispatched window (`_build_hooks`'
             # order); a hook may raise `PreemptedError`, `_GuardRollback`
             # or `DivergedError`.
@@ -899,16 +1171,83 @@ class Trainer:
         self.step_losses.extend(epoch_losses)
         stats = {"loss": sum(epoch_losses) / len(epoch_losses),
                  "accuracy": int(correct) / count}
+        if start_step:
+            # A resumed epoch's stats cover only its tail after the resume
+            # (the JAX package's label).
+            stats["resumed_at_step"] = start_step
         if quant_counts is not None:
             stats.update(quant_overflow=overflow, quant_clip=clip)
         self.meter.mark()
         return stats
 
+    def _observe_window(self, n: int, ts_wall: float, t0: float, t1: float,
+                        obs_full: bool, events) -> None:
+        """Book one dispatched window's telemetry (``train.obs`` basic or
+        full; `train_epoch` stamped ``t0``/``t1`` around the feed and the
+        pre-dispatch hooks, and on a card at full recorded ``events``, the
+        timing events around the input's placement). At full: the
+        window's one host wait on a card (a CUDA event recorded after the
+        dispatch, synchronized: never a fetch), the ``device`` and
+        ``h2d`` spans, the memory gauges and one metrics record per
+        update. The spans are split evenly over the
+        window's updates (`SpanRecorder.record_window`); the efficiency
+        gauges come from the window's wall time (to the fence at full, to
+        the dispatch's return at basic)."""
+        t3 = t4 = time.perf_counter()
+        window_spans = {"data_wait": (t1 - t0) * 1e3,
+                        "dispatch": (t3 - t1) * 1e3}
+        if obs_full:
+            if events is not None:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+            t4 = self.meter.mark(fenced=True)
+            _counters.gauge("throughput.images_per_sec",
+                            round(self.meter.images_per_sec, 1))
+            update_device_memory_gauges(devices=[self.device])
+            # Absent at basic rather than 0.0: absence means "not
+            # measured". h2d: how long the device still placed the input
+            # after the host had it (both events done after the fence).
+            h2d = 0.0
+            if events is not None:
+                asked, handed = events
+                h2d = max(0.0, asked.elapsed_time(handed)
+                          - window_spans["data_wait"])
+            window_spans["h2d"] = h2d
+            window_spans["device"] = (t4 - t3) * 1e3
+        first = self._host_step + 1
+        new_recs = self.spans.record_window(first, n, window_spans,
+                                            ts=ts_wall,
+                                            gen=self._rollback_gen)
+        if self._resident_enabled:
+            tag = f"resident_loop[w{n}]"
+        else:
+            tag = "train_step" if n == 1 else "multi_step"
+        eff = self._eff.observe(tag, n, (t4 - t0) * 1e3,
+                                window_spans["data_wait"])
+        self._last_efficiency = eff
+        _counters.gauge("obs.step_time_ms", eff["step_time_ms"])
+        _counters.gauge("obs.goodput", eff["goodput"])
+        if "mfu" in eff:
+            _counters.gauge("obs.mfu", eff["mfu"])
+        if not obs_full:
+            return
+        snap = _counters.snapshot()
+        for r in new_recs:
+            rec = {"step": r["step"], "ts": _iso_ts(r["ts"]),
+                   "spans": {k: round(v, 3) for k, v in r["spans"].items()},
+                   "counters": snap, "goodput": eff["goodput"]}
+            if "mfu" in eff:
+                rec["mfu"] = eff["mfu"]
+            self._log_metrics(rec)
+
     def _close_resilience(self) -> None:
         """`fit`'s teardown on every exit path: join the epoch save and the
         snapshot writes (a failure degrades: counted and logged, never
-        masking the run's outcome), restore the signal handlers, and dump
-        the flight recorder with the JAX package's reason string."""
+        masking the run's outcome), restore the signal handlers, dump
+        the flight recorder with the JAX package's reason string, then the
+        promfile, the step profiler, the heartbeats, the Perfetto export
+        and the metrics sink."""
         try:
             self.ckpt_mgr.close()
         except (RuntimeError, OSError) as e:
@@ -923,6 +1262,23 @@ class Trainer:
             self.flightrec.record("exit", step=self._host_step,
                                   reason=reason)
             self.flightrec.dump(reason=reason)
+        # The telemetry's teardown, each step guarded on its own: a crashed
+        # or preempted run is exactly when the trace matters.
+        self._write_prom()
+        closers = []
+        if self._step_profiler is not None:
+            closers.append(("step-profiler close", self._step_profiler.close))
+        if self.heartbeat is not None:
+            closers.append(("heartbeat close", self.heartbeat.close))
+        if self.spans is not None and len(self.spans):
+            closers.append(("perfetto export", self.export_trace))
+        if self._metrics_file is not None:
+            closers.append(("metrics sink close", self._metrics_file.close))
+        for what, close in closers:
+            try:
+                close()
+            except Exception:
+                self._log0("%s failed", what, exc_info=True)
         for hook in self._hooks:
             try:
                 hook.close()
@@ -969,32 +1325,11 @@ class Trainer:
         try:
             if self.preempt is not None:
                 self.preempt.install()
-            epoch, start_step = self.start_epoch, self.start_step
-            while epoch < cfg.train.epochs:
-                try:
-                    stats = self.train_epoch(epoch, start_step)
-                except _GuardRollback as sig:
-                    # The policy condemned the trajectory: rewind to the
-                    # newest trusted save and replay (DivergedError past
-                    # the budget).
-                    epoch, start_step = self._execute_guard_rollback(sig)
-                    continue
-                history.append(stats)
-                self._print("epoch %d: train loss %.4f acc %.4f (%.1f "
-                            "img/s)" % (epoch + 1, stats["loss"],
-                                        stats["accuracy"],
-                                        self.meter.images_per_sec))
-                self._save_epoch(epoch)
-                every = cfg.train.eval_every_epochs
-                if every and (epoch + 1) % every == 0:
-                    ev = self.evaluate()
-                    self._print("epoch %d: eval loss %.4f acc %.4f"
-                                % (epoch + 1, ev["loss"], ev["accuracy"]))
-                # A signal that lands between epochs (or during eval) still
-                # gets the snapshot-and-exit-143 contract.
-                if self.preempt is not None and self.preempt.requested:
-                    self._preempt_exit(epoch + 1, 0)
-                epoch, start_step = epoch + 1, 0
+            # Step-ranged profiling replaces the whole-run trace.
+            whole_run = (None if self._step_profiler is not None
+                         else cfg.train.profile_dir)
+            with profile_trace(whole_run, self._tracer):
+                self._fit_epochs(history)
         finally:
             self._close_resilience()
         self._print("Finished Training")
@@ -1010,8 +1345,61 @@ class Trainer:
                 self.meter.images_per_sec / self.ctx.world,
         }
         if cfg.train.eval_at_end:
-            result["eval"] = self.evaluate()
+            result["eval"] = ev = self.evaluate()
+            self._log_metrics({"eval": {k: ev[k]
+                                        for k in ("accuracy", "loss")}})
             self._print("Accuracy of the network on the %d test images: %d %%"
                         % (len(self.test_ds),
                            int(100 * result["eval"]["accuracy"])))
         return result
+
+    def _fit_epochs(self, history: list) -> None:
+        """`fit`'s epochs from the start position: each epoch's record
+        (its stats and rate; at basic and full the span and efficiency
+        rollups and the counters) and promfile, its checkpoint, the
+        periodic eval and rank 0's health pass; a guard rollback rewinds
+        and replays, a pending signal exits at the epoch's end."""
+        cfg = self.cfg
+        epoch, start_step = self.start_epoch, self.start_step
+        while epoch < cfg.train.epochs:
+            try:
+                stats = self.train_epoch(epoch, start_step)
+            except _GuardRollback as sig:
+                # The policy condemned the trajectory: rewind to the newest
+                # trusted save and replay (DivergedError past the budget).
+                epoch, start_step = self._execute_guard_rollback(sig)
+                continue
+            history.append(stats)
+            self._print("epoch %d: train loss %.4f acc %.4f (%.1f img/s)"
+                        % (epoch + 1, stats["loss"], stats["accuracy"],
+                           self.meter.images_per_sec))
+            # The codec's counts go to the counters, as in the JAX package.
+            rec = {"epoch": epoch + 1,
+                   **{k: v for k, v in stats.items()
+                      if not k.startswith("quant_")},
+                   "images_per_sec": round(self.meter.images_per_sec, 1)}
+            if self.spans is not None:
+                _counters.gauge("throughput.images_per_sec",
+                                round(self.meter.images_per_sec, 1))
+                update_device_memory_gauges(devices=[self.device])
+                rec["spans"] = self.spans.rollup()
+                eff = self._eff.rollup()
+                if eff is not None:
+                    rec["efficiency"] = eff
+                rec["counters"] = _counters.snapshot()
+            self._log_metrics(rec)
+            self._write_prom()
+            self._save_epoch(epoch)
+            every = cfg.train.eval_every_epochs
+            if every and (epoch + 1) % every == 0:
+                ev = self.evaluate()
+                self._print("epoch %d: eval loss %.4f acc %.4f"
+                            % (epoch + 1, ev["loss"], ev["accuracy"]))
+            # A rank that went quiet mid-epoch is flagged here even when
+            # the log boundary never came.
+            self._check_health()
+            # A signal that lands between epochs (or during eval) still
+            # gets the snapshot-and-exit-143 contract.
+            if self.preempt is not None and self.preempt.requested:
+                self._preempt_exit(epoch + 1, 0)
+            epoch, start_step = epoch + 1, 0

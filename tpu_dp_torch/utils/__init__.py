@@ -1,1 +1,1 @@
-"""Utilities of the port: the throughput meter."""
+"""Utilities of the port: the throughput meter and the profiler hooks."""

@@ -35,13 +35,18 @@ class ThroughputMeter:
             self._images += batch_size
         self._last = now
 
-    def mark(self) -> None:
-        """Wait until the card has finished the work queued so far, then
-        record 'now' as the end of measured work."""
-        if self.device is not None and self.device.type == "cuda":
+    def mark(self, fenced: bool = False) -> float:
+        """Wait until the card has finished the work queued so far (unless
+        the caller ``fenced`` it already), then record 'now' as the end of
+        measured work; returns that stamp (`time.perf_counter` seconds,
+        the span recorder's clock: one fence, two consumers)."""
+        if (not fenced and self.device is not None
+                and self.device.type == "cuda"):
             torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
         if self._steps > self.warmup_steps:
-            self._last = time.perf_counter()
+            self._last = now
+        return now
 
     @property
     def images_per_sec(self) -> float:
