@@ -168,10 +168,10 @@ Phases, in order; any failure exits non-zero before the last line:
 12. ``resident``: the device-resident feed (``data.device_resident``) on
    ``--preset=resnet18_cifar10`` with the kernel knobs, augmentation on,
    f32, B=128, cuDNN deterministic, over a 50,000-image synthetic train
-   set (the CIFAR-10 table, 153.8 MB): one epoch resident and streamed,
-   eager and in windows of 24, bit-identical (losses, parameters, BN
-   statistics, momentum, eval) with the same books per update (10 + 10
-   conv, 1 + 1 xent); the windowed pair under ``update_sharding=sharded``
+   set (the CIFAR-10 table, 153.8 MB): one epoch resident and streamed
+   in windows of 24 and its first 96 updates eager, bit-identical (losses, parameters, BN statistics, momentum, eval;
+   the eager pair's losses the windowed run's first 96) with the same
+   books per update (10 + 10 conv, 1 + 1 xent); the windowed pair under ``update_sharding=sharded``
    f32 at NCCL world 1 (four windows); a resident run interrupted 240
    updates in and resumed, bit-identical; a re-staged table recaptures
    the window; the staging ms and table bytes, H2D bytes per window, host
@@ -247,7 +247,29 @@ Phases, in order; any failure exits non-zero before the last line:
    trace holding the conv and xent kernels of the two windows in range
    and no other's, with the flight recorder's ``profile_start`` and
    ``profile_stop``; an epoch's ms per update at each mode, in turns;
-17. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
+17. ``elastic``: the graceful elastic shrink (``--resilience.elastic=true
+   --resilience.elastic_verify_fingerprint=false``) on the main path (the
+   preset with the kernel knobs, the default resident feed, augmentation
+   on, f32, B=128 a rank): (a) three gloo ranks on ``cuda:0``
+   (``--elastic-worker``; NCCL refuses two ranks on one card), 3,200
+   images, one update a call, ``leave:step=2,rank=2``: rank 2 exits 143;
+   the ledger holds epoch 0, the graceful plan (leavers [2], survivors
+   [0, 1]), every check-in and ack, the departure and epoch 1 at world 2;
+   the final snapshot's lineage is ``[[3, stop_step]]``; the samples the
+   two epochs consumed, read from the ranks' index lists, equal what the
+   record predicts (`ShardedSampler`, `elastic_resplit`), the drop the
+   one ``drop_remainder`` predicts; the survivors' states bit-identical;
+   their losses within ``DDP_LOSS_TOL`` of a one-process oracle on the
+   card fed the global batches rebuilt from the record (every update
+   through 20 after the regroup: all of (a)'s); every rank's
+   books exact at both worlds (20 conv, 1 + 1 xent and one draw an
+   update, 10 conv an eval forward); one regroup; the regroup's seconds
+   and the ms per update at world 3 and 2; (b) with two or more cards,
+   NCCL one rank a card, world 2 -> 1 by ``leave:`` on rank 1, windows of
+   10 as CUDA graphs released before the old group goes and recaptured on
+   the new one, the interrupted epoch alone (20,480 images), the same
+   checks; else ``elastic_nccl_multi_card: not run, 1 card visible``;
+18. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 Phases 1-11 keep the streamed feed (``--data.device_resident=off``), so
 their numbers stay comparable with earlier runs.
@@ -258,9 +280,18 @@ multi-card check), without the kernels' line; ``--only
 resnet50_kernels,resnet50,resnet50_windows,resnet50_ddp`` runs phase 10
 alone, ``--only sharded`` phase 11, ``--only resident,presets`` phases
 12 and 13, ``--only resilience`` phase 14, ``--only guard`` phase 15 and
-``--only obs`` phase 16.
+``--only obs`` phase 16 and ``--only elastic`` phase 17.
 ``--ddp-worker SPEC`` is phase 7's rank process, ``--guard-worker SPEC``
-phase 15's.
+phase 15's and ``--elastic-worker SPEC`` phase 17's.
+
+Every by-name check of the launch books (phases 6, 9, 10, 11, 14, 15,
+16) holds one rule (`_by_name_verdict`): each kernel's count, its most
+over up to three profiler sessions of CUDA activity, equals the books,
+and a count above them fails at once. Each session starts with spin
+kernels, waited for and left out (`PROFILE_LEAD_IN`): without them a
+session late in a long process lost the records of the first kernels it
+saw (`tools/port_profiler_loss.py`). The wrappers' counter books beside
+it are exact too.
 
 Every timed case also prints ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
@@ -364,6 +395,10 @@ WIRE_TOL = {"bf16": 4e-3, "int8": 6e-3}
 #: phase 12: the resident feed's run (the preset, augmentation on, a
 #: synthetic train set of CIFAR-10's 50,000 images) and its window.
 RES_K = 24
+#: the eager pair's updates (the windowed pair runs the whole epoch of 390;
+#: the eager one its first 96, a depth cut that keeps the phase inside the
+#: whole call's time budget).
+RES_EAGER_UPDATES = 96
 RES_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
             "--model.fused_bwd=true", "--train.pallas_xent=true",
             "--data.dataset=synthetic", "--data.synthetic_train_size=50000",
@@ -415,6 +450,35 @@ OBS_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
             "--train.epochs=1", "--train.log_every=100",
             f"--train.steps_per_call={OBS_K}"]
 OBS_PROFILE = (10, 20)
+#: phase 17: the graceful elastic shrink on the main path (the preset
+#: with the kernel knobs, the default resident feed, augmentation on, f32,
+#: B=128 a rank). (a) three gloo ranks on cuda:0, one update a call (the
+#: windows run eager under gloo anyway), 8 updates an epoch at world 3:
+#: rank 2 leaves after update 2, so the stop step falls inside epoch 1 and
+#: the re-split tail (1,281 samples) does not divide over two ranks; (b)
+#: NCCL, one rank a card, world 2 -> 1 by rank 1, windows of 10 (CUDA
+#: graphs), the interrupted epoch alone (80 updates at world 2, so the
+#: survivor runs the 3+ windows at world 1 that DDP's eager warm-up needs
+#: before it captures).
+ELASTIC_WORLD, ELASTIC_TRAIN, ELASTIC_K = 3, 3200, 2
+ELASTIC_NCCL_TRAIN, ELASTIC_NCCL_WIN, ELASTIC_NCCL_K = 20480, 10, 10
+#: the oracle's losses bind every update through this many after the
+#: regroup (all of (a)'s); later updates only record their largest
+#: difference: over a long run the one-process oracle drifts from the
+#: ranks by rounding alone (the chaos of the fast-falling loss), while a
+#: wrong batch schedule shows at once after the regroup, and the exact
+#: coverage check is the schedule's proof.
+ELASTIC_ORACLE_AFTER = 20
+ELASTIC_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
+                "--model.fused_bwd=true", "--train.pallas_xent=true",
+                "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
+                f"--data.synthetic_test_size={2 * TRAIN_B}",
+                "--train.epochs=2", "--train.log_every=100",
+                "--resilience.elastic=true",
+                "--resilience.elastic_verify_fingerprint=false",
+                "--resilience.elastic_coordinator_host=127.0.0.1",
+                "--resilience.regroup_timeout_s=120",
+                "--resilience.handle_signals=false"]
 GUARD_SDC_WORLD = 3
 GUARD_SDC_ARGS = ["--data.dataset=synthetic",
                   "--data.synthetic_train_size=48",
@@ -1206,13 +1270,20 @@ def phase_train_kernels(out):
           f"launches, graph replays and a busy side stream")
 
 
+#: spin kernels launched at the start of a by-name session, before the
+#: calls it counts (`profile_forward`'s ``lead_in``).
+PROFILE_LEAD_IN = 64
+
+
 def profile_forward(fn, n: int = 5, cuda_only: bool = False,
-                    keep_all: bool = False) -> dict:
+                    keep_all: bool = False, lead_in: int = 0) -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
     and the device's busy share of the wall time they took. ``cuda_only``
-    traces the CUDA activity alone (with the CPU's too, the profiler loses
-    device records now and then: `tools/port_profiler_loss.py`);
-    ``keep_all`` also returns every kernel's record under ``all``."""
+    traces the CUDA activity alone; ``keep_all`` also returns every
+    kernel's record under ``all``. ``lead_in`` spin kernels run first in
+    the session, waited for and left out of every figure: a session loses
+    the records of the first kernels it sees, more of them the more
+    sessions the process has opened (`tools/port_profiler_loss.py`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1221,6 +1292,9 @@ def profile_forward(fn, n: int = 5, cuda_only: bool = False,
     acts = [ProfilerActivity.CUDA] + ([] if cuda_only
                                       else [ProfilerActivity.CPU])
     with profile(activities=acts) as prof:
+        for _ in range(lead_in):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -1230,7 +1304,8 @@ def profile_forward(fn, n: int = 5, cuda_only: bool = False,
     for ev in prof.key_averages():
         # Device-side events only: a CPU op (aten::conv2d) also carries
         # the device time of the kernels it launched.
-        if str(getattr(ev, "device_type", "")) != "DeviceType.CUDA":
+        if (str(getattr(ev, "device_type", "")) != "DeviceType.CUDA"
+                or (lead_in and "spin_kernel" in ev.key)):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -1469,29 +1544,19 @@ def phase_train(out):
     ref_step_ms = cuda_median_ms(lambda: ref.train_step(ref.state, batch),
                                  reps=10)
     # The same books by kernel name on the device: 20 conv launches, 1 + 1
-    # xent launches and no stats-reduce kernel per step (it is folded into
-    # the conv launch). The profiler now and then loses device records
-    # (`tools/port_profiler_loss.py` counts how many), so a session can
-    # count fewer launches than ran but never more: a count above the books
-    # fails at once, one below is profiled again, in at most three
-    # sessions, all of them recorded.
+    # xent launches, one draw and no stats-reduce kernel per step (it is
+    # folded into the conv launch), under the by-name rule
+    # (`_by_name_verdict`); the step's profile beside it.
     books = {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1,
              "crop_flip_draws": 1}
-    sessions = []
-    for _ in range(3):
-        breakdown = profile_forward(
-            lambda: trainer.train_step(trainer.state, batch))
-        ours = breakdown["ours"]
-        by_name = {k: sum(v["count_per_call"] for n, v in ours.items()
-                          if k in n) for k in books}
-        sessions.append({"by_name": by_name, "device_ops_per_step":
-                         breakdown["kernel_launches_per_call"],
-                         "kernel_names": breakdown["kernel_names"]})
-        if by_name == books or any(by_name[k] > v for k, v in books.items()):
-            break
-    checks["profiled_20_conv_1_1_xent_1_draw_per_step"] = by_name == books
+    step = lambda: trainer.train_step(trainer.state, batch)  # noqa: E731
+    ok, sessions = _profiled_books(step, books, names=True)
+    by_name = sessions[-1]["most"]
+    checks["profiled_20_conv_1_1_xent_1_draw_per_step"] = ok
     checks["no_stats_reduce_kernel"] = not any(
-        "stats_reduce" in n for s in sessions for n in s["kernel_names"])
+        "stats_reduce" in n for s in sessions
+        for n in s.get("kernel_names", ()))
+    breakdown = profile_forward(step)
     out["train"] = {
         "checks": checks, "steps": steps, "eval_forwards": evals,
         "launches": counts, "profiled_launches_per_step": by_name,
@@ -2315,29 +2380,10 @@ def _first_window(pipe, k):
 
 def _fit_books(trainer) -> tuple[dict, dict]:
     """``trainer.fit()`` with every book set to 0 just before; returns the
-    result and the launches and collectives that RAN: the wrappers'
-    counts, which tick at capture, less the capture's own ticks, plus the
-    captured window's books once per replay (`MultiStep`)."""
-    import torch
-
-    from tpu_dp_torch.ops import augment as aug_ops
-    from tpu_dp_torch.ops import conv_block as cb
-    from tpu_dp_torch.ops import xent as tx
-    from tpu_dp_torch.parallel import collectives
-    from tpu_dp_torch.train.step import launch_books
-
-    cb.reset_launches()
-    tx.reset_launches()
-    aug_ops.reset_launches()
-    collectives.reset_counts()
+    result and the launches and collectives that RAN (`_ran_books`)."""
+    _reset_books()
     result = trainer.fit()
-    torch.cuda.synchronize()
-    ran = launch_books()
-    ms = trainer.multi_step
-    if ms is not None and ms.captured is not None:
-        for k, v in ms.captured.items():
-            ran[k] += v * (ms.replays - 1)
-    return result, ran
+    return result, _ran_books(trainer)
 
 
 def _per_update_ok(ran, updates, evals, accum=1, convs=10) -> bool:
@@ -2352,13 +2398,16 @@ def _per_update_ok(ran, updates, evals, accum=1, convs=10) -> bool:
     return all(ran[k] == v for k, v in want.items())
 
 
-def _profiled_books(fn, books, n=2, tries=3):
+def _profiled_books(fn, books, n=2, tries=3, names=False):
     """Kernels by name per call of ``fn`` under the profiler (CUDA activity
     alone), in up to ``tries`` sessions while a count falls below
-    ``books`` (the profiler loses records now and then, never adds them)."""
+    ``books``; returns the by-name rule's verdict (`_by_name_verdict`) and
+    the sessions (each kernel's name with ``names``), the last one also
+    carrying the verdict's ``most`` and ``records_short``."""
     sessions = []
     for _ in range(tries):
-        p = profile_forward(fn, n, cuda_only=True, keep_all=True)
+        p = profile_forward(fn, n, cuda_only=True, keep_all=True,
+                            lead_in=PROFILE_LEAD_IN)
         by_name = {k: sum(v["count_per_call"] for name, v in p["all"].items()
                           if k in name.lower()) for k in books}
         sessions.append({"by_name": by_name,
@@ -2369,10 +2418,32 @@ def _profiled_books(fn, books, n=2, tries=3):
                          "device_busy_share": p["device_busy_share"],
                          "wall_us_per_call": p["wall_us_per_call"],
                          "device_busy_us_per_call":
-                             p["device_busy_us_per_call"]})
+                             p["device_busy_us_per_call"],
+                         **({"kernel_names": p["kernel_names"]} if names
+                            else {})})
         if by_name == books or any(by_name[k] > v for k, v in books.items()):
             break
-    return by_name == books, sessions
+    ok, most, short = _by_name_verdict(sessions, books, n)
+    # The verdict's counts ride on the last session's record.
+    sessions[-1].update(most=most, records_short=short)
+    return ok, sessions
+
+
+def _by_name_verdict(sessions, books, n):
+    """The by-name books' rule, the same in every phase: each kernel's count
+    is its most over the sessions of ``n`` calls, and must equal the books;
+    a session counting above them fails at once. A session opened late in
+    a long process lost the records of the first kernels it saw (the loss
+    grew with the sessions the process had opened: `tools/port_profiler_
+    loss.py`); every by-name session now starts with `PROFILE_LEAD_IN`
+    spin kernels, waited for and left out, which that tool measured to
+    remove the loss. Returns ``(ok, most, records short per kernel)``."""
+    runs = [s["by_name"] for s in sessions]
+    most = {k: max(r[k] for r in runs) for k in books}
+    short = {k: round(n * (books[k] - most[k])) for k in books}
+    ok = (not any(r[k] > books[k] for r in runs for k in books)
+          and all(v == 0 for v in short.values()))
+    return ok, most, short
 
 
 def _xent_mean_parity(lg, lb, ct) -> dict:
@@ -3661,10 +3732,12 @@ def _res_args(feed, k, extra=()):
                        f"--train.steps_per_call={k}", *extra]
 
 
-def _feed_run(args, where):
+def _feed_run(args, where, updates=None):
     """A `Trainer` on ``args`` (saves under ``where``) fit once with its
-    books (`_fit_books`), the device memory its fit added at its peak, and
-    its staging: the first touch of `resident_train`, synchronized."""
+    books (`_fit_books`), its losses, the device memory its fit added at
+    its peak, and its staging: the first touch of `resident_train`,
+    synchronized. ``updates``: a one-update-a-call run stops before update
+    ``updates`` + 1 (no eval; ``res`` None)."""
     import torch
 
     from tpu_dp_torch.config import parse_cli
@@ -3678,8 +3751,29 @@ def _feed_run(args, where):
     table = t.resident_train
     torch.cuda.synchronize()
     stage_ms = 1e3 * (time.perf_counter() - t0) if table is not None else None
-    res, ran = _fit_books(t)
+    if updates is None:
+        res, ran = _fit_books(t)
+        losses = t.step_losses
+    else:
+        real, seen = t.train_step, []
+
+        def step(state, batch):
+            if state.step == updates:
+                raise _Stop
+            m = real(state, batch)
+            seen.append(m["loss"])
+            return m
+
+        t.train_step = step
+        res = None
+        try:
+            _fit_books(t)
+        except _Stop:
+            pass
+        ran = _ran_books(t)
+        losses = torch.stack(seen).tolist()
     return {"t": t, "res": res, "ran": ran, "stage_ms": stage_ms,
+            "losses": losses,
             "peak_added_bytes": torch.cuda.max_memory_allocated() - before,
             "state": _flat_state(t)}
 
@@ -3694,9 +3788,11 @@ def phase_resident(out):
     fused full-width ResNet-18 (`RES_ARGS`: the preset, augmentation on,
     f32, B=128, a 50,000-image synthetic train set, the real CIFAR-10
     table's 153.8 MB), cuDNN deterministic. One epoch (390 updates)
-    resident and streamed, eager and in windows of 24: losses, parameters,
-    BN statistics, momentum and the eval bit-identical, the same launch
-    books per update (10 + 10 conv, 1 + 1 xent); the same pair in four
+    resident and streamed in windows of 24, and its first 96 updates
+    eager: losses, parameters, BN statistics, momentum and the eval
+    bit-identical (the eager pair's losses the windowed run's first 96),
+    the same launch books per update (10 + 10 conv, 1 + 1 xent); the same
+    pair in four
     windows under ``update_sharding=sharded`` f32 at NCCL world 1; a
     resident run interrupted 240 updates in (a snapshot-kind save) and
     resumed in windows re-formed from there, bit-identical to the
@@ -3720,28 +3816,35 @@ def phase_resident(out):
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_resident_")
     try:
         with _shared_datasets():
+            # The windowed pair over the whole epoch; the eager pair over
+            # its first RES_EAGER_UPDATES updates (one a call), whose
+            # losses are the windowed run's first ones bit for bit.
             runs = {}
             for feed in ("on", "off"):
                 for kk in (k, 1):
                     runs[(feed, kk)] = _feed_run(
                         _res_args(feed, kk),
-                        os.path.join(tmp.name, f"{feed}{kk}"))
+                        os.path.join(tmp.name, f"{feed}{kk}"),
+                        updates=None if kk > 1 else RES_EAGER_UPDATES)
             rw, sw = runs[("on", k)]["t"], runs[("off", k)]["t"]
             updates, evals = len(rw.train_pipe), len(rw.test_pipe)
             table = rw.resident_train
             ref = runs[("on", k)]
             for (feed, kk), r in runs.items():
                 tag = f"{'resident' if feed == 'on' else 'streamed'}_{kk}"
+                n = updates if kk > 1 else RES_EAGER_UPDATES
+                pair = ref if kk > 1 else runs[("on", 1)]
                 checks[f"{tag}_feed"] = ((r["t"].resident_train is not None)
                                          == (feed == "on"))
-                checks[f"{tag}_books"] = _per_update_ok(r["ran"], updates,
-                                                        evals)
+                checks[f"{tag}_books"] = _per_update_ok(
+                    r["ran"], n, evals if kk > 1 else 0)
                 checks[f"{tag}_losses_bit_identical"] = (
-                    r["t"].step_losses == ref["t"].step_losses)
+                    r["losses"] == ref["losses"][:n])
                 checks[f"{tag}_state_bit_identical"] = _same_state(
-                    r["state"], ref["state"])
-                checks[f"{tag}_eval_identical"] = (r["res"]["eval"]
-                                                   == ref["res"]["eval"])
+                    r["state"], pair["state"])
+                if kk > 1:
+                    checks[f"{tag}_eval_identical"] = (r["res"]["eval"]
+                                                       == ref["res"]["eval"])
             losses = rw.step_losses
             checks.update({
                 "epoch_is_390_updates": updates == 390
@@ -3813,10 +3916,9 @@ def phase_resident(out):
                 "feed_host_ms_per_window": feed_ms,
                 "device_busy_share_windowed": busy,
                 "epoch_images_per_s": {
-                    f"{'resident' if f == 'on' else 'streamed'}_"
-                    f"{'windowed' if kk > 1 else 'eager'}":
+                    f"{'resident' if f == 'on' else 'streamed'}_windowed":
                         r["res"]["images_per_sec"]
-                    for (f, kk), r in runs.items()},
+                    for (f, kk), r in runs.items() if kk > 1},
                 "fit_peak_added_bytes": {
                     f"{'resident' if f == 'on' else 'streamed'}_{kk}":
                         r["peak_added_bytes"] for (f, kk), r in runs.items()},
@@ -4499,11 +4601,8 @@ def phase_resilience(out):
             "b_books_per_update": _per_update_ok(ran, updates,
                                                  len(full.test_pipe)),
             "b_augment_1_launch_per_update": ran["augment"] == updates})
-        # The same books by kernel name per replay, recorded, not checked:
-        # late in a full call the profiler has read 19 of a replay pair's
-        # 20 draw records in every session (the counters above, the
-        # bit-identical resumes and phase 6's by-name books, which check
-        # the draw kernel, are what prove the launches).
+        # The same books by kernel name per replay, under the by-name rule
+        # (`_by_name_verdict`).
         it = full.train_pipe.index_windows(RESIL_K)
         _, idx = next(it)
         it.close()
@@ -4514,6 +4613,7 @@ def phase_resilience(out):
              "xent_bwd": RESIL_K, "crop_flip_draws": RESIL_K})
         rec["profiled_per_replay"] = {"matches_books": ok,
                                       "sessions": sessions}
+        checks["b_books_by_kernel_name"] = ok
         # preempt:step=15 in process (SIGTERM to self; the boundary at 20),
         # resumed with the cadence on (timed below).
         pre_dir = where("preempt")
@@ -4837,13 +4937,10 @@ def phase_guard(out):
             ok, sessions = _profiled_books(
                 lambda: t.multi_step(t.state, table, idx), want)
             by_name[tag] = {"matches_books": ok, "sessions": sessions,
-                            "most": {k: max(s["by_name"][k]
-                                            for s in sessions)
-                                     for k in want}}
+                            "most": sessions[-1]["most"]}
         rec["profiled_per_replay"] = by_name
         checks["a_books_by_kernel_name"] = all(
-            v["most"][k] == want[k] for v in by_name.values()
-            for k in ("conv_block_kernel", "xent_fwd", "xent_bwd"))
+            v["matches_books"] for v in by_name.values())
         # (b) nan:step=13 under action=skip: the counter freezes at 13, so
         # the rest of that window is quarantined too (disarmed at its
         # boundary, 20); then the never-saw-it oracle.
@@ -5106,33 +5203,23 @@ def phase_obs(out):
             "state_bit_identical": _same_state(basic["state"], off["state"])
             and _same_state(full["state"], off["state"])})
         # The books by kernel name per replay, in every mode, over two
-        # replays a session. The profiler never adds records; late in a
-        # whole call it loses one a session (a draw or a conv record, in
-        # every session: `PERF.md` §2), so each kernel's count is its
-        # most over up to two sessions, none above its books, and the
-        # records short of the books at most that one. The counter books
-        # above are exact and bind.
+        # replays a session, under the by-name rule (`_by_name_verdict`).
         want = {"conv_block_kernel": 20 * OBS_K, "xent_fwd": OBS_K,
                 "xent_bwd": OBS_K}
-        by_name, short = {}, {}
+        by_name, short, verdicts = {}, {}, {}
         for mode, r in runs.items():
             t = r["t"]
             it = t.train_pipe.index_windows(OBS_K)
             _, idx = next(it)
             it.close()
             table = t.resident_train
-            _, sessions = _profiled_books(
-                lambda: t.multi_step(t.state, table, idx), want, n=2,
-                tries=2)
-            by_name[mode] = {k: max(s["by_name"][k] for s in sessions)
-                             for k in want}
-            short[mode] = sum(2 * (want[k] - v)
-                              for k, v in by_name[mode].items())
+            verdicts[mode], sessions = _profiled_books(
+                lambda: t.multi_step(t.state, table, idx), want)
+            by_name[mode] = sessions[-1]["most"]
+            short[mode] = sessions[-1]["records_short"]
         rec["profiled_per_replay"] = by_name
         rec["profiled_records_short"] = short
-        checks["books_by_kernel_name"] = all(
-            v[k] <= want[k] for v in by_name.values() for k in want) and all(
-            0 <= n <= 1 for n in short.values())
+        checks["books_by_kernel_name"] = all(verdicts.values())
         # The artifacts of the full run, and basic's.
         t = full["t"]
         recs = [json.loads(line) for line in
@@ -5284,6 +5371,415 @@ def phase_obs(out):
     failed = [n for n, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"obs checks failed: {failed}")
+
+
+def _ran_books(trainer) -> dict:
+    """The launches and collectives that ran since the last reset: the
+    wrappers' counts, which tick at capture, less the capture's own ticks,
+    plus the captured window's books once per replay (`MultiStep`)."""
+    import torch
+
+    from tpu_dp_torch.train.step import launch_books
+
+    torch.cuda.synchronize()
+    ran = launch_books()
+    ms = trainer.multi_step
+    if ms is not None and getattr(ms, "captured", None) is not None:
+        for k, v in ms.captured.items():
+            ran[k] += v * (ms.replays - 1)
+    return ran
+
+
+def _reset_books() -> None:
+    from tpu_dp_torch.ops import augment as aug_ops
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.ops import xent as tx
+    from tpu_dp_torch.parallel import collectives
+
+    cb.reset_launches()
+    tx.reset_launches()
+    aug_ops.reset_launches()
+    collectives.reset_counts()
+
+
+def elastic_worker(spec_path: str) -> int:
+    """One rank of phase 17 (``chip_smoke.py --elastic-worker SPEC``): joins
+    the gloo group SPEC names on ``cuda:0`` (NCCL refuses two ranks on one
+    card), or reads the launcher's env contract (NCCL, one rank a card),
+    and fits the port's elastic `Trainer` on ``SPEC["args"]``. Records
+    every index list its feed placed, the books before the regroup and
+    after it (set to 0 just before the fit and at the regroup), the
+    boundaries' clock, the membership record, the losses and a digest of
+    its state; writes them to ``SPEC["out"]`` and exits 143 as the leaver
+    (after its departure), 0 as a survivor."""
+    import hashlib
+
+    sys.path.insert(0, HERE)
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.data.pipeline import DataPipeline
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.parallel.dist import initialize, shutdown
+    from tpu_dp_torch.resilience import PreemptedError
+    from tpu_dp_torch.train.hooks import StepHook
+    from tpu_dp_torch.train.trainer import Trainer
+
+    class Boundaries(StepHook):
+        """The host clock and world at every window boundary."""
+
+        def __init__(self, trainer):
+            super().__init__(trainer)
+            self.marks = []
+
+        def on_step_end(self, ev):
+            self.marks.append((time.perf_counter(), self.tr._host_step,
+                               self.tr.ctx.world))
+
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = None
+    if spec["backend"] == "gloo":
+        device = "cuda:0"
+        initialize(backend="gloo", init_method=spec["init"],
+                   world_size=spec["world"], rank=spec["rank"],
+                   device=device, timeout_s=300)
+    taken = []
+    place = DataPipeline._place_indices
+
+    def recorded(self, take, n):
+        taken.append([int(self.sampler.epoch), take.tolist()])
+        return place(self, take, n)
+
+    DataPipeline._place_indices = recorded
+    rec = {"rank": spec["rank"], "preempted": None, "books": {}}
+    t = None
+    try:
+        _reset_books()
+        t = Trainer(parse_cli(spec["args"]), device=device)
+        clock = Boundaries(t)
+        t._hooks.insert(-1, clock)
+        regroup = t._execute_regroup
+
+        def books_then_regroup(sig):
+            rec["books"]["before"] = _ran_books(t)
+            rec["updates_before"] = t._host_step
+            _reset_books()
+            return regroup(sig)
+
+        t._execute_regroup = books_then_regroup
+        t0 = time.perf_counter()
+        try:
+            result = t.fit()
+            rec["eval"] = result.get("eval")
+            rec["books"]["after"] = _ran_books(t)
+        except PreemptedError as e:
+            rec["preempted"] = str(e)
+            rec["books"]["before"] = _ran_books(t)
+            rec["updates_before"] = t._host_step
+        rec["fit_s"] = time.perf_counter() - t0
+        h = hashlib.sha256()
+        for x in t._replica_tensors():
+            h.update(x.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+        rec.update(
+            sid=t.stable_rank, new_rank=t.ctx.rank, world=t.ctx.world,
+            backend=t.ctx.backend, device=str(t.device),
+            record=t.elastic.record.to_json(), host_step=t._host_step,
+            losses=list(t.step_losses), digest=h.hexdigest(),
+            test_batches=len(t.test_pipe), marks=clock.marks,
+            captured=getattr(t.multi_step, "captured", None) is not None,
+            counters={k: v for k, v in counters.snapshot().items()
+                      if k.startswith("elastic.")}, taken=taken)
+    finally:
+        if t is not None and t.multi_step is not None:
+            t.multi_step.close()
+        t = None
+        shutdown()
+    with open(spec["out"], "w", encoding="utf-8") as f:
+        json.dump(rec, f)
+    return PreemptedError.exit_code if rec["preempted"] else 0
+
+
+def _start_elastic_ranks(work: str, backend: str, world: int,
+                         args: list) -> list:
+    """`elastic_worker` ranks, started: gloo ranks on cuda:0 meeting
+    through a ``file://`` rendezvous in ``work``, or NCCL ranks on cards
+    0..world-1 through the env contract at a free loopback port."""
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        spec = {"rank": rank, "world": world, "backend": backend,
+                "init": "file://" + os.path.join(work, "rendezvous"),
+                "args": args + [f"--train.ckpt_dir={work}/ck"],
+                "out": os.path.join(work, f"rank{rank}.json")}
+        path = os.path.join(work, f"spec{rank}.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(spec, f)
+        env = dict(os.environ)
+        env.pop("TPU_DP_FAULT", None)
+        if backend == "nccl":
+            env.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-worker",
+             path], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _elastic_oracle(args, record: dict, world0: int, epochs: int):
+    """The one-process oracle of an elastic run on the card: the global
+    batches rebuilt from the published record alone (`ShardedSampler`
+    before the regroup, `elastic_resplit` for the re-split tail, the new
+    world's streams after it), each one update of a port `Trainer` alone
+    from the same seed, its schedule switched at the regroup to the one
+    the survivors rebuilt and its draws those of the whole global batch.
+    Returns the per-update losses and, per epoch, the indices consumed."""
+    import numpy as np
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.data.augment import make_augment_fn
+    from tpu_dp_torch.data.sampler import ShardedSampler, elastic_resplit
+    from tpu_dp_torch.train.schedule import lr_table, make_schedule
+    from tpu_dp_torch.train.trainer import Trainer
+
+    t = Trainer(parse_cli(args + ["--train.steps_per_call=1"]),
+                device="cuda:0")
+    cfg, body = t.cfg, t.step_body
+    n_ex, b = len(t.train_ds), cfg.data.batch_size
+    resume = record["resume"]
+    interrupted, lineage = int(resume["epoch"]), resume["lineage"]
+    world1 = int(record["world"])
+
+    def streams(epoch, prior, world):
+        if prior:
+            return [elastic_resplit(n_ex, True, cfg.train.seed, epoch, b,
+                                    prior, world, r) for r in range(world)]
+        out = []
+        for r in range(world):
+            smp = ShardedSampler(n_ex, world, r, shuffle=True,
+                                 seed=cfg.train.seed)
+            smp.set_epoch(epoch)
+            out.append(smp.shard_indices())
+        return out
+
+    def use_world(world):
+        spe = (-(-n_ex // world)) // b
+        sched = make_schedule(cfg.optim.schedule, cfg.optim.lr,
+                              spe * cfg.train.epochs,
+                              int(cfg.optim.warmup_epochs * spe),
+                              cfg.optim.final_lr)
+        body.schedule, body.lr_table = sched, lr_table(sched, t.device)
+
+    body.augment_fn = make_augment_fn(cfg.train.seed + 1)
+    losses, consumed = [], {}
+    images = torch.from_numpy(t.train_ds.images)
+    labels = torch.from_numpy(t.train_ds.labels).long()
+    for epoch in range(epochs):
+        if epoch < interrupted:
+            segments = [([], world0, None)]
+        elif epoch == interrupted:
+            segments = [([], world0, int(lineage[0][1])),
+                        (lineage, world1, None)]
+        else:
+            segments = [([], world1, None)]
+        for prior, world, steps in segments:
+            use_world(world)
+            ss = streams(epoch, prior, world)
+            n = min(len(x) for x in ss) // b if steps is None else steps
+            for k in range(n):
+                sel = np.concatenate([x[k * b:(k + 1) * b] for x in ss])
+                consumed.setdefault(epoch, []).extend(sel.tolist())
+                m = t.train_step(t.state, {
+                    "image": images[sel].to(t.device),
+                    "label": labels[sel].to(t.device)})
+                losses.append(m["loss"])
+    return torch.stack(losses).tolist(), consumed
+
+
+def _elastic_run(out, key: str, backend: str, world: int, victim: int,
+                 args: list) -> dict:
+    """One shrink of phase 17 and its checks (module docstring)."""
+    work = os.path.join(HERE, "build", "elastic_smoke",
+                        f"{os.getpid()}-{key}")
+    t0 = time.perf_counter()
+    procs = _start_elastic_ranks(work, backend, world, args)
+    logs = []
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    ranks_s = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    for rank, log in enumerate(logs):
+        with open(os.path.join(HERE, "chiprun_out",
+                               f"elastic_{key}_rank{rank}.log"), "w",
+                  encoding="utf-8") as f:
+            f.write(log)
+    want_rc = [143 if r == victim else 0 for r in range(world)]
+    if rcs != want_rc:
+        for rank, log in enumerate(logs):
+            print(f"[{key}] rank {rank} rc {rcs[rank]}:\n{log[-3000:]}")
+        raise AssertionError(f"{key}: exit codes {rcs}, want {want_rc}")
+    res = {}
+    for rank in range(world):
+        with open(os.path.join(work, f"rank{rank}.json"),
+                  encoding="utf-8") as f:
+            res[rank] = json.load(f)
+    survivors = [r for r in range(world) if r != victim]
+    a = res[survivors[0]]
+    record = a["record"]
+    stop = int(record["resume"]["global_step"])
+    gen = os.path.join(work, "ck", "membership")
+    gen = os.path.join(gen, os.listdir(gen)[0])
+    names = set(os.listdir(gen))
+    with open(os.path.join(gen, "plan_e0001.json"), encoding="utf-8") as f:
+        plan = json.load(f)
+    with open(os.path.join(work, "ck", "snapshots", f"step_{stop:010d}",
+                           "meta.json"), encoding="utf-8") as f:
+        snap = json.load(f)
+    # The books of every rank at both worlds (set to 0 before the fit and
+    # at the regroup): per update 20 conv, 1 + 1 xent and one draw; 10 conv
+    # an eval forward (the survivors' eval at the end).
+    books_ok = {}
+    for r, x in res.items():
+        segs = [(x["books"]["before"], x["updates_before"], 0)]
+        if r != victim:
+            segs.append((x["books"]["after"],
+                         x["host_step"] - x["updates_before"],
+                         x["test_batches"]))
+        books_ok[r] = x["updates_before"] == stop and all(
+            got["conv.stats"] == 10 * u and got["conv.input_grad"] == 10 * u
+            and got["xent.forward"] == u and got["xent.backward"] == u
+            and got["augment"] == u and got["conv.eval"] == 10 * ev
+            for got, u, ev in segs)
+    epochs = int([a for a in args if a.startswith("--train.epochs=")][-1]
+                 .split("=")[1])
+    oracle, consumed = _elastic_oracle(
+        [x for x in args if not x.startswith("--resilience.")]
+        + [f"--train.ckpt_dir={work}/oracle"], record, world, epochs)
+    diffs = [abs(p - q) for p, q in zip(a["losses"], oracle)]
+    bound = diffs[:stop + ELASTIC_ORACLE_AFTER]
+    # Coverage per epoch, read from the ranks' index lists, against the
+    # record's prediction.
+    took: dict = {}
+    for x in res.values():
+        for epoch, idx in x["taken"]:
+            took.setdefault(epoch, []).extend(idx)
+    n_ex = next(int(v.split("=")[1]) for v in args
+                if v.startswith("--data.synthetic_train_size="))
+    coverage = {e: {"consumed": len(took.get(e, [])),
+                    "distinct": len(set(took.get(e, []))),
+                    "dropped": n_ex - len(set(took.get(e, []))),
+                    "predicted_dropped": n_ex - len(set(consumed[e]))}
+                for e in consumed}
+
+    def rates(x, w):
+        # Host ms per update between boundaries (the first one of each
+        # world left out): the update's time where each update waits on
+        # the group (gloo's collectives on CUDA tensors, (a)); under
+        # captured windows, (b), the host's dispatch rate.
+        m = [(t, s) for t, s, ww in x["marks"] if ww == w]
+        per = [1e3 * (t1 - t0_) / (s1 - s0) for (t0_, s0), (t1, s1)
+               in zip(m[1:], m[2:]) if s1 > s0]
+        return statistics.median(per) if per else None
+
+    checks = {
+        "exit_codes": rcs == want_rc,
+        "ledger_files": {"epoch_0000.json", "plan_e0001.json",
+                         f"left_r{victim:05d}.json", "epoch_0001.json"}
+        | {f"q_e0001_r{r:05d}.json" for r in range(world)}
+        | {f"q_e0001_r{r:05d}.done" for r in range(world)} <= names,
+        "plan_graceful": plan["flavor"] == "graceful"
+        and plan["leavers"] == [victim] and plan["survivors"] == survivors,
+        "record_world": record["epoch"] == 1
+        and record["members"] == survivors and record["world"] == world - 1,
+        "lineage": snap["membership"]["lineage"] == [[world, stop]]
+        and record["resume"]["lineage"] == [[world, stop]],
+        "stop_inside_epoch_1": 0 < stop < (-(-n_ex // world)) // TRAIN_B,
+        "dense_ranks": [res[s]["new_rank"] for s in survivors]
+        == list(range(world - 1))
+        and all(res[s]["world"] == world - 1 for s in survivors),
+        "backend_kept": all(res[s]["backend"] == backend for s in survivors),
+        "survivors_bit_identical": len({res[s]["digest"]
+                                        for s in survivors}) == 1,
+        "losses_track_oracle": len(a["losses"]) == len(oracle)
+        and max(bound) <= DDP_LOSS_TOL,
+        "losses_finite": all(math.isfinite(v) for v in a["losses"]),
+        "coverage_equals_record": all(
+            sorted(took.get(e, [])) == sorted(consumed[e])
+            for e in consumed),
+        "drop_as_predicted": all(c["dropped"] == c["predicted_dropped"]
+                                 for c in coverage.values()),
+        "books_per_rank_at_both_worlds": all(books_ok.values()),
+        "regroups_1": all(res[s]["counters"].get("elastic.regroups") == 1
+                          for s in survivors),
+    }
+    rec = {"checks": checks, "rcs": rcs, "stop_step": stop,
+           "record": record, "plan": plan, "coverage": coverage,
+           "losses": a["losses"], "oracle_losses": oracle,
+           "max_loss_diff": max(diffs) if diffs else None,
+           "max_loss_diff_bound": max(bound) if bound else None,
+           "regroup_s": {s: res[s]["counters"].get("elastic.regroup_s")
+                         for s in survivors},
+           "ms_per_update": {f"world_{world}": rates(a, world),
+                             f"world_{world - 1}": rates(a, world - 1)},
+           "books": {r: x["books"] for r, x in res.items()},
+           "fit_s": {r: x["fit_s"] for r, x in res.items()},
+           "ranks_s": ranks_s, "captured": a.get("captured")}
+    out["elastic"][key] = rec
+    print(f"[{key}] " + json.dumps({k: v for k, v in rec.items()
+                                    if k not in ("losses", "oracle_losses",
+                                                 "record")}))
+    print(f"[{key}] {backend} world {world} -> {world - 1} (rank {victim} "
+          f"left at update {stop}): regroup "
+          f"{max(rec['regroup_s'].values()):.2f} s, ms per update "
+          f"{rec['ms_per_update']}, ranks {ranks_s:.1f} s")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
+def phase_elastic(out):
+    """17: the graceful elastic shrink on the main path (module docstring):
+    (a) three gloo ranks on the one card, rank 2 leaving; (b) NCCL across
+    two cards, rank 1 leaving, windows of 10 as CUDA graphs released and
+    recaptured, when two or more cards are visible."""
+    import torch
+
+    out["elastic"] = {"card": out["card"]}
+    _elastic_run(out, "elastic_gloo_one_card", "gloo", ELASTIC_WORLD, 2,
+                 ELASTIC_ARGS + [
+                     f"--data.synthetic_train_size={ELASTIC_TRAIN}",
+                     "--train.steps_per_call=1",
+                     f"--resilience.fault=leave:step={ELASTIC_K},rank=2"])
+    if torch.cuda.device_count() < 2:
+        out["elastic"]["elastic_nccl_multi_card"] = "not run"
+        print(f"elastic_nccl_multi_card: not run, "
+              f"{torch.cuda.device_count()} card visible")
+        return
+    rec = _elastic_run(
+        out, "elastic_nccl_multi_card", "nccl", 2, 1, ELASTIC_ARGS + [
+            f"--data.synthetic_train_size={ELASTIC_NCCL_TRAIN}",
+            f"--train.steps_per_call={ELASTIC_NCCL_WIN}", "--train.epochs=1",
+            f"--resilience.fault=leave:step={ELASTIC_NCCL_K},rank=1"])
+    if not rec["captured"]:
+        raise AssertionError("elastic_nccl_multi_card: the survivor's "
+                             "windows were not recaptured as a CUDA graph")
 
 
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
@@ -5442,7 +5938,7 @@ PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
           phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows,
           phase_resnet50_kernels, phase_resnet50, phase_resnet50_windows,
           phase_resnet50_ddp, phase_sharded, phase_resident, phase_presets,
-          phase_resilience, phase_guard, phase_obs)
+          phase_resilience, phase_guard, phase_obs, phase_elastic)
 
 
 def main(argv=None) -> int:
@@ -5451,6 +5947,8 @@ def main(argv=None) -> int:
         return ddp_worker(argv[1])
     if argv[:1] == ["--guard-worker"]:
         return guard_worker(argv[1])
+    if argv[:1] == ["--elastic-worker"]:
+        return elastic_worker(argv[1])
     # ``--only a,b``: header, build and the named phases (e.g. the
     # multi-card phase alone on a four-card machine); no kernels line.
     only = None

@@ -5,7 +5,8 @@ the applicable cases of tests/test_resilience.py).
 - Fault plans parse as the JAX package parses them (fields, round trip,
   errors); the kinds the run cannot fire are refused before it starts,
   ``nan``/``spike`` without the guard with the JAX package's own message
-  and the elastic ones naming their ROADMAP item.
+  and the grow half's (``relaunch``, ``drop``, ``slowfs``) naming their
+  ROADMAP item (9d-iii).
 - Retry: the backoff schedule, retries then success, exhaustion, terminal
   errors, and the IO budget's schedule equal to the JAX package's.
 - Snapshots: cadence crossing, double-buffer isolation and retention; the
@@ -147,7 +148,7 @@ def test_nan_fault_is_refused_with_the_jax_packages_message(tmp_path):
 
 @pytest.mark.parametrize("spec,item", [
     ("spike:step=4,scale=10", "guard.enabled=true"),
-    ("drop:step=2,rank=1", "item 9d"), ("leave:step=4", "item 9d"),
+    ("drop:step=2,rank=1", "item 9d"), ("relaunch:step=6", "item 9d"),
     ("relaunch:step=4,rank=1", "item 9d"), ("drop:step=4", "item 9d"),
     ("slowfs:step=4,ms=5", "item 9d"),
     ("kill:step=9;relaunch:step=4", "item 9d")])

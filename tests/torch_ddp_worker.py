@@ -18,7 +18,10 @@ through the port's DDP step and writes its per-step global metrics, the
 collective books and its final state dict.
 
 With ``"job": "trainer"`` the rank instead runs the port's `Trainer` on
-the CLI arguments ``args`` (`run_trainer`), and with ``"job": "eval"`` it
+the CLI arguments ``args`` (`run_trainer`); ``"job": "elastic"`` is the
+same run, exiting 143 (after writing its output) when it ends in
+`PreemptedError`, as the CLI does for an elastic leaver; with ``"job":
+"eval"`` it
 evaluates a fresh `Trainer` once per test-set size of ``sizes``
 (`run_evals`); ``rank_args`` (``{rank: [...]}``) appends arguments for
 one rank, and ``drop`` batches whose update never runs (`run_trainer`).
@@ -126,12 +129,20 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
                     "config": cfg.to_dict(), "seed": cfg.train.seed}
             CheckpointManager(trainer.snapshot_dir, async_save=False).save(
                 trainer.state, meta)
-    out.update(losses=list(trainer.step_losses), final=flat_state(trainer),
+    # An elastic leaver is out of the group: under the sharded update its
+    # state's gather would be a collective no survivor joins.
+    departed = trainer.elastic is not None and out["preempted"] is not None
+    out.update(losses=list(trainer.step_losses),
+               final=None if departed else flat_state(trainer),
                eval=None if result is None else result.get("eval"),
                spe=len(trainer.train_pipe), host_step=trainer._host_step,
                step=trainer.state.step,
                counters={k: v for k, v in counters.snapshot().items()
-                         if k.startswith("guard.")})
+                         if k.startswith(("guard.", "elastic."))})
+    if trainer.elastic is not None:
+        out.update(record=trainer.elastic.record.to_json(),
+                   sid=trainer.stable_rank, new_rank=trainer.ctx.rank,
+                   world=trainer.ctx.world)
     return out
 
 
@@ -154,7 +165,7 @@ def main(spec_path: str) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     torch.set_num_threads(1)
-    if spec.get("job") in ("trainer", "eval"):
+    if spec.get("job") in ("trainer", "elastic", "eval"):
         from tpu_dp_torch.parallel.dist import shutdown
 
         group = dict(init=spec["init"], world=spec["world"],
@@ -162,7 +173,7 @@ def main(spec_path: str) -> int:
         args = spec["args"] + spec.get("rank_args", {}).get(
             str(spec["rank"]), [])
         try:
-            if spec["job"] == "trainer":
+            if spec["job"] != "eval":
                 out = run_trainer(args, **group,
                                   stop_at_step=spec.get("stop_at_step"),
                                   snapshot=spec.get("snapshot", False),
@@ -173,6 +184,10 @@ def main(spec_path: str) -> int:
             shutdown()
         with open(spec["out"], "wb") as f:
             pickle.dump(out, f)
+        if spec["job"] == "elastic" and out["preempted"]:
+            from tpu_dp_torch.resilience import PreemptedError
+
+            return PreemptedError.exit_code
         return 0
     from tpu_dp_torch.compat import load_jax_variables
     from tpu_dp_torch.models import build_model

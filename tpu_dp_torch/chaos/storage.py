@@ -1,9 +1,9 @@
 """Storage-fault shim: deterministic disk failures at the IO seams (port of
 `tpu_dp.chaos.storage`, which the port never imports). Its seams are the
-port's checkpoint and snapshot writes. The JAX package's ``slowfs`` kind
-and its ``on_read`` seam slow the membership ledger's reads, and the port
-has no ledger before ROADMAP Queue 1 item 9d: the fault injector refuses
-``slowfs``, so neither is carried over. The JAX package's text follows.
+port's checkpoint and snapshot writes and the membership ledger's writes.
+The JAX package's ``slowfs`` kind and its ``on_read`` seam slow the
+ledger's reads; they come with ROADMAP Queue 1 item 9d-iii (the fault
+injector refuses ``slowfs`` until then). The JAX package's text follows.
 
 The fault domain `TPU_DP_FAULT` could not reach before this module: the
 whole recovery story (tmp+rename snapshots, the ``latest`` pointer, the

@@ -139,7 +139,7 @@ class ParallelConfig:
 @dataclass
 class ResilienceConfig:
     """The resilience fields the port runs (`tpu_dp_torch.resilience`);
-    the elastic ones are refused (`NOT_PORTED`)."""
+    the grow half of elastic world size is refused (`NOT_PORTED`)."""
 
     # Snapshot cadence in optimizer steps; 0 = off (the epoch checkpoint
     # still runs, and a preemption's final snapshot still lands).
@@ -154,8 +154,31 @@ class ResilienceConfig:
     # Deterministic fault injection (tests only), e.g. "kill:step=13" or
     # a ';'-composed schedule (`resilience.faultinject`).
     fault: str = ""
-    # Total backoff budget (s) of every checkpoint and snapshot write.
+    # Total backoff budget (s) of every checkpoint, snapshot and
+    # membership-ledger write.
     io_retry_s: float = 3.1
+    # Elastic world size, the graceful shrink (`tpu_dp_torch.resilience.
+    # elastic`): a rank that announces its departure (SIGTERM, preempt:,
+    # leave:) leaves at an agreed step and the survivors regroup at world
+    # N-1, reshard and re-split the epoch. Needs data.drop_remainder and a
+    # filesystem under train.ckpt_dir that every rank shares.
+    elastic: bool = False
+    # Membership-ledger directory ("" = <train.ckpt_dir>/membership).
+    membership_dir: str = ""
+    # Bound on every regroup phase (quiesce collection, epoch-record wait,
+    # the new group's rendezvous).
+    regroup_timeout_s: float = 60.0
+    # Ledger-poll cadence in optimizer steps (crossing discipline).
+    elastic_poll_every_steps: int = 1
+    # Refuse to regroup below this world size (survivors raise instead).
+    elastic_min_world: int = 1
+    # Host the new leader advertises for the regrouped rendezvous ("" =
+    # loopback when the run started on it, else the hostname).
+    elastic_coordinator_host: str = ""
+    # The JAX package's collective-schedule fingerprint check after a
+    # regroup; HLO-based there, so an elastic run here needs it false
+    # (its stand-in is ROADMAP Queue 1 item 13).
+    elastic_verify_fingerprint: bool = True
 
 
 @dataclass
@@ -343,14 +366,7 @@ NOT_PORTED: dict[str, Any] = {
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
     "train.profile": "",
-    # Elastic world size (ROADMAP Queue 1 item 9d).
-    "resilience.elastic": False,
-    "resilience.membership_dir": "",
-    "resilience.regroup_timeout_s": 60.0,
-    "resilience.elastic_poll_every_steps": 1,
-    "resilience.elastic_min_world": 1,
-    "resilience.elastic_coordinator_host": "",
-    "resilience.elastic_verify_fingerprint": True,
+    # The grow half of elastic world size (ROADMAP Queue 1 item 9d-iii).
     "resilience.elastic_join": "auto",
     "resilience.elastic_join_timeout_s": 0.0,
     "resilience.elastic_max_world": 0,
@@ -362,7 +378,7 @@ NOT_PORTED: dict[str, Any] = {
 #: The ROADMAP Queue 1 item that ports each refused section or field
 #: (longest matching prefix); `model.fused_block_b` stays refused by design.
 _NOT_PORTED_ITEMS = {
-    "resilience": "9d", "obs": "10b", "serve": "11",
+    "resilience": "9d-iii", "obs": "10b", "serve": "11",
     "train.profile": "12",
     "train.recompile_guard": "11", "train.verify_fingerprint": "13",
 }
@@ -437,8 +453,10 @@ def check_ported(cfg: Config) -> Config:
     accumulation or a window above 1, each with a ragged final batch;
     gradient accumulation below 1, a negative window; the sharded
     update's knobs as the JAX package refuses them; a telemetry mode
-    other than off|basic|full, a step range without a trace dir), with
-    the JAX package's messages."""
+    other than off|basic|full, a step range without a trace dir; an
+    elastic run with a ragged final batch), with the JAX package's
+    messages; an elastic run with the fingerprint check on or under the
+    guard is not ported yet."""
     if cfg.parallel.num_devices not in (None, 1):
         raise NotPortedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: one "
@@ -466,6 +484,7 @@ def check_ported(cfg: Config) -> Config:
     if cfg.train.steps_per_call > 1 and not cfg.data.drop_remainder:
         raise ValueError("train.steps_per_call > 1 requires "
                          "data.drop_remainder=true")
+    _check_elastic(cfg)
     _check_update_sharding(cfg.train)
     _check_telemetry(cfg)
     if cfg.guard.enabled:
@@ -479,6 +498,31 @@ def check_ported(cfg: Config) -> Config:
         refuse_unported([p.kind for p in FaultPlan.parse_schedule(
             cfg.resilience.fault)], guard_enabled=cfg.guard.enabled)
     return cfg
+
+
+def _check_elastic(cfg: Config) -> None:
+    """An elastic run's checks: the JAX package's ``drop_remainder``
+    refusal (its message), then what the port does not run yet: the
+    HLO-based fingerprint check (item 13's stand-in) and the guard's
+    elastic branches (item 9d-ii)."""
+    if not cfg.resilience.elastic:
+        return
+    if not cfg.data.drop_remainder:
+        raise ValueError(
+            "resilience.elastic requires data.drop_remainder=true "
+            "(the mid-epoch re-split carries no weight masks)")
+    if cfg.resilience.elastic_verify_fingerprint:
+        raise NotPortedError(
+            "resilience.elastic_verify_fingerprint=true: the JAX package's "
+            "check is HLO-based and has no port yet (ROADMAP Queue 1 item "
+            "13); run elastic with --resilience.elastic_verify_fingerprint"
+            "=false")
+    if cfg.guard.enabled:
+        raise NotPortedError(
+            "guard.enabled=true with resilience.elastic=true: the guard's "
+            "elastic branches (SDC eviction through the ledger, suspects, "
+            "the deferred rollback) are not ported to tpu_dp_torch yet "
+            "(ROADMAP Queue 1 item 9d-ii)")
 
 
 def _check_telemetry(cfg: Config) -> None:

@@ -49,6 +49,10 @@ part of `tpu_dp.data.pipeline`).
   window and tail structure, same ``skip_steps``; no prefetch thread (a
   window's indices are kilobytes). `dataset_bytes` is the host size the
   ``resident_max_bytes`` budget is held against.
+- ``sampler`` replaces the `ShardedSampler` (the JAX package's seam): an
+  elastic regroup feeds the rest of an interrupted epoch from an
+  `ElasticTailSampler` of the re-split indices, through the streamed
+  windows and the resident index windows alike.
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ class DataPipeline:
                  shuffle: bool = True, seed: int = 0,
                  drop_remainder: bool = True, prefetch: int = 2,
                  num_shards: int = 1, shard_id: int = 0,
-                 accum_steps: int = 1, sync_placement: bool = False):
+                 accum_steps: int = 1, sync_placement: bool = False,
+                 sampler=None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         if self.batch_size < 1:
@@ -89,9 +94,9 @@ class DataPipeline:
         self.drop_remainder = drop_remainder
         self.prefetch = int(prefetch)
         self.sync_placement = bool(sync_placement)
-        self.sampler = ShardedSampler(len(dataset), num_shards=num_shards,
-                                      shard_id=shard_id, shuffle=shuffle,
-                                      seed=seed)
+        self.sampler = sampler if sampler is not None else ShardedSampler(
+            len(dataset), num_shards=num_shards, shard_id=shard_id,
+            shuffle=shuffle, seed=seed)
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)

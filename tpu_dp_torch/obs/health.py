@@ -24,9 +24,10 @@ Protocol:
   observation.
 
 File-based and collective-free on purpose: health checking must keep
-working exactly when collectives are what is wedged. The elastic
-admission path of the JAX package (``HealthMonitor.admit``, the ``me``
-stamp) waits for the port's elastic world size (ROADMAP Queue 1 item 9d).
+working exactly when collectives are what is wedged. A writer re-homed
+after an elastic regroup stamps its membership epoch (``me``) into every
+beat, as the JAX package's does; the admission path of a grown world
+(``HealthMonitor.admit``) waits for ROADMAP Queue 1 item 9d-iii.
 """
 
 from __future__ import annotations
@@ -97,9 +98,11 @@ class HeartbeatWriter:
     """
 
     def __init__(self, run_dir: str | os.PathLike, rank: int,
-                 every_steps: int = 1):
+                 every_steps: int = 1, me: int = 0):
         self.rank = int(rank)
         self.every_steps = max(1, int(every_steps))
+        # The membership epoch stamped into every beat after a regroup.
+        self.me = int(me)
         self.path = Path(run_dir) / f"heartbeat_r{self.rank:05d}.jsonl"
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._f = open(self.path, "a", encoding="utf-8")
@@ -126,6 +129,8 @@ class HeartbeatWriter:
             # highest-generation record per (rank, step) instead of
             # double-counting the rolled-back pass.
             rec["gen"] = self.generation
+        if self.me:
+            rec["me"] = self.me
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
         return True

@@ -22,8 +22,13 @@ process without a coordinator.
   ``initialization_timeout``: a rendezvous that does not complete raises
   `DistInitError`, naming the address and the rank.
 
-Elastic membership, parking, token agreement and fault-tolerant barriers
-are not ported.
+Elastic world size (`tpu_dp_torch.resilience.elastic`): `elastic_initialize`
+forms a membership epoch's group at the address its record publishes (a
+fresh port every epoch: a reused store would collide with the old group),
+on the backend the run started with; `abandon_distributed` walks away from
+the old group; `agree_token` and `membership_barrier` agree a string and
+meet over the current group's store (host-level, no device collective);
+`fault_tolerant_barrier` is the preemption exit's bounded barrier.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import dataclasses
 import datetime
 import os
 import socket
+import time
 
 import torch
 import torch.distributed as dist
@@ -55,13 +61,16 @@ class DistInitError(RuntimeError):
 class DistContext:
     """This process's place in the run: ``rank`` of ``world`` processes,
     ``local_rank`` on its host, the group's ``backend`` (None when the
-    process runs alone, without a group) and the ``device`` it drives."""
+    process runs alone, without a group), the ``device`` it drives and
+    the rendezvous's ``host:port`` when it has one (a ``file://``
+    rendezvous has none)."""
 
     rank: int
     world: int
     local_rank: int
     backend: str | None
     device: torch.device
+    coordinator_address: str | None = None
 
     @property
     def is_main_process(self) -> bool:
@@ -163,8 +172,11 @@ def initialize(backend: str | None = None, init_method: str | None = None,
                 f"world size {world}: give init_method, or MASTER_ADDR and "
                 f"MASTER_PORT")
         init_method, where = "env://", f"{addr}:{port}"
+        address = where
     else:
         where = init_method
+        address = (init_method[len("tcp://"):]
+                   if init_method.startswith("tcp://") else None)
     dev = _rank_device(device, local)
     if dev.type == "cuda":
         # Before the group allocates anything on a card.
@@ -178,16 +190,19 @@ def initialize(backend: str | None = None, init_method: str | None = None,
         raise DistInitError(
             f"process group ({backend}) at {where} failed for rank {rnk} of "
             f"{world} within {timeout_s:g} s: {e}") from e
-    _ctx = DistContext(rnk, world, local, backend, dev)
+    _ctx = DistContext(rnk, world, local, backend, dev, address)
     return _ctx
 
 
 def shutdown() -> None:
-    """Destroy the process group, if this process joined one."""
+    """Destroy the process group, if this process joined one, and free what
+    referred to it (`collect_released`; the caller drops its own
+    references first)."""
     global _ctx
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _ctx = None
+    collect_released()
 
 
 def process_index() -> int:
@@ -228,6 +243,138 @@ def broadcast_one_to_all(x, group=None):
            else None)
     dist.broadcast_object_list(box, src=0, group=group, device=dev)
     return box[0]
+
+
+def fault_tolerant_barrier(retries: int = 2,
+                           base_delay: float = 0.05) -> None:
+    """`barrier` with bounded retry and a typed terminal failure: the
+    preemption exit must not hang on a half-dead group, nor report an
+    untyped error. Persistent failure raises `PeerFailedError` naming
+    this rank."""
+    from tpu_dp_torch.resilience.retry import PeerFailedError, retry_call
+
+    try:
+        retry_call(barrier, retries=retries, base_delay=base_delay,
+                   describe="group barrier")
+    except Exception as e:
+        raise PeerFailedError(
+            f"barrier failed on process {process_index()}/"
+            f"{process_count()} after {retries + 1} attempts: {e}",
+            rank=process_index(), world=process_count()) from e
+
+
+def elastic_initialize(coordinator_address: str | None, num_processes: int,
+                       process_id: int, backend: str, device,
+                       timeout_s: float = DEFAULT_TIMEOUT_S) -> DistContext:
+    """Form (or re-form) the group of one membership epoch: ``process_id``
+    of ``num_processes`` meeting at ``coordinator_address`` (``host:port``
+    from the epoch's record; dense rank 0 hosts the store), on ``backend``
+    and ``device`` (the process keeps its card and the run's backend).
+    A sole survivor (the record names no address) forms a group of one at
+    a free loopback port, so the run keeps its backend and its code path.
+    Raises `DistInitError` when the rendezvous fails, and `RuntimeError`
+    while a group is live (`abandon_distributed` first)."""
+    global _ctx
+    if dist.is_initialized():
+        raise RuntimeError("elastic_initialize: a process group is live; "
+                           "call abandon_distributed() first")
+    if num_processes == 1:
+        from tpu_dp_torch.resilience.elastic import free_port
+
+        coordinator_address = f"127.0.0.1:{free_port()}"
+    elif not coordinator_address:
+        raise DistConfigError(
+            f"world {num_processes} needs the record's coordinator address")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    where = f"tcp://{coordinator_address}"
+    try:
+        dist.init_process_group(
+            backend, init_method=where, world_size=num_processes,
+            rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
+    except (RuntimeError, ValueError, TimeoutError) as e:
+        raise DistInitError(
+            f"elastic process group ({backend}) at {where} failed for rank "
+            f"{process_id} of {num_processes} within {timeout_s:g} s: "
+            f"{e}") from e
+    local = _ctx.local_rank if _ctx is not None else process_id
+    _ctx = DistContext(process_id, num_processes, local, backend, dev,
+                       coordinator_address)
+    return _ctx
+
+
+def abandon_distributed() -> None:
+    """Walk away from the current group without a collective (a regroup's
+    teardown): `torch.distributed.destroy_process_group` is local and stops
+    the backend, so a peer that already left cannot hold it up. The context
+    is kept for `elastic_initialize`, which takes its local rank; callers
+    release what captured the old group's collectives (CUDA graphs) first,
+    and drop what still refers to the group (`collect_released`)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def collect_released() -> None:
+    """Free now what a released group leaves behind: objects that referred
+    to it (a model's sync-BN, DDP's reducer, a sharded update) and are only
+    reachable through reference cycles would otherwise keep the group's
+    and its store's C++ objects until the interpreter's teardown, where
+    destroying them can abort the exiting process ("terminate called
+    without an active exception")."""
+    import gc
+
+    gc.collect()
+
+
+#: The JAX package's end-of-run parking of its coordination objects: here
+#: `shutdown` (a local destroy, then what referred to the group freed) is
+#: all an elastic exit needs.
+park_distributed = shutdown
+
+
+def _store():
+    """The current group's key-value store (the rendezvous's)."""
+    return dist.distributed_c10d._get_default_store()
+
+
+def agree_token(name: str, make, timeout_s: float = 60.0) -> str:
+    """One string every process of the group agrees on: rank 0 mints it
+    (``make()``) into the group's store, the others read it. The store
+    belongs to this launch's rendezvous, so the token is unique per launch
+    (the membership ledger keys its generation directory on it). Alone:
+    ``make()``."""
+    if not dist.is_initialized():
+        return str(make())
+    store = _store()
+    key = f"tpu_dp:token:{name}"
+    if dist.get_rank() == 0:
+        token = str(make())
+        store.set(key, token)
+        return token
+    store.wait([key], datetime.timedelta(seconds=timeout_s))
+    return store.get(key).decode()
+
+
+def membership_barrier(tag: str, epoch: int, timeout_s: float = 60.0) -> None:
+    """Host-level barrier over the current membership epoch's group, on
+    its store (no device collective: usable before the first step of a
+    fresh epoch), with the membership epoch in the key so a straggler of
+    epoch N cannot satisfy epoch N+1's. Raises `TimeoutError` when a
+    member does not arrive within ``timeout_s``. Alone: a no-op."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    store = _store()
+    key = f"tpu_dp:me{int(epoch)}:{tag}"
+    world = dist.get_world_size()
+    store.add(key, 1)
+    deadline = time.monotonic() + timeout_s
+    while int(store.add(key, 0)) < world:
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"membership barrier {key!r}: {int(store.add(key, 0))} of "
+                f"{world} arrived within {timeout_s:g} s")
+        time.sleep(0.01)
 
 
 def cross_rank_gather(payload, group=None):

@@ -1,9 +1,18 @@
 """Resilience of the port (of `tpu_dp.resilience`): step snapshots, the
 preemption handler and resume, the IO retry budget, deterministic fault
 injection and the training guard (the divergence policy, the quarantine
-log and the SDC audit). Elastic world size (ROADMAP Queue 1 item 9d) is
-not ported yet."""
+log and the SDC audit), and the graceful shrink of elastic world size
+(`tpu_dp_torch.resilience.elastic`: the membership ledger and the
+coordinator; the rollback flavour and the grow half are ROADMAP Queue 1
+items 9d-ii and 9d-iii)."""
 
+from tpu_dp_torch.resilience.elastic import (
+    ElasticCoordinator,
+    ElasticError,
+    MembershipLedger,
+    MembershipRecord,
+    QuiescePlan,
+)
 from tpu_dp_torch.resilience.faultinject import (
     GUARD_KINDS,
     KILL_EXIT_CODE,
@@ -40,8 +49,10 @@ from tpu_dp_torch.resilience.retry import (
 from tpu_dp_torch.resilience.snapshot import SnapshotManager
 
 __all__ = ["DIVERGED_EXIT_CODE", "GUARD_KINDS", "KILL_EXIT_CODE",
-           "PREEMPTED_EXIT_CODE", "DivergedError", "FaultInjector",
-           "FaultPlan", "GuardPolicy", "GuardTrigger", "PeerFailedError",
+           "PREEMPTED_EXIT_CODE", "DivergedError", "ElasticCoordinator",
+           "ElasticError", "FaultInjector", "FaultPlan", "GuardPolicy",
+           "GuardTrigger", "MembershipLedger", "MembershipRecord",
+           "PeerFailedError", "QuiescePlan",
            "PreemptedError", "PreemptionHandler", "QuarantineLog",
            "SnapshotManager", "configure_io_retry", "digest_of_sums",
            "find_candidates", "io_retry_params", "leaf_paths",

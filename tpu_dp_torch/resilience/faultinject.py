@@ -3,18 +3,19 @@
 exit code; the port never imports the JAX package).
 
 The port runs the step-boundary kinds ``kill``, ``preempt``, ``delay``,
-the storage kinds ``ioerr``, ``enospc``, ``torn`` and ``bitrot``, and the
+``leave`` (it sets `FaultInjector.leave_requested`, which an elastic
+trainer polls: a graceful departure without a signal), the storage kinds ``ioerr``, ``enospc``, ``torn`` and ``bitrot``, and the
 guard's kinds (`GUARD_KINDS`): ``nan`` and ``spike`` through the
 sentinel step's seam (`device_fault`, `disarm_device`; they need
 ``guard.enabled``, refused otherwise with the JAX package's message) and
 ``sdc``, a bit flip in this rank's parameters (`take_sdc`; the Trainer's
 ``_inject_sdc``). `refuse_unported` turns away the rest before a run
 starts, since a fault that silently never fires is the worst property an
-injector can have: ``leave``/``relaunch`` (elastic world size, ROADMAP
-Queue 1 item 9d), ``drop`` (the JAX package's retrying host ring; the
-port's collectives go through `torch.distributed`) and ``slowfs`` (it
-slows the membership ledger's reads, and the port has no ledger before
-item 9d).
+injector can have: ``relaunch`` (the grow half of elastic world size,
+ROADMAP Queue 1 item 9d-iii), ``drop`` (the JAX package's retrying host
+ring; the port's collectives go through `torch.distributed`) and
+``slowfs`` (the storage shim's read seam on the membership ledger), both
+item 9d-iii.
 
 The JAX package's text follows.
 
@@ -122,11 +123,12 @@ KILL_EXIT_CODE = 137
 #: kinds the port refuses until the ROADMAP item that brings their seam:
 #: kind -> (item, what it needs).
 UNPORTED_KINDS = {
-    "leave": ("9d", "elastic world size (resilience.elastic)"),
-    "relaunch": ("9d", "elastic world size (resilience.elastic)"),
-    "drop": ("9d", "the JAX package's retrying host ring; the port's "
-                   "collectives go through torch.distributed"),
-    "slowfs": ("9d", "the membership ledger, whose reads it slows"),
+    "relaunch": ("9d-iii", "the grow half of elastic world size "
+                           "(resilience.elastic_join)"),
+    "drop": ("9d-iii", "the JAX package's retrying host ring; the port's "
+                       "collectives go through torch.distributed"),
+    "slowfs": ("9d-iii", "the storage shim's read seam on the membership "
+                         "ledger"),
 }
 
 
@@ -264,6 +266,9 @@ class FaultInjector:
             raise ValueError("FaultInjector needs at least one FaultPlan")
         self.rank = int(rank)
         self._fired = [False] * len(self.plans)
+        #: set by a fired ``leave`` plan; the elastic trainer polls it as a
+        #: graceful departure request (the signal-free twin of SIGTERM).
+        self.leave_requested = False
 
     @property
     def plan(self) -> FaultPlan:
@@ -352,6 +357,12 @@ class FaultInjector:
                 self.rank, plan.delay_ms, global_step,
             )
             time.sleep(plan.delay_ms / 1000.0)
+        elif plan.kind == "leave":
+            logger.warning(
+                "fault injection: elastic leave request on rank %d at "
+                "step %d", self.rank, global_step,
+            )
+            self.leave_requested = True
 
     # -- guardrail faults ------------------------------------------------
 

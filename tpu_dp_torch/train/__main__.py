@@ -70,6 +70,16 @@ with more than one rank). ``--train.profile_dir=D`` traces the run with
 activity only on a card), ``--train.profile_steps=A:B`` only those
 updates (snapped outward to windows).
 
+``--resilience.elastic=true --resilience.elastic_verify_fingerprint=
+false`` (with ``data.drop_remainder``, a ``train.ckpt_dir`` every rank
+shares) makes a SIGTERM, ``preempt:`` or ``--resilience.fault=leave:step=
+K,rank=R`` a graceful departure: that rank exits 143 after ``preempted:
+elastic departure ...`` and the others regroup at world N-1 and finish,
+their JSON line carrying an ``elastic`` rollup. A launcher that tears
+every worker down when one exits non-zero (plain ``torchrun``) cannot
+host the shrink: start each rank as its own process with ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` (README).
+
 ``--train.update_sharding=sharded`` trains with the sharded weight update
 (each rank keeps 1/world of the momentum), its gradient exchange in f32,
 ``--train.collective_dtype=bf16`` or ``=int8`` (``--train.
@@ -117,8 +127,9 @@ def main(argv=None) -> int:
             result = trainer.fit()
         except PreemptedError as e:
             # The final snapshot is committed: the terminated-by-SIGTERM
-            # status, so a supervisor restarts with --resume.
-            if trainer.ctx.is_main_process:
+            # status, so a supervisor restarts with --resume (an elastic
+            # leaver's departure, whatever its rank, says so itself).
+            if trainer.ctx.is_main_process or trainer.elastic is not None:
                 print(f"preempted: {e}", flush=True)
             return PreemptedError.exit_code
         except DivergedError as e:
@@ -160,6 +171,16 @@ def main(argv=None) -> int:
                 "sdc_mismatches": int(counters.get("guard.sdc_mismatches")),
                 "quarantine_log": str(trainer.quarantine_path),
             }
+        if trainer.elastic is not None:
+            rec = trainer.elastic.record
+            summary["elastic"] = {
+                "membership_epoch": rec.epoch, "world": rec.world,
+                "members": list(rec.members),
+                "regroups": int(counters.get("elastic.regroups")),
+                "lost_ranks": int(counters.get("elastic.lost_ranks")),
+                "joined_ranks": int(counters.get("elastic.joined_ranks")),
+                "regroup_s": round(counters.get("elastic.regroup_s"), 3),
+            }
         obs = trainer.obs_summary()
         if obs is not None:
             summary["obs"] = obs
@@ -171,6 +192,7 @@ def main(argv=None) -> int:
         if trainer is not None and trainer.multi_step is not None:
             # The windows' graph goes before the group its collectives use.
             trainer.multi_step.close()
+        trainer = None  # what refers to the group goes with it
         shutdown()
 
 

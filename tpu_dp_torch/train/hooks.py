@@ -25,8 +25,8 @@ not be snapshotted before its rollback picks a target), the snapshot
 cadence, fault injection (a kill at step K lands after the step-K
 snapshot, the kill/resume contract), heartbeats (an injected ``delay:``
 is attributed to the step it fired at), the step-ranged profiler, and
-the preemption boundary last (it raises, and everything before it must
-have run for the final state to be coherent). The JAX package's comm
+the elastic / preemption boundary last (it raises, and everything before
+it must have run for the final state to be coherent). The JAX package's comm
 profiler hook waits for ROADMAP Queue 1 item 10b.
 
 `GuardHook` is the one hook that reads the device: one fetch of the
@@ -210,13 +210,20 @@ class FlightRecorderHook(StepHook):
 
 
 class BoundaryHook(StepHook):
-    """The preemption boundary — always last: a pending signal runs the
-    snapshot-and-exit-143 contract (`Trainer._preempt_exit`). Each rank
-    reads its own flag, as in the JAX package."""
+    """The elastic / preemption boundary — always last. Elastic on
+    (``resilience.elastic``): a SIGTERM means "this rank leaves, the job
+    goes on", agreed through the membership ledger at a common stop step:
+    the boundary runs the detection and the quiesce and raises
+    `_RegroupSignal` (a survivor) or `PreemptedError` (the leaver)
+    (`Trainer._elastic_boundary`). Elastic off: a pending signal runs the
+    snapshot-and-exit-143 contract (`Trainer._preempt_exit`), each rank
+    reading its own flag, as in the JAX package."""
 
     def on_step_end(self, ev: StepEvent) -> None:
         tr = self.tr
-        if tr.preempt is not None and tr.preempt.requested:
+        if tr.elastic is not None:
+            tr._elastic_boundary(ev.epoch, ev.done)
+        elif tr.preempt is not None and tr.preempt.requested:
             tr._preempt_exit(ev.epoch, ev.done)
 
 
@@ -239,7 +246,7 @@ class GuardHook(StepHook):
     sentinel's are equal on every rank), with no coordination beyond the
     audit's all-gather. Rank 0 writes the ``guard_quarantine``,
     ``guard_spike`` and ``guard_sdc`` events into ``metrics.jsonl``. Left
-    out until ROADMAP Queue 1 item 9d: the elastic branches (evicting the
+    out until ROADMAP Queue 1 item 9d-ii: the elastic branches (evicting the
     SDC suspect, ``mark_suspect``, deferring a rollback while a quiesce
     converges) and ``on_regroup``.
     """

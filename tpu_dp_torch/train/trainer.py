@@ -119,8 +119,20 @@ update. Nothing is recorded inside a captured window. ``obs.prom_path``
 is rewritten at log boundaries, epoch ends and exit; rank 0 writes
 ``trace.perfetto.json`` at the end of `fit`; ``train.profile_dir`` traces
 the whole of `fit` with `torch.profiler`, or only ``train.profile_steps``.
-Elastic world size (and its membership stamps on records) is not ported
-yet.
+
+Elastic world size, the graceful shrink (``resilience.elastic``;
+`tpu_dp_torch.resilience.elastic`): a rank told to go (SIGTERM,
+``preempt:``, ``leave:``) checks in on the membership ledger at its next
+window boundary and every member keeps stepping to the agreed stop step,
+where rank 0 commits the final snapshot (stamped with the epoch's
+consumption lineage) and the leaver raises `PreemptedError` (exit 143).
+The survivors release the windows' graphs, form the new group at world
+N-1 (`dist.elastic_initialize`, the run's backend), rebuild everything the
+group touches (`_build_world`), reload the snapshot through the
+resharding checkpoint path and re-split the rest of the epoch over
+themselves (`_set_elastic_tail`); every later record carries its
+``membership_epoch``. The rollback flavour (a member that vanished) and
+the grow half are not ported (ROADMAP Queue 1 items 9d-ii, 9d-iii).
 """
 
 from __future__ import annotations
@@ -150,7 +162,12 @@ from tpu_dp_torch.obs import flightrec as _flightrec
 from tpu_dp_torch.obs.counters import counters as _counters
 from tpu_dp_torch.obs.counters import update_device_memory_gauges
 from tpu_dp_torch.parallel import bucketing, quant
-from tpu_dp_torch.parallel.dist import broadcast_one_to_all, initialize
+from tpu_dp_torch.parallel.dist import (
+    broadcast_one_to_all,
+    collect_released,
+    fault_tolerant_barrier,
+    initialize,
+)
 from tpu_dp_torch.resilience import (
     FaultInjector,
     PreemptedError,
@@ -160,7 +177,6 @@ from tpu_dp_torch.resilience import (
     find_candidates,
     quarantine_save_dir,
     resume_latest,
-    retry_call,
 )
 from tpu_dp_torch.resilience.faultinject import refuse_unported
 from tpu_dp_torch.train import hooks as hooks_lib
@@ -201,6 +217,18 @@ def _iso_ts(epoch_seconds: float) -> str:
         epoch_seconds, timezone.utc).isoformat(timespec="milliseconds")
 
 
+class _RegroupSignal(Exception):
+    """Raised out of `train_epoch` by a survivor when a quiesce completed:
+    the group must shrink before the next step (`Trainer.
+    _execute_regroup`). Internal control flow; never escapes `fit()`."""
+
+    def __init__(self, epoch: int, done: int, plan):
+        super().__init__(f"elastic regroup at epoch {epoch} step {done}")
+        self.epoch = int(epoch)
+        self.done = int(done)
+        self.plan = plan
+
+
 class _GuardRollback(Exception):
     """Raised out of `train_epoch` by the guard hook when the divergence
     policy escalates to rollback: rewind to the newest complete (and
@@ -232,7 +260,6 @@ class Trainer:
             world_size=par.num_processes, rank=par.process_id,
             device=device)
         self.device = self.ctx.device
-        group = self.ctx.process_group
         seed = cfg.train.seed
 
         self.train_ds = load_dataset(
@@ -252,6 +279,134 @@ class Trainer:
                 f"model.num_classes={cfg.model.num_classes} conflicts with "
                 f"dataset {self.train_ds.name!r} ({num_classes} classes)")
 
+        #: the guard (module doc): the sentinel step and `GuardHook`.
+        self.guard_enabled = bool(cfg.guard.enabled)
+        self._num_classes = num_classes
+        #: the re-split rest of an interrupted epoch after a regroup (or a
+        #: resume into one), and the epoch's consumption lineage so far.
+        self._elastic_tail = None
+        self._epoch_lineage: list[list[int]] = []
+        #: the `ElasticCoordinator` of an elastic run (end of __init__).
+        self.elastic = None
+        self._build_world()
+        mode, budget = cfg.data.device_resident, cfg.data.resident_max_bytes
+        ds_bytes = self.train_pipe.dataset_bytes()
+        if mode == "on" and ds_bytes > budget and self.ctx.is_main_process:
+            log.warning(
+                "warning: data.device_resident=on stages %d bytes, over "
+                "data.resident_max_bytes=%d — staging may exhaust device "
+                "memory; raise the budget or use auto", ds_bytes, budget)
+        tc = cfg.train
+        if self.sharded:
+            coupled = coupling_warning(tc.bucket_mb, tc.quant_block_size,
+                                       tc.collective_dtype)
+            if coupled and self.ctx.is_main_process:
+                log.warning("config warning: %s", coupled)
+        self.meter = ThroughputMeter(warmup_steps=2, device=self.device)
+        #: every update's global loss, fetched once per epoch (host floats).
+        self.step_losses: list[float] = []
+
+        self.ckpt_mgr = ckpt_lib.CheckpointManager(
+            cfg.train.ckpt_dir, keep=cfg.train.ckpt_keep,
+            async_save=cfg.train.ckpt_async)
+        # Resilience, in the JAX package's order: the IO retry budget, the
+        # snapshot manager (always built: with the cadence off the
+        # preemption final still lands there), the preemption handler and
+        # the fault injector.
+        res = cfg.resilience
+        configure_io_retry(res.io_retry_s)
+        self.snapshot_dir = res.snapshot_dir or str(
+            Path(cfg.train.ckpt_dir) / "snapshots")
+        self.snap_mgr = SnapshotManager(
+            self.snapshot_dir, every_steps=res.snapshot_every_steps,
+            keep=res.snapshot_keep, async_save=cfg.train.ckpt_async)
+        self.preempt = PreemptionHandler() if res.handle_signals else None
+        self.fault = FaultInjector.from_spec(res.fault, rank=self.ctx.rank)
+        if self.fault is not None:
+            refuse_unported(self.fault.kinds(), self.guard_enabled)
+        # Guardrail run state: the rollback generation stamps every
+        # quarantine record and snapshot written after a rewind, and an SDC
+        # finding suppresses snapshots (`hooks.SnapshotHook`).
+        self._rollback_gen = 0
+        self._sdc_suspect_active = False
+        #: the batch clock (module doc); set from the update counter after
+        #: a resume, as in the JAX package.
+        self._host_step = 0
+        # The flight recorder: always on (obs.flightrec_capacity 0 turns it
+        # off), dumped into obs.run_dir or <ckpt_dir>/obs on every exit
+        # from fit.
+        self.obs_dir = Path(cfg.obs.run_dir
+                            or Path(cfg.train.ckpt_dir) / "obs")
+        self.flightrec = None
+        if cfg.obs.flightrec_capacity <= 0:
+            _flightrec.recorder.disable()
+        else:
+            self.flightrec = _flightrec.recorder.configure(
+                rank=self.ctx.rank, dump_dir=self.obs_dir,
+                capacity=cfg.obs.flightrec_capacity, fresh=True,
+                run={"model": cfg.model.name, "world": self.ctx.world,
+                     "devices": self.num_devices,
+                     "global_batch": self.global_batch_size,
+                     "elastic": bool(cfg.resilience.elastic),
+                     "guard": self.guard_enabled,
+                     "joined": False})
+        self._build_telemetry()
+        self._register_program_costs()
+        self._build_hooks()
+        self.start_epoch = 0
+        self.start_step = 0  # step within start_epoch (mid-epoch resume)
+        self.resumed_from: str | None = None
+        if cfg.train.resume:
+            self._maybe_resume()
+        self._host_step = int(self.state.step)
+        #: the batch clock at `step_losses`' first entry (`fit` resets it).
+        self._losses_from = self._host_step
+        # Elastic world size (`resilience.elastic`): this rank's stable id
+        # is its rank at the generation's start; dense ranks are reassigned
+        # per membership epoch, stable ids never.
+        self.stable_rank = self.ctx.rank
+        self._quiesce_plan = None
+        if res.elastic:
+            self.elastic = self._build_elastic()
+
+    def _build_elastic(self):
+        """The run's `ElasticCoordinator`. Its generation key joins what
+        every rank already agrees on (the resumed step, the launch world)
+        with a token rank 0 mints into the group's store, so a restarted
+        launch gets a fresh ledger directory even when it resumes from the
+        same step (the JAX package's key)."""
+        import uuid
+
+        from tpu_dp_torch.parallel.dist import agree_token
+        from tpu_dp_torch.resilience.elastic import ElasticCoordinator
+
+        res = self.cfg.resilience
+        nonce = agree_token("elastic_gen", lambda: uuid.uuid4().hex[:8],
+                            timeout_s=res.regroup_timeout_s)
+        return ElasticCoordinator(
+            res.membership_dir or str(
+                Path(self.cfg.train.ckpt_dir) / "membership"),
+            generation=(f"gen_{self._host_step:010d}_w{self.ctx.world}"
+                        f"_{nonce}"),
+            sid=self.stable_rank, world=self.ctx.world,
+            coordinator_address=self.ctx.coordinator_address,
+            regroup_timeout_s=res.regroup_timeout_s,
+            poll_every_steps=res.elastic_poll_every_steps,
+            coordinator_host=res.elastic_coordinator_host,
+            min_world=res.elastic_min_world)
+
+    def _build_world(self) -> None:
+        """Everything that depends on the group: the train and test
+        pipelines on this rank's shard, the resident decision, the model
+        (sync-BN over the group), the window size and capture stream, DDP
+        or the sharded update, SGD, the schedule (its length from this
+        world's steps per epoch), the augmentation's rows, a fresh state,
+        and the train, window and eval steps. Run at construction and
+        again by an elastic regroup on the new group (`_execute_regroup`),
+        as the JAX package rebuilds its pipelines and programs."""
+        cfg = self.cfg
+        group = self.ctx.process_group
+        seed = cfg.train.seed
         shard = dict(num_shards=self.ctx.world, shard_id=self.ctx.rank)
         accum = cfg.optim.grad_accum_steps
         self.train_pipe = DataPipeline(
@@ -265,22 +420,12 @@ class Trainer:
             seed=seed, drop_remainder=False, prefetch=cfg.data.prefetch,
             sync_placement=cfg.data.sync_placement, **shard)
         mode = cfg.data.device_resident
-        ds_bytes = self.train_pipe.dataset_bytes()
-        budget = cfg.data.resident_max_bytes
-        if mode == "on" and ds_bytes > budget and self.ctx.is_main_process:
-            log.warning(
-                "warning: data.device_resident=on stages %d bytes, over "
-                "data.resident_max_bytes=%d — staging may exhaust device "
-                "memory; raise the budget or use auto", ds_bytes, budget)
         #: whether the train feed is device-resident (module doc).
         self._resident_enabled = mode == "on" or (
             mode == "auto" and cfg.data.drop_remainder
-            and ds_bytes <= budget)
+            and self.train_pipe.dataset_bytes()
+            <= cfg.data.resident_max_bytes)
         self._resident_train = None
-        #: the guard (module doc): the sentinel step and `GuardHook`.
-        self.guard_enabled = bool(cfg.guard.enabled)
-
-        self._num_classes = num_classes
         self.model = self._init_model(group).to(self.device)
         steps_per_epoch = len(self.train_pipe)
         spc = cfg.train.steps_per_call
@@ -296,11 +441,6 @@ class Trainer:
         tc = cfg.train
         #: the sharded weight update's optimizer runs the exchange itself.
         self.sharded = tc.update_sharding == "sharded"
-        if self.sharded:
-            coupled = coupling_warning(tc.bucket_mb, tc.quant_block_size,
-                                       tc.collective_dtype)
-            if coupled and self.ctx.is_main_process:
-                log.warning("config warning: %s", coupled)
         #: the module the train step runs: DDP's wrapper with a group,
         #: built on the capture stream when there is one (torch's notes).
         self.ddp = None
@@ -364,64 +504,6 @@ class Trainer:
             if self.steps_per_call > 1 else None)
         # Eval runs the unwrapped module: no gradient, nothing to reduce.
         self.eval_step = make_eval_step(self.model, process_group=group)
-        self.meter = ThroughputMeter(warmup_steps=2, device=self.device)
-        #: every update's global loss, fetched once per epoch (host floats).
-        self.step_losses: list[float] = []
-
-        self.ckpt_mgr = ckpt_lib.CheckpointManager(
-            cfg.train.ckpt_dir, keep=cfg.train.ckpt_keep,
-            async_save=cfg.train.ckpt_async)
-        # Resilience, in the JAX package's order: the IO retry budget, the
-        # snapshot manager (always built: with the cadence off the
-        # preemption final still lands there), the preemption handler and
-        # the fault injector.
-        res = cfg.resilience
-        configure_io_retry(res.io_retry_s)
-        self.snapshot_dir = res.snapshot_dir or str(
-            Path(cfg.train.ckpt_dir) / "snapshots")
-        self.snap_mgr = SnapshotManager(
-            self.snapshot_dir, every_steps=res.snapshot_every_steps,
-            keep=res.snapshot_keep, async_save=cfg.train.ckpt_async)
-        self.preempt = PreemptionHandler() if res.handle_signals else None
-        self.fault = FaultInjector.from_spec(res.fault, rank=self.ctx.rank)
-        if self.fault is not None:
-            refuse_unported(self.fault.kinds(), self.guard_enabled)
-        # Guardrail run state: the rollback generation stamps every
-        # quarantine record and snapshot written after a rewind, and an SDC
-        # finding suppresses snapshots (`hooks.SnapshotHook`).
-        self._rollback_gen = 0
-        self._sdc_suspect_active = False
-        #: the batch clock (module doc); set from the update counter after
-        #: a resume, as in the JAX package.
-        self._host_step = 0
-        # The flight recorder: always on (obs.flightrec_capacity 0 turns it
-        # off), dumped into obs.run_dir or <ckpt_dir>/obs on every exit
-        # from fit.
-        self.obs_dir = Path(cfg.obs.run_dir
-                            or Path(cfg.train.ckpt_dir) / "obs")
-        self.flightrec = None
-        if cfg.obs.flightrec_capacity <= 0:
-            _flightrec.recorder.disable()
-        else:
-            self.flightrec = _flightrec.recorder.configure(
-                rank=self.ctx.rank, dump_dir=self.obs_dir,
-                capacity=cfg.obs.flightrec_capacity, fresh=True,
-                run={"model": cfg.model.name, "world": self.ctx.world,
-                     "devices": self.num_devices,
-                     "global_batch": self.global_batch_size,
-                     "elastic": False, "guard": self.guard_enabled,
-                     "joined": False})
-        self._build_telemetry()
-        self._register_program_costs()
-        self._build_hooks()
-        self.start_epoch = 0
-        self.start_step = 0  # step within start_epoch (mid-epoch resume)
-        self.resumed_from: str | None = None
-        if cfg.train.resume:
-            self._maybe_resume()
-        self._host_step = int(self.state.step)
-        #: the batch clock at `step_losses`' first entry (`fit` resets it).
-        self._losses_from = self._host_step
 
     def _init_model(self, group=None) -> torch.nn.Module:
         """The model as a fresh run initializes it (on the CPU), from the
@@ -632,6 +714,8 @@ class Trainer:
         if info is None:
             return
         (self.start_epoch, self.start_step), self.resumed_from = info
+        if cfg.resilience.elastic:
+            self._maybe_resume_into_tail(self.resumed_from)
         log.info("resumed from %s at epoch %d step-in-epoch %d (global "
                  "step %d)", self.resumed_from, self.start_epoch,
                  self.start_step, self.state.step)
@@ -691,7 +775,96 @@ class Trainer:
             # A post-rollback save names its generation (the tombstoned
             # quarantine records of the pass it replaced).
             meta["rollback_generation"] = self._rollback_gen
+        membership = self._membership_meta(steps_done)
+        if membership is not None:
+            meta["membership"] = membership
         return meta
+
+    def _segment_steps(self, done: int) -> int:
+        """Steps of the current world's segment out of ``done`` epoch
+        steps (the part `_epoch_lineage` does not cover)."""
+        return int(done) - sum(int(s) for _, s in self._epoch_lineage)
+
+    def _membership_meta(self, steps_done: int) -> dict | None:
+        """An elastic snapshot's membership stamp (the JAX package's keys):
+        the membership epoch, world and members, and the interrupted
+        epoch's whole consumption ``lineage`` (the prior segments and the
+        one in flight), from which a later reader rebuilds the remaining
+        sample set with `elastic_resplit`."""
+        if self.elastic is None:
+            return None
+        rec = self.elastic.record
+        return {"epoch": rec.epoch, "world": self.ctx.world,
+                "members": list(rec.members),
+                "lineage": [list(map(int, seg)) for seg in self._epoch_lineage]
+                + [[self.ctx.world, self._segment_steps(steps_done)]]}
+
+    def _set_elastic_tail(self, epoch: int, lineage, skip: int = 0) -> bool:
+        """Install the re-split rest of an interrupted epoch (`elastic_
+        resplit` over this world, an `ElasticTailSampler` pipeline);
+        ``skip`` fast-forwards within the tail. False when the lineage
+        already covers the whole epoch (the caller goes on to the next)."""
+        from types import SimpleNamespace
+
+        from tpu_dp_torch.data.sampler import (
+            ElasticTailSampler,
+            elastic_resplit,
+        )
+
+        cfg = self.cfg
+        lineage = [list(map(int, seg)) for seg in lineage]
+        per_step = cfg.data.batch_size * cfg.optim.grad_accum_steps
+        idx = elastic_resplit(len(self.train_ds), cfg.data.shuffle,
+                              cfg.train.seed, epoch, per_step, lineage,
+                              self.ctx.world, self.ctx.rank)
+        steps = len(idx) // per_step
+        if steps - int(skip) <= 0:
+            self._elastic_tail = None
+            self._epoch_lineage = []
+            return False
+        self._epoch_lineage = lineage
+        pipe = DataPipeline(
+            self.train_ds, cfg.data.batch_size, self.device,
+            shuffle=cfg.data.shuffle, seed=cfg.train.seed,
+            drop_remainder=True, prefetch=cfg.data.prefetch,
+            accum_steps=cfg.optim.grad_accum_steps,
+            sync_placement=cfg.data.sync_placement,
+            sampler=ElasticTailSampler(idx, epoch))
+        self._elastic_tail = SimpleNamespace(
+            epoch=int(epoch), pipe=pipe,
+            base=sum(s for _, s in lineage), skip=int(skip))
+        self._log0("elastic: epoch %d re-split over world %d — %d prior "
+                   "step(s) across %s, %d step(s) remain (resuming %d in)",
+                   epoch, self.ctx.world, self._elastic_tail.base, lineage,
+                   steps, skip)
+        return True
+
+    def _maybe_resume_into_tail(self, resume_dir: str) -> None:
+        """Honour a snapshot's membership lineage on a restart: an epoch
+        consumed across several worlds cannot resume by the one-world
+        skip. Every rank reads the meta itself (an elastic run's ckpt tree
+        is shared) and installs the re-split tail for this launch's world."""
+        try:
+            meta = ckpt_lib.read_meta(resume_dir)
+        except (OSError, ValueError):
+            return
+        lineage = (meta.get("membership") or {}).get("lineage") or []
+        if meta.get("kind") != "snapshot" or not lineage:
+            return
+        world = self.ctx.world
+        if len(lineage) == 1 and int(lineage[0][0]) == world:
+            return  # a one-world epoch: the standard skip is exact
+        epoch = int(meta.get("epoch", 0))
+        if int(lineage[-1][0]) == world:
+            # The last segment ran at this world: its tail is this
+            # launch's stream too, less what it already ran.
+            prior, skip = lineage[:-1], int(lineage[-1][1])
+        else:
+            prior, skip = lineage, 0
+        if self._set_elastic_tail(epoch, prior, skip=skip):
+            self.start_epoch, self.start_step = epoch, 0
+        else:
+            self.start_epoch, self.start_step = epoch + 1, 0
 
     def _take_snapshot(self, epoch: int, steps_done: int,
                        wait: bool = False) -> bool:
@@ -729,9 +902,8 @@ class Trainer:
         if self.ctx.backend is not None:
             res = self.cfg.resilience
             try:
-                retry_call(dist.barrier, retries=res.max_retries,
-                           base_delay=res.retry_base_delay_s,
-                           describe="preemption barrier")
+                fault_tolerant_barrier(retries=res.max_retries,
+                                       base_delay=res.retry_base_delay_s)
             except Exception:
                 # A half-dead group must not block the others' clean exit:
                 # the snapshot is already committed.
@@ -747,6 +919,13 @@ class Trainer:
         ``module.`` reaches the file)."""
         meta = {"epoch": epoch, "config": self.cfg.to_dict(),
                 "seed": self.cfg.train.seed}
+        if self.elastic is not None:
+            # Which membership epoch and world finished this dataset epoch
+            # (no lineage: an epoch checkpoint resumes at an epoch start).
+            rec = self.elastic.record
+            meta["membership"] = {"epoch": rec.epoch,
+                                  "world": self.ctx.world,
+                                  "members": list(rec.members)}
         try:
             self.ckpt_mgr.save(self.state, meta)
         except (RuntimeError, OSError) as e:
@@ -801,9 +980,9 @@ class Trainer:
 
     def _rollback_resume(self) -> dict:
         """Where a rollback resumes: the newest complete readable save
-        (``epoch``, ``steps_done``, ``global_step`` and ``snapshot_dir``,
-        the JAX package's keys), or a fresh start at step 0. The elastic
-        consumption lineage is item 9d's."""
+        (``epoch``, ``steps_done``, ``lineage``, ``global_step`` and
+        ``snapshot_dir``, the JAX package's keys), or a fresh start at
+        step 0."""
         for source, step in find_candidates(self.cfg.train.ckpt_dir,
                                             self.snapshot_dir):
             try:
@@ -815,13 +994,15 @@ class Trainer:
             if meta.get("kind") == "snapshot":
                 return {"epoch": int(meta.get("epoch", 0)),
                         "steps_done": int(meta.get("steps_done", 0)),
+                        "lineage": (meta.get("membership") or {}).get(
+                            "lineage") or [],
                         "global_step": int(meta.get("global_step",
                                                     max(step, 0))),
                         "snapshot_dir": str(source)}
             return {"epoch": int(meta.get("epoch", -1)) + 1,
-                    "steps_done": 0, "global_step": max(step, 0),
-                    "snapshot_dir": str(source)}
-        return {"epoch": 0, "steps_done": 0, "global_step": 0,
+                    "steps_done": 0, "lineage": [],
+                    "global_step": max(step, 0), "snapshot_dir": str(source)}
+        return {"epoch": 0, "steps_done": 0, "lineage": [], "global_step": 0,
                 "snapshot_dir": None}
 
     def _load_rollback_state(self, resume: dict) -> dict:
@@ -936,6 +1117,206 @@ class Trainer:
                    self._host_step, self._rollback_gen)
         return position
 
+    # -- elastic world size, the graceful shrink ---------------------------
+
+    def _leave_requested(self) -> bool:
+        """This rank was told to go: a SIGTERM or SIGINT (under elastic a
+        departure, not the whole job's exit), ``preempt:`` (a signal to
+        itself) or the ``leave:`` fault."""
+        return ((self.preempt is not None and self.preempt.requested)
+                or (self.fault is not None and self.fault.leave_requested))
+
+    def _elastic_boundary(self, epoch: int, done: int) -> None:
+        """The window boundary's elastic turn (`hooks.BoundaryHook`):
+        detect, converge, hand over. Detection is one rate-limited ledger
+        glob and the local leave flags. A triggered transition converges
+        without stalling: the rank refreshes its check-in at every
+        boundary and keeps stepping (a stopped member would wedge its
+        peers' collectives) until the plan's stop threshold, whose first
+        boundary is the same global position on every member. There rank
+        0 commits the final snapshot and control leaves `train_epoch`:
+        `PreemptedError` on the leaver, `_RegroupSignal` on a survivor."""
+        plan = self._quiesce_plan
+        if plan is None:
+            el = self.elastic
+            leaving = self._leave_requested()
+            if not el.quiescing:
+                trigger = el.poll(self._host_step, leave_requested=leaving)
+                if trigger is None:
+                    return
+                self._log0("elastic: regroup trigger %r at epoch %d step %d "
+                           "(global step %d)", trigger, epoch, done,
+                           self._host_step)
+                _flightrec.record("elastic_trigger", step=self._host_step,
+                                  trigger=str(trigger), leaving=leaving)
+            plan = el.quiesce_step(epoch, self._host_step, leaving=leaving,
+                                   flavor="graceful",
+                                   window=self.steps_per_call)
+            if plan is None:
+                return  # keep stepping; the next boundary converges again
+            if plan.flavor != "graceful":
+                from tpu_dp_torch.resilience.elastic import ElasticError
+
+                raise ElasticError(
+                    f"quiesce e{plan.epoch} agreed a {plan.flavor} regroup "
+                    f"(departed: {[d['sid'] for d in plan.departed]}): only "
+                    f"the graceful shrink is ported to tpu_dp_torch yet "
+                    f"(ROADMAP Queue 1 item 9d-ii)")
+            self._quiesce_plan = plan
+        if self._host_step >= plan.stop_step:
+            self._finish_quiesce(epoch, done, plan)
+
+    def _finish_quiesce(self, epoch: int, done: int, plan) -> None:
+        """The quiesce's end: the final snapshot at the agreed step (the
+        regroup's resume point: nothing replayed, nothing dropped), joined
+        before the ledger's barrier; then the hand-off."""
+        try:
+            committed = self._take_snapshot(epoch, done, wait=True)
+        except (RuntimeError, OSError):
+            committed = False
+            self._log0("elastic: final snapshot at step %d failed",
+                       self._host_step, exc_info=True)
+        if not committed:
+            self._log0("elastic: final snapshot at step %d did not commit",
+                       self._host_step)
+        self.elastic.ack_and_await_quiesced(plan)
+        self._quiesce_plan = None
+        if self.elastic.sid in plan.leavers:
+            self.elastic.confirm_left(done)
+            _counters.inc("elastic.departures")
+            _flightrec.record("elastic_departure", step=self._host_step,
+                              epoch=epoch, done=done, flavor=plan.flavor,
+                              membership_epoch=plan.epoch)
+            raise PreemptedError(
+                f"elastic departure at epoch {epoch}, step-in-epoch {done} "
+                f"(global step {self._host_step}); membership epoch "
+                f"{plan.epoch} forms with {len(plan.survivors)} "
+                f"survivor(s)")
+        raise _RegroupSignal(epoch, done, plan)
+
+    def _release_world(self) -> None:
+        """Drop what holds the old group before it goes: the windows' CUDA
+        graphs first (a graph replayed after its NCCL communicator is
+        destroyed faults on the card), the resident table, the re-split
+        tail and the heartbeat writer."""
+        if self.multi_step is not None:
+            self.multi_step.close()
+        self.multi_step = self.ddp = None
+        self._resident_train = None
+        self._elastic_tail = None
+        if self.heartbeat is not None:
+            self.heartbeat.close()
+
+    def _execute_regroup(self, sig: "_RegroupSignal") -> tuple[int, int]:
+        """Form the survivors' group and go on; returns the ``(epoch,
+        start_step)`` to continue from. The JAX package's sequence: the new
+        leader publishes the membership record (the resume point: the
+        final snapshot, and the epoch's lineage), everyone adopts it; the
+        old group is released and the new one formed at the record's
+        rendezvous with dense new ranks; the pipelines, model, DDP or the
+        sharded update, schedule and windows are rebuilt on it
+        (`_build_world`); every survivor reloads the agreed snapshot
+        through the resharding checkpoint path (the shared filesystem);
+        the interrupted epoch's rest is re-split over the survivors; the
+        telemetry is re-homed; a store barrier of the new epoch closes."""
+        from tpu_dp_torch.parallel.dist import membership_barrier
+        from tpu_dp_torch.resilience.elastic import ElasticError
+
+        t0 = time.perf_counter()
+        plan, cfg = sig.plan, self.cfg
+        snap_dir = Path(self.snapshot_dir) / f"step_{self._host_step:010d}"
+        resume = {"epoch": sig.epoch, "steps_done": sig.done,
+                  "lineage": [list(map(int, seg))
+                              for seg in self._epoch_lineage]
+                  + [[self.ctx.world, self._segment_steps(sig.done)]],
+                  "global_step": self._host_step,
+                  "snapshot_dir": str(snap_dir)}
+        if (self.elastic.sid == min(plan.survivors)
+                and not ckpt_lib.checkpoint_exists(snap_dir)):
+            raise ElasticError(
+                f"elastic: the final snapshot {snap_dir} is missing; resuming "
+                f"from an older save instead is the rollback regroup "
+                f"(ROADMAP Queue 1 item 9d-ii)")
+        record = self.elastic.establish(plan, resume)
+        resume = record.resume  # the leader's payload is canonical
+        old_world, old_rank = self.ctx.world, self.ctx.rank
+        self._release_world()
+        self.ctx = self.elastic.reinitialize(self.ctx.backend, self.device,
+                                             record)
+        self._build_world()
+        collect_released()  # the old world's objects, and its group
+        resume = self._load_rollback_state(dict(resume))
+        if resume.get("snapshot_dir") is None:
+            raise ElasticError(f"elastic: no readable save to resume the "
+                               f"regroup e{record.epoch} from")
+        self._host_step = int(resume.get("global_step", 0))
+        self._register_program_costs()
+        epoch = int(resume.get("epoch", 0))
+        lineage = resume.get("lineage") or []
+        if lineage:
+            has_tail = self._set_elastic_tail(epoch, lineage)
+            position = (epoch, 0) if has_tail else (epoch + 1, 0)
+        else:
+            self._epoch_lineage = []
+            position = (epoch, int(resume.get("steps_done", 0)))
+        self._rebuild_observers(record)
+        membership_barrier("regroup_ready", record.epoch,
+                           timeout_s=cfg.resilience.regroup_timeout_s)
+        dt = time.perf_counter() - t0
+        departed = [d.get("sid") for d in record.departed]
+        _counters.inc("elastic.regroups")
+        _counters.inc("elastic.lost_ranks", max(0, old_world - record.world))
+        _counters.inc("elastic.joined_ranks", 0)
+        _counters.inc("elastic.regroup_s", dt)
+        _flightrec.record("elastic_regroup", step=self._host_step,
+                          membership_epoch=record.epoch, flavor=plan.flavor,
+                          world=record.world, departed=departed, joined=[],
+                          regroup_s=round(dt, 3))
+        if self.spans is not None:
+            self.spans.record_window(self._host_step, 1,
+                                     {"elastic_regroup": dt * 1e3},
+                                     gen=self._rollback_gen)
+        tail_base = self._elastic_tail.base if self._elastic_tail else 0
+        self._log_metrics({
+            "event": "elastic_regroup", "membership_epoch": record.epoch,
+            "flavor": plan.flavor, "world": record.world,
+            "departed": departed, "joined": [],
+            "resume_epoch": position[0],
+            "resume_step": position[1] or tail_base,
+            "regroup_s": round(dt, 3)})
+        self._log0("elastic: membership epoch %d live — world %d→%d (rank "
+                   "%d→%d), %s resume at epoch %d step %d, regroup took "
+                   "%.2fs", record.epoch, old_world, record.world, old_rank,
+                   self.ctx.rank, plan.flavor, position[0],
+                   tail_base or position[1], dt)
+        return position
+
+    def _rebuild_observers(self, record) -> None:
+        """Re-home the heartbeats and rank 0's health monitor for a new
+        membership epoch (``<obs dir>/me<E>``: a reassigned dense rank
+        must not append to another rank's stream); a demoted rank 0 closes
+        its metrics sink (the new rank 0 appends to the same file)."""
+        from tpu_dp_torch.obs.health import HealthMonitor, HeartbeatWriter
+
+        if self._metrics_file is not None and not self.ctx.is_main_process:
+            self._metrics_file.close()
+        if self.obs_mode == "off":
+            return
+        cfg = self.cfg.obs
+        run_dir = self.obs_dir / f"me{record.epoch:04d}"
+        self.heartbeat = self.health = None
+        if cfg.heartbeat_every_steps > 0:
+            self.heartbeat = HeartbeatWriter(
+                run_dir, rank=self.ctx.rank,
+                every_steps=cfg.heartbeat_every_steps, me=record.epoch)
+            if self.ctx.is_main_process:
+                self.health = HealthMonitor(
+                    run_dir, world=self.ctx.world,
+                    straggler_factor=cfg.straggler_factor,
+                    stale_after_s=cfg.stale_after_s,
+                    min_step_ms=cfg.min_step_ms, on_flag=cfg.on_straggler,
+                    logger=lambda msg: log.warning("health: %s", msg))
+
     # -- telemetry sinks ---------------------------------------------------
 
     @property
@@ -959,6 +1340,9 @@ class Trainer:
                "schema": 3}
         if self._rollback_gen:
             rec["rollback_generation"] = self._rollback_gen
+        if self.elastic is not None:
+            # A stream that spans a shrink explains its own discontinuity.
+            rec["membership_epoch"] = self.elastic.record.epoch
         rec.update(record)
         if self._metrics_file is None or self._metrics_file.closed:
             path = self.metrics_path
@@ -1053,15 +1437,25 @@ class Trainer:
         update, as K single steps would be."""
         cfg = self.cfg
         every = cfg.train.log_every
-        self.train_pipe.set_epoch(epoch)
+        # After a mid-epoch regroup (or a resume into one) the interrupted
+        # epoch's remaining samples come from the re-split tail's pipeline;
+        # the step count `i` stays epoch-cumulative across the world
+        # change (snapshot meta, the quiesce protocol, the log lines).
+        tail = self._elastic_tail
+        if tail is not None and tail.epoch != epoch:
+            tail = None
+        pipe = self.train_pipe if tail is None else tail.pipe
+        base = 0 if tail is None else tail.base
+        if tail is not None:
+            start_step = tail.skip
+        pipe.set_epoch(epoch)
         # Device losses not yet logged (1-D pieces; the first `logged`
         # values of their concatenation are), and updates since the log.
         pending, logged, run_steps = [], 0, 0
         losses, correct, count, quant_counts = [], None, 0, None
-        i = start_step
+        i = base + start_step
         table = self.resident_train
-        feed = (self.train_pipe.windows if table is None
-                else self.train_pipe.index_windows)
+        feed = pipe.windows if table is None else pipe.index_windows
         # Telemetry (train.obs != off): host stamps bracket each window,
         # t0 -> t1 data_wait (the feed, the pre-dispatch hooks), t1 -> t3
         # dispatch, and at full t3 -> t4 device (the window's one fence)
@@ -1137,16 +1531,16 @@ class Trainer:
                     self._check_health()
                     self._write_prom()
             # The hook sweep, once per dispatched window (`_build_hooks`'
-            # order); a hook may raise `PreemptedError`, `_GuardRollback`
-            # or `DivergedError`.
+            # order); a hook may raise `PreemptedError`, `_RegroupSignal`,
+            # `_GuardRollback` or `DivergedError`.
             self._host_step += n
             ev = hooks_lib.StepEvent(epoch=epoch, done=i, n=n, window=(m,))
             try:
                 for hook in self._hooks:
                     hook.on_step_end(ev)
-            except _GuardRollback:
-                # The epoch's losses so far: the rollback keeps those of
-                # the updates before its target.
+            except (_GuardRollback, _RegroupSignal):
+                # The epoch's losses so far: a rollback keeps those of the
+                # updates before its target, a regroup all of them.
                 self.step_losses.extend(torch.cat(losses).double().tolist())
                 raise
         if not losses:
@@ -1171,10 +1565,10 @@ class Trainer:
         self.step_losses.extend(epoch_losses)
         stats = {"loss": sum(epoch_losses) / len(epoch_losses),
                  "accuracy": int(correct) / count}
-        if start_step:
-            # A resumed epoch's stats cover only its tail after the resume
+        if start_step or base:
+            # A resumed (or regrouped) epoch's stats cover only its tail
             # (the JAX package's label).
-            stats["resumed_at_step"] = start_step
+            stats["resumed_at_step"] = base + start_step
         if quant_counts is not None:
             stats.update(quant_overflow=overflow, quant_clip=clip)
         self.meter.mark()
@@ -1364,6 +1758,11 @@ class Trainer:
         while epoch < cfg.train.epochs:
             try:
                 stats = self.train_epoch(epoch, start_step)
+            except _RegroupSignal as sig:
+                # A survivor of a completed quiesce: shrink the group and
+                # go on from the agreed position.
+                epoch, start_step = self._execute_regroup(sig)
+                continue
             except _GuardRollback as sig:
                 # The policy condemned the trajectory: rewind to the newest
                 # trusted save and replay (DivergedError past the budget).
@@ -1399,7 +1798,12 @@ class Trainer:
             # the log boundary never came.
             self._check_health()
             # A signal that lands between epochs (or during eval) still
-            # gets the snapshot-and-exit-143 contract.
-            if self.preempt is not None and self.preempt.requested:
+            # gets the snapshot-and-exit-143 contract; under elastic the
+            # next epoch's first boundary runs the departure instead.
+            if (self.elastic is None and self.preempt is not None
+                    and self.preempt.requested):
                 self._preempt_exit(epoch + 1, 0)
+            # The epoch is consumed: its re-split tail and lineage are done.
+            self._elastic_tail = None
+            self._epoch_lineage = []
             epoch, start_step = epoch + 1, 0
