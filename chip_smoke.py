@@ -136,8 +136,9 @@ Phases, in order; any failure exits non-zero before the last line:
    loss falls), and phase 5's serve on the random-weight ResNet-50; (c)
    ``resnet50_windows``: phase 9's (a) and (c) with augmentation off, 40
    eager updates against windows of 10 bit-identical, losses falling,
-   books per replay by kernel name, ms per update both ways, host ms per
-   window, the capture's ms and bytes, and auto windows of 24; (d)
+   books per replay by kernel name, ms per update both ways (over fewer
+   turns than phase 9, `R50_WINDOW_TURNS`), host ms per window, the
+   capture's ms and bytes, and auto windows of 24; (d)
    ``resnet50_ddp``: phase 7b's run, 5 steps with augmentation off, within
    0.05 of one process, with its books;
 11. ``sharded``: the sharded weight update (``--train.update_sharding=
@@ -159,8 +160,10 @@ Phases, in order; any failure exits non-zero before the last line:
    at 25 MB, bit-identical to the uninterrupted one (residuals included);
    (d) ResNet-50 int8 at 25 MB, 10 updates: books and finite losses.
    (b) reuses (a)'s 30 eager updates per wire as its eager half and runs
-   the windowed half at 30 updates; its replicated windows are phase 9a's
-   record when phase 9 ran in the same call.
+   the windowed half at 30 updates, timing each wire over fewer turns
+   than phase 9 (`SHARDED_B_TURNS`); its replicated windows are phase
+   9a's record when phase 9 ran in the same call. ``seconds`` records
+   each part's time, and (b)'s per wire its fits, books and timing.
    Phase 7a also runs the sharded update (f32 and int8) on its two gloo
    ranks, and prints ``not run`` with gloo's error if gloo refuses a
    collective on CUDA tensors; phase 7c adds sharded f32 and int8 at
@@ -247,7 +250,7 @@ Phases, in order; any failure exits non-zero before the last line:
    trace holding the conv and xent kernels of the two windows in range
    and no other's, with the flight recorder's ``profile_start`` and
    ``profile_stop``; an epoch's ms per update at each mode, in turns;
-17. ``elastic``: the graceful elastic shrink (``--resilience.elastic=true
+17. ``elastic``: the elastic shrink (``--resilience.elastic=true
    --resilience.elastic_verify_fingerprint=false``) on the main path (the
    preset with the kernel knobs, the default resident feed, augmentation
    on, f32, B=128 a rank): (a) three gloo ranks on ``cuda:0``
@@ -269,6 +272,38 @@ Phases, in order; any failure exits non-zero before the last line:
    10 as CUDA graphs released before the old group goes and recaptured on
    the new one, the interrupted epoch alone (20,480 images), the same
    checks; else ``elastic_nccl_multi_card: not run, 1 card visible``;
+   the rollback flavour (``--resilience.regroup_timeout_s=15``, the
+   collection window; snapshots every 2 updates): (c) (a)'s ranks with
+   ``kill:step=5,rank=2`` (``os._exit(137)``): rank 2 exits 137 and ranks
+   0 and 1 exit 0; the plan rollback with rank 2 departed ("no quiesce
+   check-in (timeout)"), no leaver and survivors [0, 1], no live rank
+   departed; record 1 ``reason`` "rollback" at world 2; its resume the
+   newest complete save at or before the kill (as the saves stood at the
+   failure), lineage ``[[3, 4]]``; the samples consumed, counted from the
+   resume point (the killed rank's from its own log of placements), equal
+   the record's; survivors bit-identical; losses within ``DDP_LOSS_TOL``
+   of the oracle through 20 updates after the regroup; books exact at the
+   last boundary before the failure and at world 2 with the replay and
+   the eval, the failed update's launches a prefix of one update; one
+   regroup; rank 2's exit to each survivor's first update at world 2 on
+   the wall clock, split into detection, the collection window, the
+   barrier, re-form, rebuild, reload and replay, and the ms per update
+   at world 3 and 2; (d) phase 15 (e)'s three gloo ranks of ``Net`` on
+   the card, elastic, ``--train.pallas_xent=true``, the guard with the
+   audit every 2 steps and ``sdc:step=3,rank=2``: rank 2 exits 143 with
+   ``guard_evict`` in its flight recorder, record 1 "rollback" with a
+   departure reason naming the SDC audit, its resume at or before step
+   3, the quarantine log naming rank 2, the survivors bit-identical at
+   world 2 after both epochs, the xent books exact; (e) with two or more
+   cards (b)'s NCCL pair with ``kill:step=30,rank=1``: the survivor's
+   window fence finds the wedged replay within its deadline (a third of
+   the window), aborts the communicators, releases the graph, re-forms at
+   world 1, recaptures its window and resumes from the newest complete
+   snapshot, (c)'s checks; else ``elastic_rollback_nccl_multi_card: not
+   run, 1 card visible``. Every rank process ends within
+   ``ELASTIC_RANK_DEADLINE_S`` or the phase kills them all and fails
+   naming the rank. (a) and (d) run beside (c): their ranks start once
+   (c)'s rank 2 has exited, while (c)'s survivors wait out the window;
 18. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 Phases 1-11 keep the streamed feed (``--data.device_resident=off``), so
@@ -479,6 +514,34 @@ ELASTIC_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
                 "--resilience.elastic_coordinator_host=127.0.0.1",
                 "--resilience.regroup_timeout_s=120",
                 "--resilience.handle_signals=false"]
+#: phase 17's rollback runs: (c) (a)'s three gloo ranks, rank 2 killed
+#: (``os._exit(137)``) at its step-5 boundary, snapshots every 2 updates
+#: (the newest complete one is step 4's), a 15 s collection window; (e)
+#: (b)'s NCCL pair, rank 1 killed at the step-30 boundary (the third
+#: window of 10), the survivor's window fence at a third of the window.
+ELASTIC_KILL_K, ELASTIC_SNAP_EVERY, ELASTIC_WINDOW_S = 5, 2, 15
+ELASTIC_NCCL_KILL_K = 30
+#: every rank process of phase 17 ends within this, or the phase kills
+#: the ranks it started and fails naming the one it waited for.
+ELASTIC_RANK_DEADLINE_S = 480
+#: (d): phase 15 (e)'s three gloo ranks of the reference Net on the card,
+#: elastic, one update a call, 144 images (12 updates an epoch at world 3:
+#: the audit at step 4 finds the flip, and the eviction's stop step, 7 to
+#: 9 as the check-ins land, falls inside epoch 1), two epochs.
+ELASTIC_SDC_ARGS = ["--data.dataset=synthetic",
+                    "--data.synthetic_train_size=144",
+                    "--data.synthetic_test_size=8", "--data.batch_size=4",
+                    "--train.epochs=2", "--train.log_every=100",
+                    "--train.steps_per_call=1", "--train.pallas_xent=true",
+                    "--guard.enabled=true", "--guard.action=skip",
+                    "--guard.sdc_every_steps=2", "--guard.spike_min_steps=64",
+                    "--resilience.snapshot_every_steps=1",
+                    "--resilience.elastic=true",
+                    "--resilience.elastic_verify_fingerprint=false",
+                    "--resilience.elastic_coordinator_host=127.0.0.1",
+                    f"--resilience.regroup_timeout_s={ELASTIC_WINDOW_S}",
+                    "--resilience.handle_signals=false",
+                    "--resilience.fault=sdc:step=3,rank=2"]
 GUARD_SDC_WORLD = 3
 GUARD_SDC_ARGS = ["--data.dataset=synthetic",
                   "--data.synthetic_train_size=48",
@@ -2588,7 +2651,23 @@ def _win_args(updates, batch=TRAIN_B, k=1, extra=()):
             *extra]
 
 
-def _windows_vs_eager(out, args, k, updates, convs, where, eager=None):
+#: the timed turns of `_windows_vs_eager`: profiled eager updates, CUDA-
+#: event reps of the eager update and of the window, host-timed windows,
+#: metered eager updates and windows. Phase 11 (b) times each of its four
+#: wires with fewer (its checks and books unchanged), and takes the eager
+#: update's profile and ms from (a)'s run of the same trainer.
+WINDOW_TURNS = {"eager_prof": 5, "eager_reps": 10, "win_reps": 4,
+                "host": 4, "meter_eager": 12, "meter_win": 5}
+SHARDED_B_TURNS = {"eager_prof": 0, "eager_reps": 0, "win_reps": 2,
+                   "host": 2, "meter_eager": 3, "meter_win": 3}
+#: phase 10 (c)'s turns: a ResNet-50 window is 10 updates of ~77 ms, so
+#: fewer turns keep its timing to seconds (its checks and books unchanged).
+R50_WINDOW_TURNS = {"eager_prof": 2, "eager_reps": 4, "win_reps": 2,
+                    "host": 2, "meter_eager": 4, "meter_win": 3}
+
+
+def _windows_vs_eager(out, args, k, updates, convs, where, eager=None,
+                      turns=WINDOW_TURNS, eager_timing=None):
     """Phase 9's (a) and (c) for one model, cuDNN deterministic set by the
     caller: ``updates`` eager updates against windows of ``k`` from the
     same init (``args(n, k)``: the CLI arguments of ``n`` updates in
@@ -2602,14 +2681,18 @@ def _windows_vs_eager(out, args, k, updates, convs, where, eager=None):
     the profiler; then speed in the same call: eager step ms against
     windowed ms per update (CUDA events over whole windows), images/s by
     the fenced meter, device busy share and ops per update, host ms per
-    window, the capture's ms and the bytes it holds, peak memory. Returns
-    ``(checks, rec)``."""
+    window, the capture's ms and the bytes it holds, peak memory, each
+    timed over ``turns`` (`WINDOW_TURNS`; ``eager_timing``, ``{"step_ms",
+    "profile"}``: the eager update's, already measured by the caller);
+    ``rec["seconds"]`` splits the call's own time into the fits, the
+    by-name books and the timing. Returns ``(checks, rec)``."""
     import torch
 
     from tpu_dp_torch.config import parse_cli
     from tpu_dp_torch.train.trainer import Trainer
     from tpu_dp_torch.utils.meter import ThroughputMeter
 
+    t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     peak0 = torch.cuda.max_memory_allocated()
     win = Trainer(parse_cli(args(updates, k) + [
@@ -2650,19 +2733,27 @@ def _windows_vs_eager(out, args, k, updates, convs, where, eager=None):
     # Books per replay by kernel name, and speed, same models.
     _, pool = _first_window(win.train_pipe, k)
     batch = next(iter(eager.train_pipe))
+    t_books = time.perf_counter()
     ok, sessions = _profiled_books(
         lambda: win.multi_step(win.state, pool),
         {"conv_block_kernel": 2 * convs * k, "xent_fwd": k, "xent_bwd": k})
     checks["profiled_books_per_replay"] = ok
-    eager_prof = profile_forward(
-        lambda: eager.train_step(eager.state, batch), 5, cuda_only=True)
+    t_timing = time.perf_counter()
+    if eager_timing is None:
+        eager_prof = profile_forward(
+            lambda: eager.train_step(eager.state, batch),
+            turns["eager_prof"], cuda_only=True)
+        eager_ms = cuda_median_ms(
+            lambda: eager.train_step(eager.state, batch),
+            reps=turns["eager_reps"])
+    else:
+        eager_prof, eager_ms = (eager_timing["profile"],
+                                eager_timing["step_ms"])
     win_prof = sessions[-1]
-    eager_ms = cuda_median_ms(
-        lambda: eager.train_step(eager.state, batch), reps=10)
     win_ms = cuda_median_ms(lambda: win.multi_step(win.state, pool),
-                            reps=4, warm=1) / k
+                            reps=turns["win_reps"], warm=1) / k
     host = []
-    for _ in range(4):
+    for _ in range(turns["host"]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         win.multi_step(win.state, pool)
@@ -2670,10 +2761,10 @@ def _windows_vs_eager(out, args, k, updates, convs, where, eager=None):
     torch.cuda.synchronize()
     meters = {}
     for name, fn, n, imgs in (
-            ("eager", lambda: eager.train_step(eager.state, batch), 12,
-             TRAIN_B),
-            ("windowed", lambda: win.multi_step(win.state, pool), 5,
-             k * TRAIN_B)):
+            ("eager", lambda: eager.train_step(eager.state, batch),
+             turns["meter_eager"], TRAIN_B),
+            ("windowed", lambda: win.multi_step(win.state, pool),
+             turns["meter_win"], k * TRAIN_B)):
         meter = ThroughputMeter(warmup_steps=2, device="cuda")
         for _ in range(n):
             fn()
@@ -2699,6 +2790,10 @@ def _windows_vs_eager(out, args, k, updates, convs, where, eager=None):
         "max_memory_allocated_before_fit": peak0,
         "max_memory_allocated_after_windowed_fit": peak_w,
         "profiled_sessions": sessions,
+        "turns": dict(turns),
+        "seconds": {"fits": t_books - t_start,
+                    "books_by_name": t_timing - t_books,
+                    "timing": time.perf_counter() - t_timing},
     })
     ms.close()
     return checks, rec
@@ -3348,7 +3443,7 @@ def phase_resnet50_windows(out):
     try:
         checks, rec = _windows_vs_eager(
             out, lambda n, kk: _r50_args(tmp.name, n, kk, noaug), k,
-            updates, 13, tmp.name)
+            updates, 13, tmp.name, turns=R50_WINDOW_TURNS)
         rec.update({"card": out["card"], "k": k})
         # Auto windows: min(24, steps per epoch) = 24 over 48 updates.
         torch.cuda.reset_peak_memory_stats()
@@ -3433,7 +3528,9 @@ def _same_values(a: dict, b: dict) -> bool:
 def _sharded_fit(args, where, snapshot_at=6):
     """A `Trainer` on ``args`` run to the end with its books
     (`_fit_books`); its parameters just before update ``snapshot_at``,
-    its state, one update's books by kernel name and step ms after."""
+    its state at the fit's end (before the by-name sessions, whose count
+    of updates varies), one update's books by kernel name and step ms
+    after."""
     import torch
 
     from tpu_dp_torch.config import parse_cli
@@ -3466,8 +3563,7 @@ def _sharded_fit(args, where, snapshot_at=6):
         {"conv_block_kernel": 20, "xent_fwd": 1, "xent_bwd": 1})
     profiled_s = time.perf_counter() - began
     rec = {"t": t, "res": res, "ran": ran, "params6": snap,
-           "fit_state": fit_state, "state": _flat_state(t),
-           "profiled_ok": ok,
+           "fit_state": fit_state, "profiled_ok": ok,
            "profiled": sessions[-1], "peak_memory_bytes": peak,
            "step_ms": cuda_median_ms(lambda: real(t.state, batch), reps=10),
            "seconds": {"fit": fit_s, "profiled": profiled_s,
@@ -3541,7 +3637,7 @@ def phase_sharded(out):
                 if not wire:
                     c["bit_identical_to_replicated"] = (
                         losses == rep["t"].step_losses
-                        and _same_values(r["state"], rep["state"]))
+                        and _same_values(r["fit_state"], rep["fit_state"]))
                 else:
                     ref = f32[mb]["params6"]
                     diff = max(float((r["params6"][n] - ref[n]).abs().max())
@@ -3605,7 +3701,15 @@ def phase_sharded(out):
                 w_checks, w_rec = _windows_vs_eager(
                     out, lambda n, kk, e=extra: _win_args(n, k=kk, extra=e),
                     k, TRAIN_STEPS, 10, os.path.join(tmp.name, f"b_{name}"),
-                    eager=(r["t"], r["res"], r["ran"], r["fit_state"]))
+                    eager=(r["t"], r["res"], r["ran"], r["fit_state"]),
+                    turns=SHARDED_B_TURNS, eager_timing={
+                        "step_ms": r["step_ms"], "profile": {
+                            "device_busy_share":
+                                r["profiled"]["device_busy_share"],
+                            "kernel_launches_per_call":
+                                r["profiled"]["device_ops_per_call"],
+                            "device_busy_us_per_call":
+                                r["profiled"]["device_busy_us_per_call"]}})
                 del r
                 checks.update({f"b_{name}_{n}": v
                                for n, v in w_checks.items()})
@@ -3615,7 +3719,7 @@ def phase_sharded(out):
                     {n: w_rec[n] for n in ("eager_step_ms",
                                            "windowed_ms_per_update",
                                            "images_per_s_meter",
-                                           "capture_bytes")}))
+                                           "capture_bytes", "seconds")}))
             del runs
             lap("b")
             # (c) phase 8's interrupted and resumed run under int8 at 25 MB.
@@ -5414,6 +5518,12 @@ def elastic_worker(spec_path: str) -> int:
     (after its departure), 0 as a survivor."""
     import hashlib
 
+    import faulthandler
+    import signal
+
+    entered = time.time()
+    # The phase's deadline asks a stuck rank for its stacks (`_await_ranks`).
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     sys.path.insert(0, HERE)
     import torch
 
@@ -5425,19 +5535,28 @@ def elastic_worker(spec_path: str) -> int:
     from tpu_dp_torch.train.hooks import StepHook
     from tpu_dp_torch.train.trainer import Trainer
 
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    rollback = spec.get("rollback", False)
+
     class Boundaries(StepHook):
-        """The host clock and world at every window boundary."""
+        """The host clock (and the wall clock) and world at every window
+        boundary; in a rollback run also the books there (the last
+        boundary before a failure closes the world's whole updates)."""
 
         def __init__(self, trainer):
             super().__init__(trainer)
             self.marks = []
+            self.books = None
 
         def on_step_end(self, ev):
             self.marks.append((time.perf_counter(), self.tr._host_step,
-                               self.tr.ctx.world))
+                               self.tr.ctx.world, time.time()))
+            if rollback:
+                if self.tr._peer_fence is not None:
+                    self.tr._peer_fence.drain()  # bounded, before the sync
+                self.books = (self.tr._host_step, dict(_ran_books(self.tr)))
 
-    with open(spec_path, encoding="utf-8") as f:
-        spec = json.load(f)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = None
@@ -5446,30 +5565,91 @@ def elastic_worker(spec_path: str) -> int:
         initialize(backend="gloo", init_method=spec["init"],
                    world_size=spec["world"], rank=spec["rank"],
                    device=device, timeout_s=300)
-    taken = []
+    taken, taken_mark = [], []
     place = DataPipeline._place_indices
 
     def recorded(self, take, n):
         taken.append([int(self.sampler.epoch), take.tolist()])
+        if rollback:
+            # A rank that is killed leaves no record: its placements go to
+            # a file as they happen.
+            with open(spec["out"] + ".taken", "a", encoding="utf-8") as f:
+                f.write(json.dumps(taken[-1]) + "\n")
         return place(self, take, n)
 
     DataPipeline._place_indices = recorded
-    rec = {"rank": spec["rank"], "preempted": None, "books": {}}
+    rec = {"rank": spec["rank"], "preempted": None, "books": {},
+           "wall": {"started": spec["started"], "entered": entered,
+                    "imported": time.time()}}
+    wall = rec["wall"]
+
+    def stamped(name, fn):
+        # The wall clock (comparable across the ranks) at entry and exit.
+        def call(*a, **kw):
+            wall.setdefault(name + "_start", time.time())
+            try:
+                return fn(*a, **kw)
+            finally:
+                wall.setdefault(name + "_end", time.time())
+        return call
+
+    if rollback:
+        from tpu_dp_torch.resilience.faultinject import FaultInjector
+
+        fire = FaultInjector._fire
+
+        def fire_stamped(self, plan, global_step):
+            if plan.kind == "kill":
+                # The victim's exit, on the wall clock, before os._exit.
+                with open(spec["out"] + ".exit", "w", encoding="utf-8") as f:
+                    json.dump({"t": time.time(), "step": global_step}, f)
+            return fire(self, plan, global_step)
+
+        FaultInjector._fire = fire_stamped
     t = None
     try:
         _reset_books()
+        wall["trainer_start"] = time.time()
         t = Trainer(parse_cli(spec["args"]), device=device)
+        wall["trainer_built"] = time.time()
         clock = Boundaries(t)
         t._hooks.insert(-1, clock)
         regroup = t._execute_regroup
 
         def books_then_regroup(sig):
-            rec["books"]["before"] = _ran_books(t)
-            rec["updates_before"] = t._host_step
+            taken_mark.append(len(taken))
+            if rollback:
+                # The saves complete at the failure (the writes in flight
+                # joined, as the regroup does first): the newest one at or
+                # before the kill is the resume the record must name.
+                from tpu_dp_torch.resilience import find_candidates
+
+                t._join_writes()
+                rec["candidates"] = [
+                    [str(d), int(st)] for d, st in find_candidates(
+                        t.cfg.train.ckpt_dir, t.snapshot_dir)]
+                # The books at the last boundary (whole updates), and what
+                # the failed update launched after it.
+                step, booked = clock.books
+                now = _ran_books(t)
+                rec["books"]["before"] = booked
+                rec["books"]["partial"] = {k: now[k] - booked.get(k, 0)
+                                           for k in now}
+                rec["updates_before"] = step
+                rec["failed_at_step"] = t._host_step
+            else:
+                rec["books"]["before"] = _ran_books(t)
+                rec["updates_before"] = t._host_step
             _reset_books()
             return regroup(sig)
 
-        t._execute_regroup = books_then_regroup
+        t._execute_regroup = stamped("regroup", books_then_regroup)
+        if rollback:
+            t._elastic_rollback = stamped("caught", t._elastic_rollback)
+            t._load_rollback_state = stamped("reload", t._load_rollback_state)
+            el = t.elastic
+            el.quiesce_blocking = stamped("collect", el.quiesce_blocking)
+            el.reinitialize = stamped("reform", el.reinitialize)
         t0 = time.perf_counter()
         try:
             result = t.fit()
@@ -5480,6 +5660,7 @@ def elastic_worker(spec_path: str) -> int:
             rec["books"]["before"] = _ran_books(t)
             rec["updates_before"] = t._host_step
         rec["fit_s"] = time.perf_counter() - t0
+        wall["fit_end"] = time.time()
         h = hashlib.sha256()
         for x in t._replica_tensors():
             h.update(x.detach().cpu().reshape(-1).view(torch.uint8)
@@ -5492,19 +5673,21 @@ def elastic_worker(spec_path: str) -> int:
             test_batches=len(t.test_pipe), marks=clock.marks,
             captured=getattr(t.multi_step, "captured", None) is not None,
             counters={k: v for k, v in counters.snapshot().items()
-                      if k.startswith("elastic.")}, taken=taken)
+                      if k.startswith(("elastic.", "guard."))}, taken=taken,
+            taken_before=taken_mark[0] if taken_mark else len(taken))
     finally:
         if t is not None and t.multi_step is not None:
             t.multi_step.close()
         t = None
         shutdown()
+    wall["shut_down"] = time.time()
     with open(spec["out"], "w", encoding="utf-8") as f:
         json.dump(rec, f)
     return PreemptedError.exit_code if rec["preempted"] else 0
 
 
 def _start_elastic_ranks(work: str, backend: str, world: int,
-                         args: list) -> list:
+                         args: list, rollback: bool = False) -> list:
     """`elastic_worker` ranks, started: gloo ranks on cuda:0 meeting
     through a ``file://`` rendezvous in ``work``, or NCCL ranks on cards
     0..world-1 through the env contract at a free loopback port."""
@@ -5518,7 +5701,8 @@ def _start_elastic_ranks(work: str, backend: str, world: int,
         spec = {"rank": rank, "world": world, "backend": backend,
                 "init": "file://" + os.path.join(work, "rendezvous"),
                 "args": args + [f"--train.ckpt_dir={work}/ck"],
-                "out": os.path.join(work, f"rank{rank}.json")}
+                "out": os.path.join(work, f"rank{rank}.json"),
+                "rollback": rollback, "started": time.time()}
         path = os.path.join(work, f"spec{rank}.json")
         with open(path, "w", encoding="utf-8") as f:
             json.dump(spec, f)
@@ -5606,29 +5790,31 @@ def _elastic_oracle(args, record: dict, world0: int, epochs: int):
     return torch.stack(losses).tolist(), consumed
 
 
-def _elastic_run(out, key: str, backend: str, world: int, victim: int,
-                 args: list) -> dict:
-    """One shrink of phase 17 and its checks (module docstring)."""
+def _start_elastic(key: str, backend: str, world: int, args: list,
+                   rollback: bool = False) -> dict:
+    """One run's `elastic_worker` ranks, started, with the run's deadline
+    (`ELASTIC_RANK_DEADLINE_S`)."""
     work = os.path.join(HERE, "build", "elastic_smoke",
                         f"{os.getpid()}-{key}")
-    t0 = time.perf_counter()
-    procs = _start_elastic_ranks(work, backend, world, args)
-    logs = []
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-    ranks_s = time.perf_counter() - t0
+    return {"key": key, "work": work, "t0": time.perf_counter(),
+            "deadline": time.monotonic() + ELASTIC_RANK_DEADLINE_S,
+            "procs": _start_elastic_ranks(work, backend, world, args,
+                                          rollback=rollback)}
+
+
+def _await_started(started: dict) -> list[str]:
+    return _await_ranks(started["procs"], started["key"], max(
+        1.0, started["deadline"] - time.monotonic()))
+
+
+def _elastic_run(out, started: dict, backend: str, world: int,
+                 victim: int, args: list) -> dict:
+    """One graceful shrink of phase 17, its ranks started (`_start_elastic`
+    on ``args``), and its checks (module docstring)."""
+    key, work, procs = started["key"], started["work"], started["procs"]
+    logs = _await_started(started)
+    ranks_s = time.perf_counter() - started["t0"]
     rcs = [p.returncode for p in procs]
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    for rank, log in enumerate(logs):
-        with open(os.path.join(HERE, "chiprun_out",
-                               f"elastic_{key}_rank{rank}.log"), "w",
-                  encoding="utf-8") as f:
-            f.write(log)
     want_rc = [143 if r == victim else 0 for r in range(world)]
     if rcs != want_rc:
         for rank, log in enumerate(logs):
@@ -5662,10 +5848,7 @@ def _elastic_run(out, key: str, backend: str, world: int, victim: int,
                          x["host_step"] - x["updates_before"],
                          x["test_batches"]))
         books_ok[r] = x["updates_before"] == stop and all(
-            got["conv.stats"] == 10 * u and got["conv.input_grad"] == 10 * u
-            and got["xent.forward"] == u and got["xent.backward"] == u
-            and got["augment"] == u and got["conv.eval"] == 10 * ev
-            for got, u, ev in segs)
+            _books_exact(got, u, ev) for got, u, ev in segs)
     epochs = int([a for a in args if a.startswith("--train.epochs=")][-1]
                  .split("=")[1])
     oracle, consumed = _elastic_oracle(
@@ -5692,7 +5875,7 @@ def _elastic_run(out, key: str, backend: str, world: int, victim: int,
         # world left out): the update's time where each update waits on
         # the group (gloo's collectives on CUDA tensors, (a)); under
         # captured windows, (b), the host's dispatch rate.
-        m = [(t, s) for t, s, ww in x["marks"] if ww == w]
+        m = [(t, s) for t, s, ww, *_ in x["marks"] if ww == w]
         per = [1e3 * (t1 - t0_) / (s1 - s0) for (t0_, s0), (t1, s1)
                in zip(m[1:], m[2:]) if s1 > s0]
         return statistics.median(per) if per else None
@@ -5739,6 +5922,7 @@ def _elastic_run(out, key: str, backend: str, world: int, victim: int,
                              f"world_{world - 1}": rates(a, world - 1)},
            "books": {r: x["books"] for r, x in res.items()},
            "fit_s": {r: x["fit_s"] for r, x in res.items()},
+           "rank_s": {r: _rank_seconds(x) for r, x in res.items()},
            "ranks_s": ranks_s, "captured": a.get("captured")}
     out["elastic"][key] = rec
     print(f"[{key}] " + json.dumps({k: v for k, v in rec.items()
@@ -5754,32 +5938,442 @@ def _elastic_run(out, key: str, backend: str, world: int, victim: int,
     return rec
 
 
+def _await_ranks(procs, key: str, deadline_s: float | None = None
+                 ) -> list[str]:
+    """Every rank's log, each rank within ``deadline_s`` of the call; past
+    it every rank still running dumps its threads' stacks (SIGUSR1, the
+    worker's `faulthandler`), is killed, and the phase fails naming the
+    rank it waited for. The logs go to ``chiprun_out/<key>_rank<r>.log``
+    either way."""
+    import signal
+
+    if deadline_s is None:
+        deadline_s = ELASTIC_RANK_DEADLINE_S
+    deadline = time.monotonic() + deadline_s
+    logs, late = [], None
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                late = rank
+                break
+    finally:
+        running = [p for p in procs if p.poll() is None]
+        for p in running:
+            p.send_signal(signal.SIGUSR1)
+        if running:
+            time.sleep(3)
+        for p in running:
+            p.kill()
+        for p in procs[len(logs):]:
+            logs.append(p.communicate(timeout=30)[0])
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    for rank, log in enumerate(logs):
+        with open(os.path.join(HERE, "chiprun_out",
+                               f"elastic_{key}_rank{rank}.log"), "w",
+                  encoding="utf-8") as f:
+            f.write(log)
+    if late is not None:
+        print(f"[{key}] rank {late}, its log's end:\n{logs[late][-6000:]}")
+        raise AssertionError(f"{key}: rank {late} did not finish within "
+                             f"{deadline_s:g} s; every rank killed")
+    return logs
+
+
+def _rank_seconds(x: dict) -> dict:
+    """Where a rank process's wall time went, from its stamps: start-up
+    (the interpreter and imports), the `Trainer` built, the fit, the
+    teardown (its group shut down)."""
+    w = x["wall"]
+    return {"start_up": w["imported"] - w["started"],
+            "trainer": w["trainer_built"] - w["trainer_start"],
+            "fit": w["fit_end"] - w["trainer_built"],
+            "teardown": w["shut_down"] - w["fit_end"]}
+
+
+def _books_exact(got: dict, updates: int, evals: int, convs: int = 10,
+                 draws: int = 1) -> bool:
+    """``got`` is the books of ``updates`` whole updates and ``evals``
+    eval forwards: ``convs`` + ``convs`` conv, 1 + 1 xent and ``draws``
+    draws an update, ``convs`` conv an eval forward."""
+    return (got.get("conv.stats", 0) == convs * updates
+            and got.get("conv.input_grad", 0) == convs * updates
+            and got.get("xent.forward", 0) == updates
+            and got.get("xent.backward", 0) == updates
+            and got.get("augment", 0) == draws * updates
+            and got.get("conv.eval", 0) == convs * evals)
+
+
+def _resumed_coverage(res: dict, resume: dict, b: int) -> dict:
+    """Per epoch, the indices every rank's feed consumed (``res``: rank ->
+    its placements, and how many came before the regroup), counted from
+    the resume point: before the regroup only the resumed segment's first
+    ``steps_done`` updates of each rank (those after it were thrown away
+    and replayed), then everything after the regroup."""
+    import numpy as np
+
+    kept = int(resume["lineage"][0][1]) if resume["lineage"] else 0
+    interrupted = int(resume["epoch"])
+    took: dict = {}
+    for x in res.values():
+        before, after = x["taken"][:x["taken_before"]], \
+            x["taken"][x["taken_before"]:]
+        mine: dict = {}
+        for epoch, idx in before:
+            mine.setdefault(epoch, []).extend(np.ravel(idx).tolist())
+        for epoch, idx in mine.items():
+            took.setdefault(epoch, []).extend(
+                idx[:kept * b] if epoch == interrupted else idx)
+        for epoch, idx in after:
+            took.setdefault(epoch, []).extend(np.ravel(idx).tolist())
+    return took
+
+
+def _elastic_rollback_run(out, key: str, backend: str, world: int,
+                          victim: int, kill_step: int, args: list,
+                          eager: bool = True, on_exit=None) -> dict:
+    """One rollback of phase 17 ((c), (e)) and its checks (module
+    docstring): ``kill:step=kill_step`` on ``victim``; ``eager``: one
+    update a call (the failed update's launches are then checked to be a
+    prefix of one update; a window's replay has no per-update books).
+    ``on_exit`` is called once the victim has exited, while the survivors
+    wait out the collection window."""
+    started = _start_elastic(key, backend, world, args + [
+        f"--resilience.snapshot_every_steps={ELASTIC_SNAP_EVERY}",
+        f"--resilience.regroup_timeout_s={ELASTIC_WINDOW_S}",
+        f"--resilience.fault=kill:step={kill_step},rank={victim}"],
+        rollback=True)
+    work, procs, t0 = started["work"], started["procs"], started["t0"]
+    if on_exit is not None:
+        exit_path = os.path.join(work, f"rank{victim}.json.exit")
+        deadline = time.monotonic() + ELASTIC_RANK_DEADLINE_S
+        while not os.path.exists(exit_path):
+            if time.monotonic() > deadline or any(
+                    p.poll() is not None for p in procs):
+                break  # the ranks' own checks below name what went wrong
+            time.sleep(0.05)
+        else:
+            on_exit()
+    logs = _await_started(started)
+    ranks_s = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    want_rc = [137 if r == victim else 0 for r in range(world)]
+    if rcs != want_rc:
+        for rank, log in enumerate(logs):
+            print(f"[{key}] rank {rank} rc {rcs[rank]}:\n{log[-3000:]}")
+        raise AssertionError(f"{key}: exit codes {rcs}, want {want_rc}")
+    survivors = [r for r in range(world) if r != victim]
+    res = {}
+    for rank in survivors:
+        with open(os.path.join(work, f"rank{rank}.json"),
+                  encoding="utf-8") as f:
+            res[rank] = json.load(f)
+    with open(os.path.join(work, f"rank{victim}.json.exit"),
+              encoding="utf-8") as f:
+        exit_rec = json.load(f)
+    a = res[survivors[0]]
+    record = a["record"]
+    resume = record["resume"]
+    start = int(resume["global_step"])
+    gen = os.path.join(work, "ck", "membership")
+    gen = os.path.join(gen, os.listdir(gen)[0])
+    with open(os.path.join(gen, "plan_e0001.json"), encoding="utf-8") as f:
+        plan = json.load(f)
+    # The newest complete save at or before the kill, as the saves stood
+    # at the failure.
+    cands = [(d, st) for d, st in a["candidates"] if st <= exit_rec["step"]]
+    epochs = int([v for v in args if v.startswith("--train.epochs=")][-1]
+                 .split("=")[1])
+    n_ex = next(int(v.split("=")[1]) for v in args
+                if v.startswith("--data.synthetic_train_size="))
+    b = TRAIN_B
+    oracle, consumed = _elastic_oracle(
+        [x for x in args if not x.startswith("--resilience.")]
+        + [f"--train.ckpt_dir={work}/oracle"], record, world, epochs)
+    diffs = [abs(p - q) for p, q in zip(a["losses"], oracle)]
+    bound = diffs[:start + ELASTIC_ORACLE_AFTER]
+    with open(os.path.join(work, f"rank{victim}.json.taken"),
+              encoding="utf-8") as f:
+        victim_taken = [json.loads(line) for line in f]
+    took = _resumed_coverage(
+        {**res, victim: {"taken": victim_taken,
+                         "taken_before": len(victim_taken)}}, resume, b)
+    # The books: whole updates at the last boundary before the failure,
+    # then the failed update's launches (a prefix of one update: its draw,
+    # before the first collective failed), then the replay and the rest
+    # at the new world with the final eval.
+    books_ok, partial_ok = {}, {}
+    for r in survivors:
+        x = res[r]
+        bk = x["books"]
+        books_ok[r] = (
+            x["updates_before"] == exit_rec["step"]
+            and _books_exact(bk["before"], x["updates_before"], 0)
+            and _books_exact(bk["after"], x["host_step"] - start,
+                             x["test_batches"]))
+        one = {"conv.stats": 10, "conv.input_grad": 10, "xent.forward": 1,
+               "xent.backward": 1, "augment": 1, "conv.eval": 0}
+        partial_ok[r] = not eager or all(
+            0 <= bk["partial"].get(k, 0) <= v for k, v in one.items())
+    w = {r: res[r]["wall"] for r in survivors}
+    t_exit = exit_rec["t"]
+
+    def first_at(x, world_, step=0):
+        got = [m[3] for m in x["marks"] if m[2] == world_ and m[1] > step]
+        return got[0] if got else None
+
+    split = {}
+    for r in survivors:
+        x, ww = res[r], w[r]
+        first2 = first_at(x, world - 1)
+        replayed = first_at(x, world - 1, x["failed_at_step"] - 1)
+        split[r] = {
+            "detection_s": ww["caught_start"] - t_exit,
+            "collection_s": ww["collect_end"] - ww["collect_start"],
+            "barrier_s": ww["regroup_start"] - ww["collect_end"],
+            "reform_s": ww["reform_end"] - ww["regroup_start"],
+            "rebuild_s": ww["reload_start"] - ww["reform_end"],
+            "reload_s": ww["reload_end"] - ww["reload_start"],
+            "regroup_s": ww["regroup_end"] - ww["regroup_start"],
+            "replay_s": replayed - ww["regroup_end"] if replayed else None,
+            "exit_to_first_update_s": first2 - t_exit if first2 else None}
+
+    def rates(x, world_):
+        m = [(t, st) for t, st, ww, *_ in x["marks"] if ww == world_]
+        per = [1e3 * (t1 - t0_) / (s1 - s0) for (t0_, s0), (t1, s1)
+               in zip(m[1:], m[2:]) if s1 > s0]
+        return statistics.median(per) if per else None
+
+    checks = {
+        "exit_codes": rcs == want_rc,
+        "plan_rollback_timeout": plan["flavor"] == "rollback"
+        and plan["departed"] == [{"sid": victim,
+                                  "reason": "no quiesce check-in (timeout)"}]
+        and plan["leavers"] == [] and plan["survivors"] == survivors,
+        "no_live_rank_departed": [d["sid"] for d in record["departed"]]
+        == [victim],
+        "record_rollback_world": record["epoch"] == 1
+        and record["reason"] == "rollback"
+        and record["members"] == survivors and record["world"] == world - 1,
+        "resume_newest_complete_snapshot": bool(cands)
+        and resume["snapshot_dir"] == cands[0][0]
+        and all(x["candidates"] == a["candidates"] for x in res.values())
+        and resume["lineage"] == [[world, start]]
+        and 0 < start <= exit_rec["step"],
+        "dense_ranks": [res[s]["new_rank"] for s in survivors]
+        == list(range(world - 1))
+        and all(res[s]["world"] == world - 1 for s in survivors),
+        "backend_kept": all(res[s]["backend"] == backend for s in survivors),
+        "survivors_bit_identical": len({res[s]["digest"]
+                                        for s in survivors}) == 1,
+        "losses_track_oracle": len(a["losses"]) == len(oracle)
+        and max(bound) <= DDP_LOSS_TOL,
+        "losses_finite": all(math.isfinite(v) for v in a["losses"]),
+        "coverage_from_resume_equals_record": all(
+            sorted(took.get(e, [])) == sorted(consumed[e])
+            for e in consumed),
+        "books_per_rank_at_both_worlds_replay_included":
+            all(books_ok.values()),
+        "failed_update_books_a_prefix": all(partial_ok.values()),
+        "regroups_1": all(res[s]["counters"].get("elastic.regroups") == 1
+                          for s in survivors),
+    }
+    rec = {"checks": checks, "rcs": rcs, "kill_step": exit_rec["step"],
+           "resume_step": start, "record": record, "plan": plan,
+           "losses": a["losses"], "oracle_losses": oracle,
+           "max_loss_diff": max(diffs) if diffs else None,
+           "max_loss_diff_bound": max(bound) if bound else None,
+           "split_s": split,
+           "ms_per_update": {f"world_{world}": rates(a, world),
+                             f"world_{world - 1}": rates(a, world - 1)},
+           "books": {r: x["books"] for r, x in res.items()},
+           "fit_s": {r: x["fit_s"] for r, x in res.items()},
+           "rank_s": {r: _rank_seconds(x) for r, x in res.items()},
+           "ranks_s": ranks_s, "captured": a.get("captured"),
+           "coverage": {e: {"consumed": len(took.get(e, [])),
+                            "predicted": len(consumed[e]),
+                            "dropped": n_ex - len(set(took.get(e, [])))}
+                        for e in consumed}}
+    out["elastic"][key] = rec
+    print(f"[{key}] " + json.dumps({k: v for k, v in rec.items()
+                                    if k not in ("losses", "oracle_losses",
+                                                 "record")}))
+    s0 = split[survivors[0]]
+    print(f"[{key}] {backend} world {world} -> {world - 1} (rank {victim} "
+          f"killed at update {exit_rec['step']}, resumed at {start}): "
+          f"exit -> first update at world {world - 1} "
+          f"{s0['exit_to_first_update_s']:.2f} s (detection "
+          f"{s0['detection_s']:.2f}, window {s0['collection_s']:.2f}, "
+          f"re-form {s0['reform_s']:.2f}, rebuild {s0['rebuild_s']:.2f}, "
+          f"reload {s0['reload_s']:.2f}, "
+          f"replay {s0['replay_s'] or 0:.2f}); ms per update "
+          f"{rec['ms_per_update']}; ranks {ranks_s:.1f} s")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
+def _elastic_sdc_run(out, started: dict) -> dict:
+    """(d): the guard's SDC eviction through the ledger on three gloo ranks
+    of Net on the card, started (`_start_elastic` on `ELASTIC_SDC_ARGS`),
+    and its checks (module docstring)."""
+    from tpu_dp_torch.resilience import QuarantineLog
+
+    world, victim = 3, 2
+    key, work, procs = started["key"], started["work"], started["procs"]
+    logs = _await_started(started)
+    ranks_s = time.perf_counter() - started["t0"]
+    rcs = [p.returncode for p in procs]
+    want_rc = [143 if r == victim else 0 for r in range(world)]
+    if rcs != want_rc:
+        for rank, log in enumerate(logs):
+            print(f"[{key}] rank {rank} rc {rcs[rank]}:\n{log[-3000:]}")
+        raise AssertionError(f"{key}: exit codes {rcs}, want {want_rc}")
+    res = {}
+    for rank in range(world):
+        with open(os.path.join(work, f"rank{rank}.json"),
+                  encoding="utf-8") as f:
+            res[rank] = json.load(f)
+    survivors = [0, 1]
+    a = res[0]
+    record = a["record"]
+    ck = os.path.join(work, "ck")
+    with open(os.path.join(ck, "obs", f"flightrec_r{victim:05d}.json"),
+              encoding="utf-8") as f:
+        black_box = json.load(f)
+    sdc = [r for r in QuarantineLog(os.path.join(ck, "quarantine.jsonl"))
+           .read() if r["kind"] == "sdc"]
+    start = int(record["resume"]["global_step"])
+    books_ok = {}
+    for r, x in res.items():
+        bk = x["books"]
+        segs = [(bk["before"], x["updates_before"])]
+        if r != victim:
+            segs.append((bk["after"], x["host_step"] - start))
+        books_ok[r] = all(_books_exact(got, u, 0, convs=0, draws=0)
+                          for got, u in segs)
+    checks = {
+        "exit_codes": rcs == want_rc,
+        "evicted_with_guard_evict": "elastic departure"
+        in (res[victim]["preempted"] or "") and any(
+            e["kind"] == "guard_evict" for e in black_box["events"]),
+        "record_rollback_sdc": record["epoch"] == 1
+        and record["reason"] == "rollback"
+        and record["members"] == survivors
+        and [d["sid"] for d in record["departed"]] == [victim]
+        and "sdc" in record["departed"][0]["reason"].lower(),
+        "resume_predates_the_flip": int(record["resume"]["lineage"][0][1])
+        <= 3,
+        "quarantine_names_rank_2": bool(sdc) and sdc[0]["suspects"]
+        == [victim],
+        "survivors_bit_identical_finish": len({res[s]["digest"]
+                                               for s in survivors}) == 1
+        and all(res[s]["world"] == 2 and res[s]["preempted"] is None
+                for s in survivors),
+        "xent_books_exact": all(books_ok.values()),
+        "audit_counted": all(res[s]["counters"].get(
+            "guard.sdc_mismatches", 0) >= 1 for s in survivors),
+    }
+    rec = {"checks": checks, "rcs": rcs, "record": record,
+           "quarantine": sdc, "books": {r: x["books"] for r, x in res.items()},
+           "fit_s": {r: x["fit_s"] for r, x in res.items()},
+           "rank_s": {r: _rank_seconds(x) for r, x in res.items()},
+           "regroup_s": {s: res[s]["counters"].get("elastic.regroup_s")
+                         for s in survivors},
+           "ranks_s": ranks_s}
+    out["elastic"][key] = rec
+    print(f"[{key}] " + json.dumps({k: v for k, v in rec.items()
+                                    if k != "record"}))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        for rank, log in enumerate(logs):
+            print(f"[{key}] rank {rank}:\n{log[-2000:]}")
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
 def phase_elastic(out):
-    """17: the graceful elastic shrink on the main path (module docstring):
-    (a) three gloo ranks on the one card, rank 2 leaving; (b) NCCL across
-    two cards, rank 1 leaving, windows of 10 as CUDA graphs released and
-    recaptured, when two or more cards are visible."""
+    """17: the elastic shrink on the main path (module docstring): (a) the
+    graceful shrink of three gloo ranks on the one card, rank 2 leaving;
+    (b) NCCL across two cards, rank 1 leaving, windows of 10 as CUDA graphs
+    released and recaptured, when two or more cards are visible; (c) the
+    rollback of (a)'s ranks, rank 2 killed; (d) the guard's SDC eviction
+    of three Net ranks; (e) (b)'s rollback, rank 1 killed, when two or
+    more cards are visible. (a) and (d) run beside (c): their ranks start
+    once (c)'s rank 2 has exited, while (c)'s survivors wait out the
+    collection window (their times are taken on a shared card)."""
     import torch
 
     out["elastic"] = {"card": out["card"]}
-    _elastic_run(out, "elastic_gloo_one_card", "gloo", ELASTIC_WORLD, 2,
-                 ELASTIC_ARGS + [
-                     f"--data.synthetic_train_size={ELASTIC_TRAIN}",
-                     "--train.steps_per_call=1",
-                     f"--resilience.fault=leave:step={ELASTIC_K},rank=2"])
-    if torch.cuda.device_count() < 2:
+    seconds = out["elastic"]["seconds"] = {}
+    gloo_args = ELASTIC_ARGS + [
+        f"--data.synthetic_train_size={ELASTIC_TRAIN}",
+        "--train.steps_per_call=1"]
+    leave_args = gloo_args + [
+        f"--resilience.fault=leave:step={ELASTIC_K},rank=2"]
+    t0, beside = time.perf_counter(), {}
+
+    def start_beside():
+        beside["a"] = _start_elastic("elastic_gloo_one_card", "gloo",
+                                     ELASTIC_WORLD, leave_args)
+        beside["d"] = _start_elastic("elastic_sdc_evict", "gloo", 3,
+                                     ELASTIC_SDC_ARGS)
+
+    try:
+        _elastic_rollback_run(out, "elastic_rollback_gloo_one_card", "gloo",
+                              ELASTIC_WORLD, 2, ELASTIC_KILL_K, gloo_args,
+                              on_exit=start_beside)
+        seconds["c"] = time.perf_counter() - t0
+        if not beside:
+            raise AssertionError("elastic_gloo_one_card, elastic_sdc_evict: "
+                                 "not started (rank 2 of elastic_rollback_"
+                                 "gloo_one_card never exited)")
+        _elastic_run(out, beside["a"], "gloo", ELASTIC_WORLD, 2, leave_args)
+        seconds["a"] = time.perf_counter() - beside["a"]["t0"]
+        _elastic_sdc_run(out, beside["d"])
+        seconds["d"] = time.perf_counter() - beside["d"]["t0"]
+    finally:
+        for p in (p for run in beside.values() for p in run["procs"]):
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    seconds["a_c_d"] = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    nccl_args = ELASTIC_ARGS + [
+        f"--data.synthetic_train_size={ELASTIC_NCCL_TRAIN}",
+        f"--train.steps_per_call={ELASTIC_NCCL_WIN}", "--train.epochs=1"]
+    t0 = time.perf_counter()
+    if cards < 2:
         out["elastic"]["elastic_nccl_multi_card"] = "not run"
-        print(f"elastic_nccl_multi_card: not run, "
-              f"{torch.cuda.device_count()} card visible")
-        return
-    rec = _elastic_run(
-        out, "elastic_nccl_multi_card", "nccl", 2, 1, ELASTIC_ARGS + [
-            f"--data.synthetic_train_size={ELASTIC_NCCL_TRAIN}",
-            f"--train.steps_per_call={ELASTIC_NCCL_WIN}", "--train.epochs=1",
-            f"--resilience.fault=leave:step={ELASTIC_NCCL_K},rank=1"])
-    if not rec["captured"]:
-        raise AssertionError("elastic_nccl_multi_card: the survivor's "
-                             "windows were not recaptured as a CUDA graph")
+        print(f"elastic_nccl_multi_card: not run, {cards} card visible")
+    else:
+        leave = nccl_args + [
+            f"--resilience.fault=leave:step={ELASTIC_NCCL_K},rank=1"]
+        rec = _elastic_run(out, _start_elastic(
+            "elastic_nccl_multi_card", "nccl", 2, leave), "nccl", 2, 1, leave)
+        if not rec["captured"]:
+            raise AssertionError("elastic_nccl_multi_card: the survivor's "
+                                 "windows were not recaptured as a CUDA "
+                                 "graph")
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cards < 2:
+        out["elastic"]["elastic_rollback_nccl_multi_card"] = "not run"
+        print(f"elastic_rollback_nccl_multi_card: not run, {cards} card "
+              f"visible")
+    else:
+        rec = _elastic_rollback_run(
+            out, "elastic_rollback_nccl_multi_card", "nccl", 2, 1,
+            ELASTIC_NCCL_KILL_K, nccl_args, eager=False)
+        if not rec["captured"]:
+            raise AssertionError("elastic_rollback_nccl_multi_card: the "
+                                 "survivor's windows were not recaptured "
+                                 "as a CUDA graph")
+    seconds["e"] = time.perf_counter() - t0
+    print(f"[elastic] seconds {json.dumps(seconds)}")
 
 
 def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):

@@ -13,7 +13,9 @@ sampler.py`; the shrink half of tests/test_elastic.py).
   for index on the shrink cases, and a pipeline fed the tail consumes the
   rest of the uninterrupted epoch.
 - ``leave:`` parses and gates by rank as in the JAX package; the elastic
-  knobs are taken, and what stays unported is refused naming its item.
+  knobs are taken, and what stays unported is refused naming its item
+  (the rollback flavour and the guard with elastic are
+  tests/test_torch_elastic_rollback*.py).
 """
 
 from __future__ import annotations
@@ -212,7 +214,9 @@ def test_quiesce_ack_barrier(tmp_path):
 def test_a_check_in_timeout_publishes_a_rollback_plan_the_port_refuses(
         tmp_path):
     """A member that never checks in: the JAX plan (rollback, departed)
-    in the JAX format, which the trainer refuses to carry out."""
+    in the JAX format. The trainer carries it out since the rollback
+    flavour was ported (tests/test_torch_elastic_rollback_ranks.py); the
+    name is the graceful slice's."""
     led = MembershipLedger(tmp_path, 0)
     led.check_in(1, 3, leaving=False, flavor="graceful")
     led.maybe_publish_plan(1, [0, 1, 2], train_epoch=0, timed_out=True)
@@ -469,7 +473,6 @@ def test_elastic_without_drop_remainder_is_refused_as_in_jax(tmp_path):
 @pytest.mark.parametrize("args,message", [
     (["--resilience.elastic=true"],
      "elastic_verify_fingerprint=true.*item 13"),
-    (_ELASTIC + ["--guard.enabled=true"], "guard.enabled=true.*item 9d-ii"),
     (["--resilience.elastic_join=never"], "item 9d-iii"),
     (["--resilience.elastic_max_world=8"], "item 9d-iii"),
 ])

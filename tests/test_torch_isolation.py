@@ -57,6 +57,7 @@ def test_every_module_imports_without_jax_or_tpu_dp():
               "tpu_dp_torch.checkpoint", "tpu_dp_torch.serialization",
               "tpu_dp_torch.resilience.preempt", "tpu_dp_torch.models.net",
               "tpu_dp_torch.resilience.elastic", "tpu_dp_torch.data.sampler",
+              "tpu_dp_torch.train.hooks", "tpu_dp_torch.config",
               *_TELEMETRY):
         assert m in mods
     code = (
@@ -102,13 +103,41 @@ def test_static_scan_finds_no_jax_or_tpu_dp_import():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "port_serve_warmup_ab.py",
         ROOT / "tools" / "port_resident_multicard.py",
-        ROOT / "tools" / "port_profiler_loss.py"]
+        ROOT / "tools" / "port_profiler_loss.py",
+        ROOT / "tools" / "port_nccl_abort_probe.py"]
     assert len(files) > 15
     bad = {
         str(f.relative_to(ROOT)): n
         for f in files for n in _imports(f)
         if n.split(".")[0] in FORBIDDEN
     }
+    assert bad == {}
+
+
+#: The elastic rollback's test files: the ranks they start run
+#: tests/torch_ddp_worker.py, which imports the port alone.
+_ROLLBACK_TESTS = ("test_torch_elastic_rollback.py",
+                   "test_torch_elastic_rollback_ranks.py",
+                   "test_torch_elastic_rollback_sdc.py")
+
+
+@pytest.mark.parametrize("name", _ROLLBACK_TESTS)
+def test_the_rollback_tests_are_port_tests_whose_ranks_import_no_jax(name):
+    """Each rollback test file is a port test; a file that starts rank
+    processes gives each run a deadline (a hang fails the test, not the
+    suite), and the rank worker and the modules the slice changed import
+    nothing of JAX or the JAX package."""
+    path = ROOT / "tests" / name
+    text = path.read_text()
+    assert "pytestmark = pytest.mark.port" in text
+    if "_start(" in text:
+        assert "_TIMEOUT_S" in text or "_finish(" in text
+    files = [ROOT / "tests" / "torch_ddp_worker.py"] + [
+        PKG / f for f in ("resilience/elastic.py", "parallel/dist.py",
+                          "obs/health.py", "train/trainer.py",
+                          "train/hooks.py", "config.py")]
+    bad = {str(f.relative_to(ROOT)): n for f in files for n in _imports(f)
+           if n.split(".")[0] in FORBIDDEN}
     assert bad == {}
 
 

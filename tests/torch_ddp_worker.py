@@ -25,6 +25,11 @@ same run, exiting 143 (after writing its output) when it ends in
 evaluates a fresh `Trainer` once per test-set size of ``sizes``
 (`run_evals`); ``rank_args`` (``{rank: [...]}``) appends arguments for
 one rank, and ``drop`` batches whose update never runs (`run_trainer`).
+Two seams of the elastic rollback's tests (`run_trainer`): ``raise_at``
+(``[rank, step]``) raises `PeerFailedError` on that rank just before its
+update at that global step, every member still alive; with
+``no_final_snapshot`` no snapshot commits at or past an adopted elastic
+plan's stop step (the final snapshot is lost).
 """
 
 from __future__ import annotations
@@ -49,8 +54,26 @@ def flat_state(trainer) -> dict:
     return dict(_walk_state_dict(state_dict_of(trainer.state)))
 
 
+def _failing_at(trainer, step: int):
+    """``trainer.train_step`` raising `PeerFailedError` before the update
+    at global ``step``."""
+    from tpu_dp_torch.resilience import PeerFailedError
+
+    real = trainer.train_step
+
+    def failing(state, batch):
+        if trainer._host_step + 1 == step:
+            raise PeerFailedError("injected failure, every member alive",
+                                  rank=trainer.ctx.rank,
+                                  world=trainer.ctx.world)
+        return real(state, batch)
+
+    return failing
+
+
 def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
-                snapshot=False, drop=()) -> dict:
+                snapshot=False, drop=(), raise_at=None,
+                no_final_snapshot=False) -> dict:
     """The port's `Trainer` on CLI ``args`` (in a group when ``init`` is
     given). ``stop_at_step``: the run is interrupted just before that
     global step, after the pending epoch save is written; with
@@ -112,6 +135,19 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
             return real_step(state, batch)
 
         trainer.train_step = dropping
+    if raise_at is not None and raise_at[0] == rank:
+        trainer.train_step = _failing_at(trainer, raise_at[1])
+    if no_final_snapshot:
+        real_take = trainer._take_snapshot
+
+        def take(epoch, steps_done, wait=False):
+            # Nothing commits at or past an adopted plan's stop step.
+            plan = trainer._quiesce_plan
+            if plan is not None and trainer._host_step >= plan.stop_step:
+                return False
+            return real_take(epoch, steps_done, wait)
+
+        trainer._take_snapshot = take
     result = None
     out["preempted"] = out["diverged"] = None
     try:
@@ -174,10 +210,12 @@ def main(spec_path: str) -> int:
             str(spec["rank"]), [])
         try:
             if spec["job"] != "eval":
-                out = run_trainer(args, **group,
-                                  stop_at_step=spec.get("stop_at_step"),
-                                  snapshot=spec.get("snapshot", False),
-                                  drop=set(spec.get("drop", ())))
+                out = run_trainer(
+                    args, **group, stop_at_step=spec.get("stop_at_step"),
+                    snapshot=spec.get("snapshot", False),
+                    drop=set(spec.get("drop", ())),
+                    raise_at=spec.get("raise_at"),
+                    no_final_snapshot=spec.get("no_final_snapshot", False))
             else:
                 out = run_evals(args, spec["sizes"], **group)
         finally:

@@ -503,8 +503,7 @@ def check_ported(cfg: Config) -> Config:
 def _check_elastic(cfg: Config) -> None:
     """An elastic run's checks: the JAX package's ``drop_remainder``
     refusal (its message), then what the port does not run yet: the
-    HLO-based fingerprint check (item 13's stand-in) and the guard's
-    elastic branches (item 9d-ii)."""
+    HLO-based fingerprint check (item 13's stand-in)."""
     if not cfg.resilience.elastic:
         return
     if not cfg.data.drop_remainder:
@@ -517,12 +516,6 @@ def _check_elastic(cfg: Config) -> None:
             "check is HLO-based and has no port yet (ROADMAP Queue 1 item "
             "13); run elastic with --resilience.elastic_verify_fingerprint"
             "=false")
-    if cfg.guard.enabled:
-        raise NotPortedError(
-            "guard.enabled=true with resilience.elastic=true: the guard's "
-            "elastic branches (SDC eviction through the ledger, suspects, "
-            "the deferred rollback) are not ported to tpu_dp_torch yet "
-            "(ROADMAP Queue 1 item 9d-ii)")
 
 
 def _check_telemetry(cfg: Config) -> None:

@@ -29,6 +29,18 @@ on the backend the run started with; `abandon_distributed` walks away from
 the old group; `agree_token` and `membership_barrier` agree a string and
 meet over the current group's store (host-level, no device collective);
 `fault_tolerant_barrier` is the preemption exit's bounded barrier.
+
+A peer that vanishes (the rollback regroup): `is_peer_failure` tells the
+errors that mean "a peer is gone" from every other (the JAX package's
+`_elastic_fatal_errors`). No wait on a peer may outlast a share of the
+collection window (`PEER_WAIT_SHARE`), or a live member blocked on a rank
+that already checked in would be declared departed: a gloo collective
+gets that timeout (`set_collective_timeout`; gloo's ``abort`` closes no
+socket, and its sockets close only when the group object is freed, which
+never happens once DDP has been built over it), and an NCCL window
+boundary waits on the card through `PeerFence`; wedged work is ended by
+the communicators' abort (`abort_communicators`) before the group is
+destroyed.
 """
 
 from __future__ import annotations
@@ -313,6 +325,148 @@ def abandon_distributed() -> None:
     and drop what still refers to the group (`collect_released`)."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+#: The share of an elastic run's collection window (``resilience.
+#: regroup_timeout_s``) that a collective or a window fence may wait on a
+#: peer: a live member blocked on a rank that failed first must fail, and
+#: check in, well inside the window that rank's acting leader runs.
+PEER_WAIT_SHARE = 1 / 3
+
+
+def set_collective_timeout(timeout_s: float) -> None:
+    """Set the current group's collective timeout (the rendezvous keeps
+    its own): from here on a gloo collective waiting on a peer raises after
+    ``timeout_s``. An elastic run sets it once its group is formed and its
+    DDP built (their collectives keep the rendezvous's timeout)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    pg = dist.group.WORLD
+    td = datetime.timedelta(seconds=float(timeout_s))
+    if hasattr(pg, "set_timeout"):
+        pg.set_timeout(td)
+    else:  # older torch: the backend's default
+        pg._get_backend(torch.device("cpu"))._set_default_timeout(td)
+
+
+#: The message prefix of the `RuntimeError` gloo raises when a peer's
+#: connection closes or resets, or a transfer to it times out (torch 2.13:
+#: ``[.../gloo/transport/tcp/pair.cc:537] Read error ... Connection reset
+#: by peer``, ``pair.cc:553] Connection closed by peer``,
+#: ``unbound_buffer.cc:78] Timed out waiting ...``): gloo types none of
+#: them, so the transport's source path is what marks them.
+GLOO_TRANSPORT_ERROR = "gloo/transport/"
+
+
+def peer_failure_types() -> tuple[type[BaseException], ...]:
+    """The exception types that mean "a peer is gone" (the JAX package's
+    `_elastic_fatal_errors`): `PeerFailedError` (a bounded barrier or
+    fence gave up) and torch's `DistBackendError` (NCCL's)."""
+    from tpu_dp_torch.resilience.retry import PeerFailedError
+
+    return (PeerFailedError, dist.DistBackendError)
+
+
+def is_peer_failure(err: BaseException) -> bool:
+    """True for an error that means "a peer is gone": one of
+    `peer_failure_types`, or gloo's transport `RuntimeError`
+    (`GLOO_TRANSPORT_ERROR`). Any other `RuntimeError` is not."""
+    if isinstance(err, peer_failure_types()):
+        return True
+    return type(err) is RuntimeError and GLOO_TRANSPORT_ERROR in str(err)
+
+
+def abort_communicators(timeout_s: float) -> None:
+    """Abort the current group's communicators: under NCCL torch's
+    ``_abort_process_group`` (``ncclCommAbort`` on every communicator of
+    the group, within one NCCL group call, then the group unregistered),
+    which ends the kernels that spin on a dead peer, so the card drains.
+    NCCL's abort does not return while a CUDA graph that captured its work
+    exists (torch 2.11, NCCL 2.28.9, on four H100s; `tools/
+    port_nccl_abort_probe.py`): the caller releases the graphs alongside
+    (`Trainer._end_wedged_window`). The abort runs on a helper thread and
+    `ElasticError` is raised when it has not returned within
+    ``timeout_s``. gloo's abort closes nothing (its sockets close
+    when the group is freed): a no-op there, as without a group."""
+    import threading
+
+    from tpu_dp_torch.resilience.elastic import ElasticError
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    if dist.get_backend() != "nccl":
+        return
+    aborter = threading.Thread(
+        target=dist.distributed_c10d._abort_process_group, daemon=True)
+    aborter.start()
+    aborter.join(timeout_s)
+    if aborter.is_alive():
+        raise ElasticError(f"the NCCL communicators' abort did not return "
+                           f"within {timeout_s:g} s")
+
+
+class PeerFence:
+    """The bounded wait of an elastic NCCL run's window boundary. A
+    collective waiting on a dead peer spins on the card (inside a CUDA
+    graph torch's watchdog does not see it), and the host would learn of
+    it only at its next synchronisation, forever. `step` records an event
+    after each window and waits, with a deadline, for the previous
+    window's (one window stays in flight, so the host keeps running ahead
+    of the card); `drain` waits for all the work issued so far (before a
+    fetch or a save). A wait that passes ``timeout_s`` marks the fence
+    ``wedged`` and raises `PeerFailedError`; the owner then ends the
+    wedged work (`abort_communicators`) and `settle` waits, bounded, for
+    the card to drain. Polls `torch.cuda.Event.query`, never
+    ``synchronize``."""
+
+    def __init__(self, device, timeout_s: float, poll_s: float = 0.002):
+        self.device = torch.device(device)
+        self.timeout_s = float(timeout_s)
+        self.poll_s = float(poll_s)
+        self.wedged = False
+        self._pending: list = []
+
+    def step(self) -> None:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._pending.append(ev)
+        while len(self._pending) > 1:
+            self._wait(self._pending.pop(0))
+
+    def drain(self) -> None:
+        self.step()
+        self._wait(self._pending.pop())
+
+    def settle(self) -> None:
+        """After the wedged work was aborted: the card drained within the
+        deadline, or `ElasticError` (nothing on it can be trusted)."""
+        from tpu_dp_torch.resilience.elastic import ElasticError
+
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        if not self._poll(ev):
+            raise ElasticError(
+                f"the card did not drain within {self.timeout_s:g} s of the "
+                f"communicators' abort")
+        self._pending, self.wedged = [], False
+
+    def _poll(self, ev) -> bool:
+        deadline = time.monotonic() + self.timeout_s
+        while not ev.query():
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(self.poll_s)
+        return True
+
+    def _wait(self, ev) -> None:
+        from tpu_dp_torch.resilience.retry import PeerFailedError
+
+        if not self._poll(ev):
+            self._pending, self.wedged = [], True
+            raise PeerFailedError(
+                f"window fence: the card's work did not finish within "
+                f"{self.timeout_s:g} s (a collective waiting on a dead "
+                f"peer)", rank=process_index(), world=process_count())
 
 
 def collect_released() -> None:

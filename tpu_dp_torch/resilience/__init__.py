@@ -1,10 +1,9 @@
 """Resilience of the port (of `tpu_dp.resilience`): step snapshots, the
 preemption handler and resume, the IO retry budget, deterministic fault
 injection and the training guard (the divergence policy, the quarantine
-log and the SDC audit), and the graceful shrink of elastic world size
-(`tpu_dp_torch.resilience.elastic`: the membership ledger and the
-coordinator; the rollback flavour and the grow half are ROADMAP Queue 1
-items 9d-ii and 9d-iii)."""
+log and the SDC audit), and the shrink of elastic world size, graceful
+and rollback (`tpu_dp_torch.resilience.elastic`: the membership ledger
+and the coordinator; the grow half is ROADMAP Queue 1 item 9d-iii)."""
 
 from tpu_dp_torch.resilience.elastic import (
     ElasticCoordinator,

@@ -1,24 +1,30 @@
-"""Elastic world size, the graceful shrink (port of the shrink half of
-`tpu_dp.resilience.elastic`): when a rank announces its departure, the
-members agree a stop step through a **shared-filesystem membership
-ledger**, rank 0 commits the final snapshot there, the leaver exits 143,
-and the survivors tear down the process group and form a new one at
-world N-1 with dense new ranks (`tpu_dp_torch.parallel.dist.
-elastic_initialize`), reload the agreed state through the resharding
-checkpoint path and re-split the rest of the epoch over themselves
-(`tpu_dp_torch.data.sampler.elastic_resplit`: every remaining sample of the
-interrupted epoch visited exactly once).
+"""Elastic world size, the shrink (port of the shrink half of
+`tpu_dp.resilience.elastic`): when a rank announces its departure, or
+vanishes without a word, the members agree the transition through a
+**shared-filesystem membership ledger**, and the survivors tear down the
+process group and form a new one at world N-1 with dense new ranks
+(`tpu_dp_torch.parallel.dist.elastic_initialize`), reload the agreed state
+through the resharding checkpoint path and re-split the rest of the epoch
+over themselves (`tpu_dp_torch.data.sampler.elastic_resplit`: every
+remaining sample of the interrupted epoch visited exactly once).
+
+Two flavours, as in the JAX package. *Graceful*: a leaver checks in, every
+member steps to the agreed stop step, rank 0 commits the final snapshot
+there and the leaver exits 143. *Rollback*: a member died (its peers'
+collectives failed, or a heartbeat went stale and rank 0 published it as
+a suspect, `mark_suspect`) or the SDC audit condemned it; the live members
+check in with rollback flavour, the acting leader declares every member
+that did not check in within ``regroup_timeout_s`` departed (the suspect's
+reason, or "no quiesce check-in (timeout)"), and the survivors resume from
+the newest complete save and replay the steps since it.
 
 The files, their names and their JSON keys are the JAX package's, so
 either package reads a ledger the other wrote. Ported here: the records
 (`MembershipRecord`, `QuiescePlan`), the ledger IO under the IO retry
-budget, `MembershipLedger`'s graceful protocol and `ElasticCoordinator`'s
-shrink. Left out (ROADMAP Queue 1 items 9d-ii and 9d-iii): suspects
-(``mark_suspect``), the rollback regroup onto a vanished member's
-survivors, the grow/join half (join requests, fencing, ``establish_
-fallback``) and ``ServeMembership``. A plan the port cannot carry out (a
-rollback: a member never checked in) is still published in the JAX
-format, and the trainer refuses it with `ElasticError`.
+budget, `MembershipLedger`'s quiesce protocol with suspects, and
+`ElasticCoordinator`'s shrink. Left out (ROADMAP Queue 1 item 9d-iii): the
+grow/join half (join requests, fencing, ``establish_fallback``) and
+``ServeMembership``.
 
 Membership ledger layout (``<membership_dir>/<generation>/``)::
 
@@ -29,6 +35,7 @@ Membership ledger layout (``<membership_dir>/<generation>/``)::
     plan_e0001.json      # the agreed transition plan (single writer,
                          # exclusive-create: flavor, stop_step, survivors)
     q_e0001_r00002.done  # post-quiesce ack (final snapshot committed)
+    suspect_e0001_r00002.json  # "sid 2 looks dead" (any member may write)
     left_r00002.json     # graceful-departure confirmation
 
 A **generation** is one launch of the job; membership epochs count
@@ -368,6 +375,30 @@ class MembershipLedger:
         return MembershipRecord.from_json(
             _read_json(self._epoch_path(rec.epoch)))
 
+    # -- suspicion / departure -----------------------------------------
+
+    def mark_suspect(self, epoch: int, sid: int, reason: str) -> None:
+        """Publish "sid looks dead" (a stale heartbeat, an SDC verdict).
+        Any member may write it; the others fold it into their next poll.
+        Scoped to the ``epoch`` transition it accuses: a suspect that
+        survives the regroup (slow, not dead) must not re-trigger every
+        later epoch's, so once the transition completes its file is
+        inert."""
+        path = self.dir / f"suspect_e{int(epoch):04d}_r{int(sid):05d}.json"
+        if not path.exists():
+            _atomic_write_json(path, {"sid": int(sid), "reason": reason,
+                                      "by": self.sid, "ts": time.time()})
+
+    def suspects(self, epoch: int) -> dict[int, str]:
+        """The suspects accused for the ``epoch`` transition, with their
+        reasons."""
+        out: dict[int, str] = {}
+        for path in self.dir.glob(f"suspect_e{int(epoch):04d}_r*.json"):
+            d = _read_json(path)
+            if d is not None:
+                out[int(d["sid"])] = str(d.get("reason", ""))
+        return out
+
     def confirm_left(self, step: int) -> None:
         _atomic_write_json(self.dir / f"left_r{self.sid:05d}.json", {
             "sid": self.sid, "step": int(step), "ts": time.time()})
@@ -408,11 +439,14 @@ class MembershipLedger:
     def maybe_publish_plan(self, epoch: int, members: Sequence[int],
                            train_epoch: int, timed_out: bool) -> None:
         """Publish THE plan when this rank is the acting leader (the
-        lowest sid among the check-ins) and the collection is ready: every
-        member checked in (graceful), or the caller's window timed out
-        (the missing members are declared departed: a rollback plan, which
-        the port refuses to carry out). Exclusive create: a slow second
-        publisher loses and adopts the canonical file."""
+        lowest sid among the check-ins: the natural leader may be the dead
+        rank) and the collection is ready: every member checked in, or the
+        caller's collection window timed out. A member missing then is
+        declared departed, with its suspect file's reason or "no quiesce
+        check-in (timeout)"; a plan with departed members, or with any
+        rollback check-in, is a rollback. Exclusive create: a slow second
+        publisher loses and adopts the canonical file, so divergent local
+        views cannot fork the membership."""
         members = sorted(int(m) for m in members)
         seen = self.check_ins(epoch)
         if not seen or min(seen) != self.sid:
@@ -420,7 +454,10 @@ class MembershipLedger:
         complete = all(m in seen for m in members)
         if not (complete or timed_out):
             return
-        departed = [{"sid": m, "reason": "no quiesce check-in (timeout)"}
+        suspects = self.suspects(epoch)
+        departed = [{"sid": m,
+                     "reason": suspects.get(m, "no quiesce check-in "
+                                               "(timeout)")}
                     for m in members if m not in seen]
         leavers = tuple(s for s, d in sorted(seen.items()) if d["leaving"])
         rollback = bool(departed) or any(
@@ -431,8 +468,10 @@ class MembershipLedger:
             epoch=epoch, flavor="rollback" if rollback else "graceful",
             # The stop threshold (see QuiescePlan): far enough that no
             # still-stepping member overshoots it before its next plan
-            # poll; a lone member has nobody to overshoot, and a plan with
-            # departed members cannot step at all.
+            # poll, for every plan whose members are all alive (an SDC
+            # eviction included: stopping the corrupt rank at once would
+            # wedge its peers' collectives); a lone member has nobody to
+            # overshoot, and a plan with departed members cannot step.
             stop_step=(max_step + 2 * max_window + 1)
             if not departed and len(members) > 1 else max_step,
             train_epoch=train_epoch, leavers=leavers,
@@ -466,8 +505,9 @@ class ElasticCoordinator:
     """Trainer-facing glue: the ledger protocol and the process-group
     surgery. One per process per generation. The trainer calls `poll`
     at every window boundary, `quiesce_step` while a transition
-    converges, and on a survivor `establish` and `reinitialize` to form
-    the next membership epoch."""
+    converges (`quiesce_blocking` when it cannot step: its group failed),
+    and on a survivor `establish` and `reinitialize` to form the next
+    membership epoch."""
 
     def __init__(self, membership_dir: str | os.PathLike, generation: str,
                  sid: int, world: int, coordinator_address: str | None,
@@ -516,8 +556,9 @@ class ElasticCoordinator:
              ) -> str | None:
         """Regroup trigger at a window boundary, or None: "leave" (this
         rank was told to go), "peer" (another member already checked in
-        for the next epoch). The ledger glob runs once every
-        ``poll_every_steps`` crossed; a local leave is never rate-limited."""
+        for the next epoch), "suspect" (a member was published as dead).
+        The ledger glob runs once every ``poll_every_steps`` crossed; a
+        local leave is never rate-limited."""
         if leave_requested:
             return "leave"
         step = int(host_step)
@@ -526,9 +567,29 @@ class ElasticCoordinator:
                 <= self._poll_marker // self.poll_every_steps):
             return None
         self._poll_marker = step
-        if self.ledger.quiesce_triggered(self.record.epoch + 1):
+        nxt = self.record.epoch + 1
+        if self.ledger.quiesce_triggered(nxt):
             return "peer"
+        if any(s in self.record.members for s in self.ledger.suspects(nxt)):
+            return "suspect"
         return None
+
+    def mark_suspect(self, rank: int, reason: str) -> None:
+        """Accuse dense ``rank`` of the current epoch of being dead (for
+        the next transition only: `MembershipLedger.mark_suspect`), with an
+        ``elastic_suspect`` flight-recorder event."""
+        from tpu_dp_torch.obs import flightrec
+
+        sid = self.record.members[rank]
+        flightrec.record("elastic_suspect", rank=sid, reason=reason)
+        self.ledger.mark_suspect(self.record.epoch + 1, sid, reason)
+
+    def rewind_poll(self, host_step: int) -> None:
+        """Re-arm the rate-limited poll after a guard rollback rewound the
+        step clock (`SnapshotManager.rewind`'s contract): a marker left at
+        the pre-rollback high-water step would suppress peer and suspect
+        detection for the whole replay."""
+        self._poll_marker = int(host_step)
 
     # -- quiesce --------------------------------------------------------
 
@@ -576,7 +637,9 @@ class ElasticCoordinator:
     def quiesce_blocking(self, train_epoch: int, host_step: int,
                          leaving: bool, flavor: str, window: int = 1,
                          poll_s: float = 0.05) -> QuiescePlan:
-        """Converge without stepping (a member that cannot step)."""
+        """Converge without stepping: the rollback path (this member's
+        group failed). Bounded: `quiesce_step` raises `ElasticError` when
+        no plan appears within twice the collection window."""
         while True:
             plan = self.quiesce_step(train_epoch, host_step, leaving,
                                      flavor, window=window)
@@ -624,11 +687,15 @@ class ElasticCoordinator:
                 # process can take it in between, and the regroup then
                 # fails its rendezvous.
                 coordinator = f"{host}:{free_port(host)}"
+            # A leaver that was also accused (the SDC audit's eviction)
+            # carries the accusation as its reason.
+            suspects = self.ledger.suspects(plan.epoch)
             rec = MembershipRecord(
                 epoch=plan.epoch, members=plan.survivors,
                 coordinator=coordinator,
                 departed=tuple(list(plan.departed) + [
-                    {"sid": s, "reason": "preempted (graceful)"}
+                    {"sid": s, "reason": suspects.get(
+                        s, "preempted (graceful)")}
                     for s in plan.leavers]),
                 service_sid=leader, resume=resume, reason=plan.flavor,
                 ts=time.time())

@@ -245,10 +245,19 @@ class GuardHook(StepHook):
     Every rank computes the same decision from the same values (the
     sentinel's are equal on every rank), with no coordination beyond the
     audit's all-gather. Rank 0 writes the ``guard_quarantine``,
-    ``guard_spike`` and ``guard_sdc`` events into ``metrics.jsonl``. Left
-    out until ROADMAP Queue 1 item 9d-ii: the elastic branches (evicting the
-    SDC suspect, ``mark_suspect``, deferring a rollback while a quiesce
-    converges) and ``on_regroup``.
+    ``guard_spike`` and ``guard_sdc`` events into ``metrics.jsonl``.
+
+    Under ``resilience.elastic`` (the JAX package's elastic branches):
+    while a quiesce converges the guard does not rewind (the trigger is
+    recorded; a rewind would take this rank's step clock off the plan's);
+    an audit whose gather fails defers to the membership protocol (a
+    departed peer is not an audit finding); and an SDC finding evicts the
+    suspect through the ledger: the suspect sets the trainer's
+    ``_guard_evict`` and leaves with rollback flavour at this boundary's
+    `BoundaryHook`, the others publish it as a suspect (`mark_suspect`),
+    and rank 0 quarantine-marks every save since the last clean audit, so
+    the survivors resume from one that predates the corruption.
+    `on_regroup` re-baselines the audit on the new world.
     """
 
     def __init__(self, trainer):
@@ -306,14 +315,25 @@ class GuardHook(StepHook):
         steps, exactly those that diverged, would go unaudited."""
         self._sdc_marker = int(to_step)
 
+    def on_regroup(self) -> None:
+        """The world changed (an elastic regroup): the audit's baseline is
+        the regroup's resume point; the leaf paths are re-read and the
+        cadence re-arms there. The policy's statistics survive (the loss
+        scale did not change with the world)."""
+        self._leaf_paths = None
+        self._last_clean_audit = self.tr._host_step
+        self._sdc_marker = self.tr._host_step
+
     # -- post-window ----------------------------------------------------
 
     def on_step_end(self, ev: StepEvent) -> None:
         tr = self.tr
         first = tr._host_step - ev.n + 1
         # The guard's fence, its host time in ``guard.fence_s`` over
-        # ``guard.fences``.
+        # ``guard.fences`` (bounded first in an elastic NCCL run).
         t0 = time.perf_counter()
+        if tr._peer_fence is not None:
+            tr._peer_fence.drain()
         vals = torch.stack([
             torch.cat([m[k].reshape(-1).double() for m in ev.window])
             for k in ("loss_raw", "grad_norm", "applied")], 1).tolist()
@@ -333,6 +353,11 @@ class GuardHook(StepHook):
         if escalate is not None:
             self._escalate(ev, escalate)
         cfg = tr.cfg.guard
+        # The audit pauses only while a finding is in flight (every rank
+        # saw the same verdict), never on this rank's quiesce state: a
+        # quiescing member keeps stepping to the common stop threshold, so
+        # audits stay in lockstep, and gating them on a rank-local state
+        # would send ranks to different collectives.
         if cfg.sdc_every_steps > 0 and not tr._sdc_suspect_active:
             prev = self._sdc_marker if self._sdc_marker >= 0 else 0
             if (tr._host_step // cfg.sdc_every_steps
@@ -380,6 +405,12 @@ class GuardHook(StepHook):
             _flightrec.record("guard_halt", step=tr._host_step,
                               reason=t.reason)
             raise DivergedError(f"guard halt: {t.reason}")
+        if tr.elastic is not None and tr.elastic.quiescing:
+            # A membership transition is converging; a rewind now would
+            # take this rank's step clock off the plan's. The trigger is
+            # recorded; the post-regroup replay meets anything real again.
+            tr._log0("guard: rollback deferred — elastic quiesce in flight")
+            return
         raise _GuardRollback(ev.epoch, ev.done, t)
 
     # -- SDC audit ------------------------------------------------------
@@ -398,7 +429,23 @@ class GuardHook(StepHook):
         if self._leaf_paths is None:
             self._leaf_paths = leaf_paths(tr.model)
         sums = params_checksum(tr.model)
-        verdict = sdc_verdict(cross_rank_gather(sums), self._leaf_paths)
+        try:
+            gathered = cross_rank_gather(sums)
+        except Exception as e:
+            from tpu_dp_torch.parallel.dist import is_peer_failure
+
+            if tr.elastic is None or not is_peer_failure(e):
+                raise
+            # A peer died between the boundary and the gather (an evicted
+            # rank's exit racing the audit): no audit finding. The
+            # membership protocol owns dead peers (the next collective
+            # fails into it): this audit is skipped; the regroup
+            # re-baselines.
+            tr._log0("guard: SDC audit all-gather failed (%s) — peer "
+                     "likely departed; deferring to the membership "
+                     "protocol", e)
+            return
+        verdict = sdc_verdict(gathered, self._leaf_paths)
         _counters.inc("guard.sdc_audits")
         if verdict["consistent"]:
             self._last_clean_audit = tr._host_step
@@ -419,21 +466,40 @@ class GuardHook(StepHook):
                  "(divergent leaves: %s); params disagree bitwise across "
                  "the data axis", tr._host_step, verdict["suspects"],
                  detail["leaves"])
-        halting = tr.cfg.guard.sdc_action == "halt"
-        if tr.ctx.rank == 0:
+        acting = tr.elastic is not None or tr.cfg.guard.sdc_action == "halt"
+        me = tr.ctx.rank
+        if me == 0:
             self.log.record("sdc", **detail)
             tr._log_metrics({"event": "guard_sdc", **detail})
-            if halting:
+            if acting:
                 # Every save since the last clean audit may carry the
-                # corruption: no rollback or resume may trust one. (warn
-                # records only.)
+                # corruption: no rollback or resume may trust one. The
+                # writes in flight are joined first, so none lands after
+                # the marking. (warn records only.)
+                tr._join_writes()
                 tr._quarantine_saves_after(
                     self._last_clean_audit,
                     reason=f"sdc mismatch at step {tr._host_step} "
                            f"(suspects {verdict['suspects']})")
-        if not halting:
+        if not acting:
             return
         tr._sdc_suspect_active = True
+        if tr.elastic is not None:
+            # Evict the corrupt replica through the membership ledger: the
+            # suspect (which sees the same verdict) leaves with rollback
+            # flavour, the others accuse it so the record names why; the
+            # `BoundaryHook` later in this sweep runs the transition.
+            if me in verdict["suspects"] or verdict["majority"] is None:
+                tr._guard_evict = True
+                _flightrec.record("guard_evict", step=tr._host_step,
+                                  rank=me, reason="sdc audit suspect")
+                tr._log0("guard: this rank is the SDC suspect — leaving "
+                         "the membership (rollback regroup)")
+            else:
+                for r in verdict["suspects"]:
+                    tr.elastic.mark_suspect(
+                        r, f"sdc audit mismatch at step {tr._host_step}")
+            return
         _counters.inc("guard.halts")
         raise DivergedError(
             f"SDC audit mismatch at step {tr._host_step}: suspect rank(s) "

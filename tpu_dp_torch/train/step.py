@@ -631,13 +631,17 @@ class MultiStep:
             torch.autograd.graph.increment_version(p)
         return tuple(t.clone() for t in self._out)
 
-    def close(self) -> None:
+    def close(self, wait: bool = True) -> None:
         """Release the graph (and its pool) once the device is done with
         it; a window after this captures anew. Call before the process
         group is destroyed: a graph holds the NCCL collectives it
-        captured."""
+        captured. ``wait=False`` (a replay wedged on a dead peer) does not
+        wait: CUDA frees an executing graph when it completes, and NCCL's
+        abort, which ends it, waits for the graphs holding its work; the
+        caller lets the card drain before it allocates again."""
         if self.graph is not None:
-            torch.cuda.synchronize(self.step.device)
+            if wait:
+                torch.cuda.synchronize(self.step.device)
             self.graph.reset()
         self.graph = self._static = self._out = None
 

@@ -131,8 +131,20 @@ N-1 (`dist.elastic_initialize`, the run's backend), rebuild everything the
 group touches (`_build_world`), reload the snapshot through the
 resharding checkpoint path and re-split the rest of the epoch over
 themselves (`_set_elastic_tail`); every later record carries its
-``membership_epoch``. The rollback flavour (a member that vanished) and
-the grow half are not ported (ROADMAP Queue 1 items 9d-ii, 9d-iii).
+``membership_epoch``. The rollback flavour: a member that dies without a
+word (its peers' collectives fail: `dist.is_peer_failure`; on NCCL the
+window boundary's bounded fence, `dist.PeerFence`, gives up on a wedged
+replay and the communicators are aborted), that rank 0's health check
+finds stale (a suspect on the ledger) or that the SDC audit condemns
+(`hooks.GuardHook`) leaves the run: the survivors abandon the failed
+group (a collective or a fence waits on a peer a third of the window at
+most: `dist.PEER_WAIT_SHARE`), check in with rollback flavour, and the
+acting leader declares the silent member departed once
+``resilience.regroup_timeout_s`` passes; the survivors re-form at world
+N-1, reload the newest complete save (not a final snapshot), rebuild the
+re-split tail from its lineage and replay the updates since it. A
+rollback whose members are all alive and staying is no membership event:
+every rank re-raises. The grow half is ROADMAP Queue 1 item 9d-iii.
 """
 
 from __future__ import annotations
@@ -249,9 +261,11 @@ class Trainer:
         check_ported(cfg)
         self.cfg = cfg
         par = cfg.parallel
-        if cfg.train.steps_per_call != 1:
+        if cfg.train.steps_per_call != 1 or cfg.resilience.elastic:
             # torch's CUDA-graph notes: a captured NCCL collective needs
             # the error handler's event polling off, set before the group.
+            # An elastic run finds a dead peer at its window fence
+            # (`dist.PeerFence`) and aborts the communicators itself.
             os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
         addr = par.coordinator_address
         self.ctx = initialize(
@@ -329,6 +343,8 @@ class Trainer:
         # finding suppresses snapshots (`hooks.SnapshotHook`).
         self._rollback_gen = 0
         self._sdc_suspect_active = False
+        #: the SDC audit named this rank corrupt: it leaves (rollback).
+        self._guard_evict = False
         #: the batch clock (module doc); set from the update counter after
         #: a resume, as in the JAX package.
         self._host_step = 0
@@ -366,8 +382,21 @@ class Trainer:
         # per membership epoch, stable ids never.
         self.stable_rank = self.ctx.rank
         self._quiesce_plan = None
+        self._q_flavor = "graceful"
+        #: epoch steps done at the last boundary (`_elastic_rollback`), and
+        #: the epoch's device losses so far (kept past a peer failure).
+        self._epoch_done = 0
+        self._inflight_losses: list[torch.Tensor] = []
+        #: the bounded window fence of an elastic NCCL run (module doc).
+        self._peer_fence = None
         if res.elastic:
             self.elastic = self._build_elastic()
+            if self.ctx.backend == "nccl":
+                from tpu_dp_torch.parallel.dist import PeerFence
+
+                self._peer_fence = PeerFence(self.device,
+                                             self._peer_wait_s)
+            self._bound_peer_waits()
 
     def _build_elastic(self):
         """The run's `ElasticCoordinator`. Its generation key joins what
@@ -394,6 +423,23 @@ class Trainer:
             poll_every_steps=res.elastic_poll_every_steps,
             coordinator_host=res.elastic_coordinator_host,
             min_world=res.elastic_min_world)
+
+    @property
+    def _peer_wait_s(self) -> float:
+        """How long an elastic run waits on a peer (`dist.
+        PEER_WAIT_SHARE` of the collection window)."""
+        from tpu_dp_torch.parallel.dist import PEER_WAIT_SHARE
+
+        return self.cfg.resilience.regroup_timeout_s * PEER_WAIT_SHARE
+
+    def _bound_peer_waits(self) -> None:
+        """An elastic gloo group's collectives wait on a peer
+        `_peer_wait_s` at most (set once the group and its DDP are built;
+        NCCL's wait is the window fence's)."""
+        if self.ctx.backend == "gloo":
+            from tpu_dp_torch.parallel.dist import set_collective_timeout
+
+            set_collective_timeout(self._peer_wait_s)
 
     def _build_world(self) -> None:
         """Everything that depends on the group: the train and test
@@ -851,20 +897,34 @@ class Trainer:
         lineage = (meta.get("membership") or {}).get("lineage") or []
         if meta.get("kind") != "snapshot" or not lineage:
             return
-        world = self.ctx.world
-        if len(lineage) == 1 and int(lineage[0][0]) == world:
+        if len(lineage) == 1 and int(lineage[0][0]) == self.ctx.world:
             return  # a one-world epoch: the standard skip is exact
-        epoch = int(meta.get("epoch", 0))
-        if int(lineage[-1][0]) == world:
-            # The last segment ran at this world: its tail is this
-            # launch's stream too, less what it already ran.
-            prior, skip = lineage[:-1], int(lineage[-1][1])
+        self.start_epoch, self.start_step = self._lineage_position(
+            int(meta.get("epoch", 0)), self.start_step, lineage)
+
+    def _lineage_position(self, epoch: int, steps_done: int,
+                          lineage) -> tuple[int, int]:
+        """Where a save of ``epoch`` at ``steps_done``, stamped with the
+        consumption ``lineage``, continues at this world: by the standard
+        skip when the epoch ran at this world alone; otherwise on the
+        re-split tail (`_set_elastic_tail`), less what a last segment at
+        this world already ran, or at the next epoch when nothing
+        remains."""
+        lineage = [[int(w), int(n)] for w, n in lineage]
+        world = self.ctx.world
+        if not lineage or (len(lineage) == 1 and lineage[0][0] == world):
+            self._elastic_tail = None
+            self._epoch_lineage = []
+            return epoch, steps_done
+        if lineage[-1][0] == world:
+            # The last segment ran at this world: its tail is this run's
+            # stream too, less what it already ran.
+            prior, skip = lineage[:-1], lineage[-1][1]
         else:
             prior, skip = lineage, 0
         if self._set_elastic_tail(epoch, prior, skip=skip):
-            self.start_epoch, self.start_step = epoch, 0
-        else:
-            self.start_epoch, self.start_step = epoch + 1, 0
+            return epoch, 0
+        return epoch + 1, 0
 
     def _take_snapshot(self, epoch: int, steps_done: int,
                        wait: bool = False) -> bool:
@@ -874,6 +934,11 @@ class Trainer:
         snapshots that committed. Every rank calls it at the same boundary
         (the sharded update's gather is a collective)."""
         meta = self._snapshot_meta(epoch, steps_done)
+        if self._peer_fence is not None:
+            # The window before this boundary may still run on the card
+            # (one stays in flight): a save of it must wait for its
+            # collectives, bounded, or it could keep a wedged window's state.
+            self._peer_fence.drain()
         out = self.snap_mgr.snapshot(self.state, self._host_step, meta)
         if out is None:
             return False
@@ -1067,17 +1132,7 @@ class Trainer:
                    sig.trigger.reason)
         resume = None
         if self.ctx.is_main_process:
-            # A save still being written is no candidate yet: joining the
-            # writes first makes the choice independent of the disk's
-            # speed (a failed one degrades, as everywhere).
-            try:
-                self.ckpt_mgr.wait()
-            except (RuntimeError, OSError) as e:
-                self._ckpt_write_error(e)
-            try:
-                self.snap_mgr.wait()
-            except (RuntimeError, OSError) as e:
-                self.snap_mgr._record_write_error(self._host_step, e)
+            self._join_writes()
             resume = self._load_rollback_state(self._rollback_resume())
         if self.ctx.world > 1:
             resume = broadcast_one_to_all(resume)
@@ -1086,7 +1141,11 @@ class Trainer:
         elif self.ctx.world > 1:
             self._broadcast_state()
         self._host_step = int(resume["global_step"])
-        position = (int(resume["epoch"]), int(resume["steps_done"]))
+        # A save whose epoch ran at other worlds (an elastic run's lineage)
+        # continues on the re-split tail, as a regroup's resume does.
+        position = self._lineage_position(
+            int(resume["epoch"]), int(resume["steps_done"]),
+            resume.get("lineage") or [])
         self._rollback_gen += 1
         if self.ctx.is_main_process:
             hook.log.tombstone(from_step=from_step, to_step=self._host_step,
@@ -1096,6 +1155,10 @@ class Trainer:
             self.heartbeat.rewind(self._host_step)
         self.snap_mgr.rewind(self._host_step)
         hook.on_rollback_rewind(self._host_step)
+        if self.elastic is not None:
+            # The ledger poll's cadence too: a marker at the pre-rollback
+            # high-water step would hide peers and suspects in the replay.
+            self.elastic.rewind_poll(self._host_step)
         hook.arm_lr_ease(self._host_step)
         # The rolled-back updates' losses are undone work.
         del self.step_losses[max(0, self._host_step - self._losses_from):]
@@ -1117,14 +1180,17 @@ class Trainer:
                    self._host_step, self._rollback_gen)
         return position
 
-    # -- elastic world size, the graceful shrink ---------------------------
+    # -- elastic world size ------------------------------------------------
 
     def _leave_requested(self) -> bool:
         """This rank was told to go: a SIGTERM or SIGINT (under elastic a
         departure, not the whole job's exit), ``preempt:`` (a signal to
-        itself) or the ``leave:`` fault."""
+        itself), the ``leave:`` fault, or the SDC audit named it corrupt
+        (`hooks.GuardHook`: a replica holding divergent parameters leaves
+        before it poisons another gradient reduction)."""
         return ((self.preempt is not None and self.preempt.requested)
-                or (self.fault is not None and self.fault.leave_requested))
+                or (self.fault is not None and self.fault.leave_requested)
+                or self._guard_evict)
 
     def _elastic_boundary(self, epoch: int, done: int) -> None:
         """The window boundary's elastic turn (`hooks.BoundaryHook`):
@@ -1133,9 +1199,11 @@ class Trainer:
         without stalling: the rank refreshes its check-in at every
         boundary and keeps stepping (a stopped member would wedge its
         peers' collectives) until the plan's stop threshold, whose first
-        boundary is the same global position on every member. There rank
-        0 commits the final snapshot and control leaves `train_epoch`:
-        `PreemptedError` on the leaver, `_RegroupSignal` on a survivor."""
+        boundary is the same global position on every member. There
+        control leaves `train_epoch`: `PreemptedError` on the leaver,
+        `_RegroupSignal` on a survivor. The flavour is rollback on a
+        "suspect" trigger or an SDC eviction (a graceful final snapshot
+        would keep the very state the audit condemned), else graceful."""
         plan = self._quiesce_plan
         if plan is None:
             el = self.elastic
@@ -1149,36 +1217,55 @@ class Trainer:
                            self._host_step)
                 _flightrec.record("elastic_trigger", step=self._host_step,
                                   trigger=str(trigger), leaving=leaving)
+                self._q_flavor = ("rollback" if trigger == "suspect"
+                                  or self._guard_evict else "graceful")
             plan = el.quiesce_step(epoch, self._host_step, leaving=leaving,
-                                   flavor="graceful",
+                                   flavor=self._q_flavor,
                                    window=self.steps_per_call)
             if plan is None:
                 return  # keep stepping; the next boundary converges again
-            if plan.flavor != "graceful":
-                from tpu_dp_torch.resilience.elastic import ElasticError
-
-                raise ElasticError(
-                    f"quiesce e{plan.epoch} agreed a {plan.flavor} regroup "
-                    f"(departed: {[d['sid'] for d in plan.departed]}): only "
-                    f"the graceful shrink is ported to tpu_dp_torch yet "
-                    f"(ROADMAP Queue 1 item 9d-ii)")
             self._quiesce_plan = plan
-        if self._host_step >= plan.stop_step:
+        # A rollback plan with departed members finishes at once (the
+        # group is broken: no step can complete); a live-membered one (an
+        # SDC eviction) converges at the stop threshold like a graceful
+        # one, or this rank would wedge its still-stepping peers.
+        if (plan.flavor == "rollback" and plan.departed) \
+                or self._host_step >= plan.stop_step:
             self._finish_quiesce(epoch, done, plan)
 
     def _finish_quiesce(self, epoch: int, done: int, plan) -> None:
-        """The quiesce's end: the final snapshot at the agreed step (the
-        regroup's resume point: nothing replayed, nothing dropped), joined
-        before the ledger's barrier; then the hand-off."""
-        try:
-            committed = self._take_snapshot(epoch, done, wait=True)
-        except (RuntimeError, OSError):
-            committed = False
-            self._log0("elastic: final snapshot at step %d failed",
-                       self._host_step, exc_info=True)
-        if not committed:
-            self._log0("elastic: final snapshot at step %d did not commit",
-                       self._host_step)
+        """The quiesce's end. Graceful: the final snapshot at the agreed
+        step (the regroup's resume point: nothing replayed, nothing
+        dropped), joined before the ledger's barrier; one that does not
+        commit (a peer died between the plan and the stop step) leaves the
+        new leader to fall back to the rollback resume. Rollback: no final
+        snapshot (the regroup resumes from the newest complete save), and
+        a rollback with no membership change is refused. Then the
+        hand-off."""
+        from tpu_dp_torch.resilience.elastic import ElasticError
+
+        if (plan.flavor == "rollback" and not plan.departed
+                and not plan.leavers):
+            # Every member is alive and staying: some rank reported a
+            # failure that is no membership event (its own error is
+            # re-raised there). Regrouping the same world would wait in
+            # the rendezvous for the rank that is busy dying.
+            self._quiesce_plan = None
+            raise ElasticError(
+                f"rollback quiesce e{plan.epoch} carries no membership "
+                f"change: a peer reported a non-membership failure (see "
+                f"its log); refusing to regroup the same world")
+        if plan.flavor == "graceful":
+            try:
+                committed = self._take_snapshot(epoch, done, wait=True)
+            except (RuntimeError, OSError):
+                committed = False
+                self._log0("elastic: final snapshot at step %d failed",
+                           self._host_step, exc_info=True)
+            if not committed:
+                self._log0("elastic: final snapshot at step %d did not "
+                           "commit — the regroup will resume from the "
+                           "newest complete one", self._host_step)
         self.elastic.ack_and_await_quiesced(plan)
         self._quiesce_plan = None
         if self.elastic.sid in plan.leavers:
@@ -1194,11 +1281,84 @@ class Trainer:
                 f"survivor(s)")
         raise _RegroupSignal(epoch, done, plan)
 
+    def _elastic_rollback(self, epoch: int, err: BaseException) -> None:
+        """A peer is gone without a goodbye (``err``, `dist.
+        is_peer_failure`): abandon the failed group, check in with
+        rollback flavour and converge without stepping, hand over to the
+        regroup. A graceful plan (its leaver was killed before the stop
+        step) is downgraded to rollback here; the leader's resume then
+        comes from the newest complete save. Raises; never returns:
+        ``err`` itself when every member is alive and staying."""
+        import dataclasses
+
+        done = self._epoch_done
+        log.warning("elastic: collective failure at epoch %d step %d — "
+                    "entering rollback regroup", epoch, done, exc_info=err)
+        self._abandon_failed_world()
+        if self._quiesce_plan is None:
+            self._quiesce_plan = self.elastic.quiesce_blocking(
+                epoch, self._host_step, leaving=False, flavor="rollback",
+                window=self.steps_per_call)
+        if self._quiesce_plan.flavor == "graceful":
+            # The group died under a graceful plan (adopted before the
+            # failure, or published from check-ins made before it): its
+            # common stop step is out of reach and no final snapshot can
+            # be taken, so this rank carries it out as a rollback.
+            self._quiesce_plan = dataclasses.replace(self._quiesce_plan,
+                                                     flavor="rollback")
+        plan = self._quiesce_plan
+        if not plan.departed and not plan.leavers:
+            # Not a membership event (every member checked in, none is
+            # leaving): shrinking would change nothing.
+            self._quiesce_plan = None
+            raise err
+        self._finish_quiesce(epoch, done, plan)
+
+    def _abandon_failed_world(self) -> None:
+        """Walk away from a failed group: the windows' graphs released
+        (a wedged card's work aborted first, `_release_world`), the
+        communicators aborted (NCCL), the epoch's losses so far kept (the
+        regroup trims those it replays), the group destroyed. A gloo
+        group's sockets stay open (torch closes them only with the group
+        object, which DDP keeps alive): a live peer blocked on this rank
+        fails at the collective timeout instead (`_bound_peer_waits`)."""
+        from tpu_dp_torch.parallel.dist import (
+            abandon_distributed,
+            abort_communicators,
+        )
+
+        self._release_world()
+        abort_communicators(self._peer_wait_s)
+        self._keep_inflight_losses()
+        abandon_distributed()
+
+    def _keep_inflight_losses(self) -> None:
+        """Append the interrupted epoch's losses so far to `step_losses`
+        (a regroup trims the updates it replays)."""
+        pending, self._inflight_losses = self._inflight_losses, []
+        if pending:
+            self.step_losses.extend(torch.cat(pending).double().tolist())
+
     def _release_world(self) -> None:
         """Drop what holds the old group before it goes: the windows' CUDA
         graphs first (a graph replayed after its NCCL communicator is
-        destroyed faults on the card), the resident table, the re-split
-        tail and the heartbeat writer."""
+        destroyed faults on the card), DDP, the resident table, the
+        re-split tail and the heartbeat writer. Under the window fence the
+        card's queued work is waited for, bounded, first; work wedged on a
+        dead peer is ended (`_end_wedged_window`) and the card drained
+        (`dist.PeerFence.settle`)."""
+        from tpu_dp_torch.resilience.retry import PeerFailedError
+
+        fence = self._peer_fence
+        if fence is not None:
+            if not fence.wedged:
+                try:
+                    fence.drain()
+                except PeerFailedError:
+                    pass  # wedged
+            if fence.wedged:
+                self._end_wedged_window()
+                fence.settle()
         if self.multi_step is not None:
             self.multi_step.close()
         self.multi_step = self.ddp = None
@@ -1207,59 +1367,118 @@ class Trainer:
         if self.heartbeat is not None:
             self.heartbeat.close()
 
+    def _end_wedged_window(self) -> None:
+        """End a window replay wedged on a dead peer. NCCL's abort waits
+        for the CUDA graphs that captured its work to be destroyed, and a
+        graph's release waits for its replay, which only the abort ends
+        (four H100s, torch 2.11, NCCL 2.28.9: an abort with the graph
+        alive never returned; `tools/port_nccl_abort_probe.py`): the
+        release runs on a helper thread while this one aborts, each
+        bounded by `_peer_wait_s` (`ElasticError` past it)."""
+        import threading
+
+        from tpu_dp_torch.parallel.dist import abort_communicators
+        from tpu_dp_torch.resilience.elastic import ElasticError
+
+        closer = None
+        if self.multi_step is not None:
+            closer = threading.Thread(target=self.multi_step.close,
+                                      kwargs={"wait": False}, daemon=True)
+            closer.start()
+        abort_communicators(self._peer_wait_s)
+        if closer is not None:
+            closer.join(self._peer_wait_s)
+            if closer.is_alive():
+                raise ElasticError(
+                    f"the wedged window's CUDA graph was not released "
+                    f"within {self._peer_wait_s:g} s of the abort")
+
+    def _join_writes(self) -> None:
+        """Join this rank's epoch-save and snapshot writes in flight (rank
+        0 writes): a save still being written is no candidate yet, so the
+        choice of the newest complete one does not depend on the disk's
+        speed. A failed write degrades, as everywhere."""
+        try:
+            self.ckpt_mgr.wait()
+        except (RuntimeError, OSError) as e:
+            self._ckpt_write_error(e)
+        try:
+            self.snap_mgr.wait()
+        except (RuntimeError, OSError) as e:
+            self.snap_mgr._record_write_error(self._host_step, e)
+
     def _execute_regroup(self, sig: "_RegroupSignal") -> tuple[int, int]:
         """Form the survivors' group and go on; returns the ``(epoch,
         start_step)`` to continue from. The JAX package's sequence: the new
-        leader publishes the membership record (the resume point: the
-        final snapshot, and the epoch's lineage), everyone adopts it; the
-        old group is released and the new one formed at the record's
-        rendezvous with dense new ranks; the pipelines, model, DDP or the
-        sharded update, schedule and windows are rebuilt on it
-        (`_build_world`); every survivor reloads the agreed snapshot
-        through the resharding checkpoint path (the shared filesystem);
-        the interrupted epoch's rest is re-split over the survivors; the
-        telemetry is re-homed; a store barrier of the new epoch closes."""
+        leader publishes the membership record, whose resume is the final
+        snapshot and the epoch's lineage (graceful), or the newest
+        complete save (rollback, and a graceful plan whose final snapshot
+        never committed: the leader checks before it publishes); everyone
+        adopts it; the old group is released and the new one formed at
+        the record's rendezvous with dense new ranks; the pipelines,
+        model, DDP or the sharded update, schedule and windows are rebuilt
+        on it (`_build_world`); every survivor reloads the agreed save
+        through the resharding checkpoint path (the shared filesystem; a
+        fresh start when nothing is readable); the interrupted epoch's
+        rest is re-split over the survivors from the save's lineage, and a
+        rollback replays the updates since the save; the telemetry is
+        re-homed; a store barrier of the new epoch closes."""
         from tpu_dp_torch.parallel.dist import membership_barrier
-        from tpu_dp_torch.resilience.elastic import ElasticError
 
         t0 = time.perf_counter()
         plan, cfg = sig.plan, self.cfg
-        snap_dir = Path(self.snapshot_dir) / f"step_{self._host_step:010d}"
-        resume = {"epoch": sig.epoch, "steps_done": sig.done,
-                  "lineage": [list(map(int, seg))
-                              for seg in self._epoch_lineage]
-                  + [[self.ctx.world, self._segment_steps(sig.done)]],
-                  "global_step": self._host_step,
-                  "snapshot_dir": str(snap_dir)}
-        if (self.elastic.sid == min(plan.survivors)
-                and not ckpt_lib.checkpoint_exists(snap_dir)):
-            raise ElasticError(
-                f"elastic: the final snapshot {snap_dir} is missing; resuming "
-                f"from an older save instead is the rollback regroup "
-                f"(ROADMAP Queue 1 item 9d-ii)")
+        if plan.flavor == "graceful":
+            snap_dir = Path(self.snapshot_dir) / f"step_{self._host_step:010d}"
+            resume = {"epoch": sig.epoch, "steps_done": sig.done,
+                      "lineage": [list(map(int, seg))
+                                  for seg in self._epoch_lineage]
+                      + [[self.ctx.world, self._segment_steps(sig.done)]],
+                      "global_step": self._host_step,
+                      "snapshot_dir": str(snap_dir)}
+            if (self.elastic.sid == min(plan.survivors)
+                    and not ckpt_lib.checkpoint_exists(snap_dir)):
+                # The final snapshot never landed: the new leader checks
+                # before it publishes, so every survivor follows one
+                # fallback instead of racing the filesystem.
+                self._log0("elastic: final snapshot %s missing — falling "
+                           "back to the rollback resume", snap_dir)
+                self._join_writes()
+                resume = self._rollback_resume()
+        else:
+            self._join_writes()
+            resume = self._rollback_resume()
         record = self.elastic.establish(plan, resume)
         resume = record.resume  # the leader's payload is canonical
         old_world, old_rank = self.ctx.world, self.ctx.rank
+        from_step = self._host_step
         self._release_world()
         self.ctx = self.elastic.reinitialize(self.ctx.backend, self.device,
                                              record)
         self._build_world()
-        collect_released()  # the old world's objects, and its group
+        self._bound_peer_waits()
+        collect_released()  # the old world's objects
         resume = self._load_rollback_state(dict(resume))
         if resume.get("snapshot_dir") is None:
-            raise ElasticError(f"elastic: no readable save to resume the "
-                               f"regroup e{record.epoch} from")
+            self._log0("elastic: no readable save to resume regroup e%d "
+                       "from — starting fresh on world %d", record.epoch,
+                       record.world)
+            self._fresh_state()
         self._host_step = int(resume.get("global_step", 0))
+        # The replayed updates' losses are undone work; the snapshot
+        # cadence re-arms from the resume point.
+        del self.step_losses[max(0, self._host_step - self._losses_from):]
+        self.snap_mgr.rewind(self._host_step)
         self._register_program_costs()
-        epoch = int(resume.get("epoch", 0))
-        lineage = resume.get("lineage") or []
-        if lineage:
-            has_tail = self._set_elastic_tail(epoch, lineage)
-            position = (epoch, 0) if has_tail else (epoch + 1, 0)
-        else:
-            self._epoch_lineage = []
-            position = (epoch, int(resume.get("steps_done", 0)))
+        position = self._lineage_position(
+            int(resume.get("epoch", 0)), int(resume.get("steps_done", 0)),
+            resume.get("lineage") or [])
         self._rebuild_observers(record)
+        # The guard's audit baseline is topology-bound; an eviction flag
+        # (this rank survived, so it was not the suspect) resets.
+        self._guard_evict = False
+        self._sdc_suspect_active = False
+        if self._guard_hook is not None:
+            self._guard_hook.on_regroup()
         membership_barrier("regroup_ready", record.epoch,
                            timeout_s=cfg.resilience.regroup_timeout_s)
         dt = time.perf_counter() - t0
@@ -1285,10 +1504,12 @@ class Trainer:
             "resume_step": position[1] or tail_base,
             "regroup_s": round(dt, 3)})
         self._log0("elastic: membership epoch %d live — world %d→%d (rank "
-                   "%d→%d), %s resume at epoch %d step %d, regroup took "
-                   "%.2fs", record.epoch, old_world, record.world, old_rank,
+                   "%d→%d), %s resume at epoch %d step %d (global step %d, "
+                   "%d update(s) replayed), regroup took %.2fs",
+                   record.epoch, old_world, record.world, old_rank,
                    self.ctx.rank, plan.flavor, position[0],
-                   tail_base or position[1], dt)
+                   tail_base or position[1], self._host_step,
+                   from_step - self._host_step, dt)
         return position
 
     def _rebuild_observers(self, record) -> None:
@@ -1383,6 +1604,18 @@ class Trainer:
             self.health.request_dump(issues,
                                      dump_dir=self.flightrec.dump_dir)
         self.health.report(issues)
+        self._suspect_from_health(issues)
+
+    def _suspect_from_health(self, issues) -> None:
+        """Fold rank 0's hang detection into the membership ledger: a
+        "stale" or "missing" heartbeat makes its rank a suspect, which
+        every member's next poll sees (a rollback quiesce). Stragglers are
+        slow, not dead: never suspected."""
+        if self.elastic is None:
+            return
+        for issue in issues:
+            if issue.kind in ("stale", "missing"):
+                self.elastic.mark_suspect(issue.rank, issue.describe())
 
     def export_trace(self) -> Path | None:
         """Write the Perfetto/Chrome trace JSON of this rank's spans
@@ -1454,6 +1687,9 @@ class Trainer:
         pending, logged, run_steps = [], 0, 0
         losses, correct, count, quant_counts = [], None, 0, None
         i = base + start_step
+        # Kept past a peer failure (`_keep_inflight_losses`).
+        self._inflight_losses, self._epoch_done = losses, i
+        fence = self._peer_fence
         table = self.resident_train
         feed = pipe.windows if table is None else pipe.index_windows
         # Telemetry (train.obs != off): host stamps bracket each window,
@@ -1462,7 +1698,7 @@ class Trainer:
         # and h2d from CUDA events; nothing inside the dispatched window.
         spans = self.spans
         obs_full = self.obs_mode == "full"
-        fence = obs_full and self.device.type == "cuda"
+        timed = obs_full and self.device.type == "cuda"
         for hook in self._hooks:
             hook.on_epoch_start(epoch)
         it = iter(feed(self.steps_per_call, skip_steps=start_step))
@@ -1472,7 +1708,7 @@ class Trainer:
                 # data_wait slice sits in its real place on the timeline.
                 ts_wall = time.time()
                 t0 = time.perf_counter()
-                if fence:
+                if timed:
                     asked = _timing_event(self.device)
             try:
                 n, item = next(it)
@@ -1486,7 +1722,7 @@ class Trainer:
                      (self._guard_hook.guard_in(self._host_step + 1, n),))
             if spans is not None:
                 t1 = time.perf_counter()
-                if fence:
+                if timed:
                     # After the feed's copy (or its wait on the copy) on
                     # this stream: the input is usable when this completes.
                     handed = _timing_event(self.device)
@@ -1505,9 +1741,13 @@ class Trainer:
                                   m["quant_clip"].sum()]).to(torch.int64)
                 quant_counts = (c8 if quant_counts is None
                                 else quant_counts + c8)
+            if fence is not None:
+                # One window stays in flight; a wait past the deadline
+                # aborts the communicators and raises `PeerFailedError`.
+                fence.step()
             if spans is not None:
                 self._observe_window(n, ts_wall, t0, t1, obs_full,
-                                     (asked, handed) if fence else None)
+                                     (asked, handed) if timed else None)
             loss = m["loss"].reshape(-1)
             losses.append(loss)
             pending.append(loss)
@@ -1520,6 +1760,8 @@ class Trainer:
                 if i % every == 0:
                     # Reference print format; the fetch is the only wait
                     # on the device per log interval.
+                    if fence is not None:
+                        fence.drain()
                     flat = torch.cat(pending)
                     vals = flat[logged:logged + run_steps].tolist()
                     self._print("[%d, %5d] loss: %.3f"
@@ -1534,17 +1776,22 @@ class Trainer:
             # order); a hook may raise `PreemptedError`, `_RegroupSignal`,
             # `_GuardRollback` or `DivergedError`.
             self._host_step += n
+            self._epoch_done = i
             ev = hooks_lib.StepEvent(epoch=epoch, done=i, n=n, window=(m,))
             try:
                 for hook in self._hooks:
                     hook.on_step_end(ev)
             except (_GuardRollback, _RegroupSignal):
                 # The epoch's losses so far: a rollback keeps those of the
-                # updates before its target, a regroup all of them.
-                self.step_losses.extend(torch.cat(losses).double().tolist())
+                # updates before its target, a regroup those before its
+                # resume point.
+                self._keep_inflight_losses()
                 raise
+        self._inflight_losses = []
         if not losses:
             return {"loss": 0.0, "accuracy": 0.0}
+        if fence is not None:
+            fence.drain()
         # One fetch: the epoch's losses, the device's update counter (the
         # host's `state.step`, settled by the guard's fetch when it skips)
         # and the int8 codec's block counts.
@@ -1697,6 +1944,8 @@ class Trainer:
                 loss_sum = loss_sum + batch_loss_sum
         if count is None:
             return {"accuracy": 0.0, "loss": 0.0, "count": 0}
+        if self._peer_fence is not None:
+            self._peer_fence.drain()
         correct, count, loss_sum = torch.stack(
             [correct.double(), count.double(), loss_sum.double()]).tolist()
         n = max(int(count), 1)
@@ -1767,6 +2016,16 @@ class Trainer:
                 # The policy condemned the trajectory: rewind to the newest
                 # trusted save and replay (DivergedError past the budget).
                 epoch, start_step = self._execute_guard_rollback(sig)
+                continue
+            except Exception as e:
+                from tpu_dp_torch.parallel.dist import is_peer_failure
+
+                if self.elastic is None or not is_peer_failure(e):
+                    raise
+                try:
+                    self._elastic_rollback(epoch, e)
+                except _RegroupSignal as sig:
+                    epoch, start_step = self._execute_regroup(sig)
                 continue
             history.append(stats)
             self._print("epoch %d: train loss %.4f acc %.4f (%.1f img/s)"
