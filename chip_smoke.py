@@ -108,9 +108,10 @@ Phases, in order; any failure exits non-zero before the last line:
    counts × replays and per replay by kernel name under the profiler; (c)
    eager step ms against windowed ms per update, images/s by the fenced
    meter, device busy share and ops per update, host ms per window, the
-   capture's ms and bytes; at world 1 on NCCL: (d) phase 7b's run with
-   windows of 10, bit-identical to its eager run, and DDP's added ms per
-   update both ways; (b) ``grad_accum_steps=2`` at B=64, eager against
+   capture's ms and bytes (each timed over `WINDOW_TURNS`); at world 1
+   on NCCL: (d) phase 7b's run with windows of 10, bit-identical to its
+   eager run, and DDP's added ms per update both ways (`DDP_TURN_REPS`);
+   (b) ``grad_accum_steps=2`` at B=64, eager against
    windowed, bit-identical, 2 × (20 + 1 + 1) launches and one DDP
    all-reduce set per update; (e) phase 8's interrupted and resumed run with
    windows of 5, bit-identical to the uninterrupted one;
@@ -300,10 +301,37 @@ Phases, in order; any failure exits non-zero before the last line:
    the window), aborts the communicators, releases the graph, re-forms at
    world 1, recaptures its window and resumes from the newest complete
    snapshot, (c)'s checks; else ``elastic_rollback_nccl_multi_card: not
-   run, 1 card visible``. Every rank process ends within
-   ``ELASTIC_RANK_DEADLINE_S`` or the phase kills them all and fails
-   naming the rank. (a) and (d) run beside (c): their ranks start once
-   (c)'s rank 2 has exited, while (c)'s survivors wait out the window;
+   run, 1 card visible``; the grow: (f) (a)'s ranks through the port's
+   entry point (`run_elastic`) with ``relaunch:step=2,rank=2`` and
+   snapshots every 2 updates: rank 2 departs as a leaver, rejoins in its
+   own process (its kernels already built) and the world grows back;
+   every rank exits 0; the ledger tells 3 -> 2 -> 3: record 1 "graceful"
+   with sid 2 departed at world 2, record 2 "grow" with ``joined`` the
+   token of rank 2's own request, members [0, 1, 2], ``service_sid`` 0
+   and a commit verdict; rank 2's state right after its restore equals
+   the grow snapshot it loaded, byte for byte; all three end
+   bit-identical; the losses within ``DDP_LOSS_TOL`` of the one-process
+   oracle fed the global batches rebuilt from the records alone (3 -> 2
+   -> 3); each sample of each epoch once across the segments, as the
+   records predict; every rank's books exact at every world (rank 2 after
+   it rejoined too); two regroups; the grow's seconds split into the
+   joiner's rebuild, its request up to the plan, the quiesce up to the
+   final snapshot, the join-ready gate, the re-form and the joiner's
+   reload, and the ms per update at worlds 3, 2 and 3; (g) two gloo ranks
+   of ``Net`` with ``--train.pallas_xent=true`` and a 15 s gate, and a
+   join request for sid 2 forged into the live generation that no process
+   answers: both exit 0 after both epochs; record 1 "grow" admits sid 2,
+   record 2 ``grow_aborted`` at [0, 1] with sid 2 departed "join handshake
+   timeout (grow aborted)" and record 1's resume (its snapshot on disk),
+   an abort verdict; nothing replayed; bit-identical; the xent books
+   exact; the seconds the aborted grow cost; (h) with two or more cards
+   (b)'s NCCL pair with ``relaunch:step=10,rank=1`` over two epochs,
+   world 2 -> 1 -> 2, each world's windows captured again, (f)'s checks;
+   else ``elastic_grow_nccl_multi_card: not run, 1 card visible``. Every
+   rank process ends within ``ELASTIC_RANK_DEADLINE_S`` or the phase
+   kills them all and fails naming the rank. (a), (d), (f) and (g) run
+   beside (c): their ranks start once (c)'s rank 2 has exited, while
+   (c)'s survivors wait out the window;
 18. the kernels' JSON line, then ``{"ok": true, "device": {...}}``.
 
 Phases 1-11 keep the streamed feed (``--data.device_resident=off``), so
@@ -322,11 +350,12 @@ phase 15's and ``--elastic-worker SPEC`` phase 17's.
 Every by-name check of the launch books (phases 6, 9, 10, 11, 14, 15,
 16) holds one rule (`_by_name_verdict`): each kernel's count, its most
 over up to three profiler sessions of CUDA activity, equals the books,
-and a count above them fails at once. Each session starts with spin
-kernels, waited for and left out (`PROFILE_LEAD_IN`): without them a
-session late in a long process lost the records of the first kernels it
-saw (`tools/port_profiler_loss.py`). The wrappers' counter books beside
-it are exact too.
+and a count above them fails at once. Each session starts and ends with
+spin kernels of `PROFILE_SPIN_CYCLES`, waited for and left out
+(`PROFILE_LEAD_IN`): without them a session lost the records of the
+first kernels it saw (`tools/port_profiler_loss.py`) and of the last
+(`tools/port_profiler_drops.py`: the tail of a ResNet-50 window's
+replay). The wrappers' counter books beside it are exact too.
 
 Every timed case also prints ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
@@ -528,6 +557,32 @@ ELASTIC_RANK_DEADLINE_S = 480
 #: elastic, one update a call, 144 images (12 updates an epoch at world 3:
 #: the audit at step 4 finds the flip, and the eviction's stop step, 7 to
 #: 9 as the check-ins land, falls inside epoch 1), two epochs.
+#: phase 17's grow runs: (f) (a)'s three gloo ranks, ``relaunch:`` on
+#: rank 2 after update 2 (early in epoch 0), snapshots every 2 updates:
+#: rank 2 departs, rejoins in its process through `run_elastic`, and the
+#: world grows back to 3; (g) two gloo ranks of the reference Net on the
+#: card, one update a call, a forged join request of sid 2 that no process
+#: answers, a 15 s gate (``regroup_timeout_s``), every rank held 3 s at its
+#: step-2 boundary so the request lands while they train; (h) (b)'s NCCL
+#: pair, ``relaunch:`` on rank 1 at update 10, two epochs (the grown world
+#: warms up and captures its windows again in the second).
+ELASTIC_GROW_K = 2
+ELASTIC_GROW_ABORT_ARGS = ["--data.dataset=synthetic",
+                           "--data.synthetic_train_size=144",
+                           "--data.synthetic_test_size=8",
+                           "--data.batch_size=4", "--train.epochs=2",
+                           "--train.log_every=100",
+                           "--train.steps_per_call=1",
+                           "--train.pallas_xent=true",
+                           "--resilience.snapshot_every_steps=2",
+                           "--resilience.snapshot_keep=0",
+                           "--resilience.elastic=true",
+                           "--resilience.elastic_verify_fingerprint=false",
+                           "--resilience.elastic_coordinator_host=127.0.0.1",
+                           f"--resilience.regroup_timeout_s="
+                           f"{ELASTIC_WINDOW_S}",
+                           "--resilience.handle_signals=false",
+                           "--resilience.fault=delay:step=2,ms=3000"]
 ELASTIC_SDC_ARGS = ["--data.dataset=synthetic",
                     "--data.synthetic_train_size=144",
                     "--data.synthetic_test_size=8", "--data.batch_size=4",
@@ -1334,19 +1389,28 @@ def phase_train_kernels(out):
 
 
 #: spin kernels launched at the start of a by-name session, before the
-#: calls it counts (`profile_forward`'s ``lead_in``).
+#: calls it counts, and again at its end, after them (`profile_forward`'s
+#: ``lead_in`` and ``lead_out``), each spinning `PROFILE_SPIN_CYCLES`
+#: (about a quarter of a millisecond at the H100's clock).
 PROFILE_LEAD_IN = 64
+PROFILE_SPIN_CYCLES = 500_000
 
 
 def profile_forward(fn, n: int = 5, cuda_only: bool = False,
-                    keep_all: bool = False, lead_in: int = 0) -> dict:
+                    keep_all: bool = False, lead_in: int = 0,
+                    lead_out: int = 0, spin_cycles: int = 100,
+                    keep_order: bool = False) -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
     and the device's busy share of the wall time they took. ``cuda_only``
     traces the CUDA activity alone; ``keep_all`` also returns every
     kernel's record under ``all``. ``lead_in`` spin kernels run first in
     the session, waited for and left out of every figure: a session loses
     the records of the first kernels it sees, more of them the more
-    sessions the process has opened (`tools/port_profiler_loss.py`)."""
+    sessions the process has opened (`tools/port_profiler_loss.py`);
+    ``lead_out`` spin kernels run last, after the counted calls are waited
+    for, left out the same way; each spin lasts ``spin_cycles`` clock
+    cycles. ``keep_order`` also returns the counted kernels' names in the
+    order they started, under ``order``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1356,19 +1420,23 @@ def profile_forward(fn, n: int = 5, cuda_only: bool = False,
                                       else [ProfilerActivity.CPU])
     with profile(activities=acts) as prof:
         for _ in range(lead_in):
-            torch.cuda._sleep(100)
+            torch.cuda._sleep(spin_cycles)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        for _ in range(lead_out):
+            torch.cuda._sleep(spin_cycles)
+        torch.cuda.synchronize()
+    spun = lead_in or lead_out
     kernels = {}
     for ev in prof.key_averages():
         # Device-side events only: a CPU op (aten::conv2d) also carries
         # the device time of the kernels it launched.
         if (str(getattr(ev, "device_type", "")) != "DeviceType.CUDA"
-                or (lead_in and "spin_kernel" in ev.key)):
+                or (spun and "spin_kernel" in ev.key)):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -1389,7 +1457,12 @@ def profile_forward(fn, n: int = 5, cuda_only: bool = False,
             "kernel_launches_per_call": sum(
                 k["count_per_call"] for k in kernels.values()),
             "top": top, "ours": ours, "kernel_names": sorted(kernels),
-            **({"all": kernels} if keep_all else {})}
+            **({"all": kernels} if keep_all else {}),
+            **({"order": [ev.key for ev in sorted(
+                (ev for ev in prof.events()
+                 if str(getattr(ev, "device_type", "")) == "DeviceType.CUDA"
+                 and ev.key in kernels), key=lambda ev: ev.time_range.start)]}
+               if keep_order else {})}
 
 
 def _randomize_bn(model, gen):
@@ -2470,7 +2543,9 @@ def _profiled_books(fn, books, n=2, tries=3, names=False):
     sessions = []
     for _ in range(tries):
         p = profile_forward(fn, n, cuda_only=True, keep_all=True,
-                            lead_in=PROFILE_LEAD_IN)
+                            lead_in=PROFILE_LEAD_IN,
+                            lead_out=PROFILE_LEAD_IN,
+                            spin_cycles=PROFILE_SPIN_CYCLES)
         by_name = {k: sum(v["count_per_call"] for name, v in p["all"].items()
                           if k in name.lower()) for k in books}
         sessions.append({"by_name": by_name,
@@ -2498,9 +2573,11 @@ def _by_name_verdict(sessions, books, n):
     a session counting above them fails at once. A session opened late in
     a long process lost the records of the first kernels it saw (the loss
     grew with the sessions the process had opened: `tools/port_profiler_
-    loss.py`); every by-name session now starts with `PROFILE_LEAD_IN`
-    spin kernels, waited for and left out, which that tool measured to
-    remove the loss. Returns ``(ok, most, records short per kernel)``."""
+    loss.py`), and a session over long graph replays those of the last
+    (`tools/port_profiler_drops.py`); every by-name session now starts and
+    ends with `PROFILE_LEAD_IN` spin kernels of `PROFILE_SPIN_CYCLES`,
+    waited for and left out, which those tools measured to remove the
+    loss. Returns ``(ok, most, records short per kernel)``."""
     runs = [s["by_name"] for s in sessions]
     most = {k: max(r[k] for r in runs) for k in books}
     short = {k: round(n * (books[k] - most[k])) for k in books}
@@ -2599,7 +2676,7 @@ def _windows_xent(out, rec, checks):
     sweep = {}
     saved = tx.ONE_CTA_MAX_ROWS
     try:
-        for nb in (128, 256, 512, 1024, 4096):
+        for nb in XENT_SWEEP_B:
             lgb = 3.0 * torch.randn(nb, c, generator=gen, device="cuda")
             lbb = torch.randint(0, c, (nb,), generator=gen, device="cuda")
             row = {}
@@ -2653,11 +2730,21 @@ def _win_args(updates, batch=TRAIN_B, k=1, extra=()):
 
 #: the timed turns of `_windows_vs_eager`: profiled eager updates, CUDA-
 #: event reps of the eager update and of the window, host-timed windows,
-#: metered eager updates and windows. Phase 11 (b) times each of its four
-#: wires with fewer (its checks and books unchanged), and takes the eager
-#: update's profile and ms from (a)'s run of the same trainer.
-WINDOW_TURNS = {"eager_prof": 5, "eager_reps": 10, "win_reps": 4,
-                "host": 4, "meter_eager": 12, "meter_win": 5}
+#: metered eager updates and windows. Phase 9 (a) times with these (cut
+#: from 5, 10, 4, 4, 12, 5 to pay for phase 17's grow; its checks and
+#: books unchanged); phase 11 (b) times each of its four wires with fewer,
+#: and takes the eager update's profile and ms from (a)'s run of the same
+#: trainer.
+WINDOW_TURNS = {"eager_prof": 2, "eager_reps": 5, "win_reps": 2,
+                "host": 2, "meter_eager": 5, "meter_win": 3}
+#: phase 9 (d)'s turns (each way once, plain then DDP; cut from plain,
+#: DDP, DDP, plain) and CUDA-event reps of an update in each, eager and
+#: windowed (cut from 20 and 8), and (b)'s; (f)'s batches of the xent
+#: routes' timing sweep (cut from 128, 256, 512, 1024, 4096).
+DDP_TURNS = ("plain_eager", "ddp_eager", "plain_windowed", "ddp_windowed")
+DDP_TURN_REPS = (10, 4)
+ACCUM_REPS = (5, 3)
+XENT_SWEEP_B = (128, 256, 4096)
 SHARDED_B_TURNS = {"eager_prof": 0, "eager_reps": 0, "win_reps": 2,
                    "host": 2, "meter_eager": 3, "meter_win": 3}
 #: phase 10 (c)'s turns: a ResNet-50 window is 10 updates of ~77 ms, so
@@ -2893,8 +2980,8 @@ def phase_windows(out):
             checks["d_profiled_books_per_replay"] = ok and dsessions[-1][
                 "nccl_per_call"] in (0, buckets * k)
             # DDP's cost per update, eager and windowed, in turns on one
-            # model (plain, DDP, DDP, plain): the same step without the
-            # wrapper, per step and in its own windows.
+            # model (`DDP_TURNS`): the same step without the wrapper, per
+            # step and in its own windows.
             plain = make_train_step(dw.model, dw.optimizer, dw.schedule,
                                     use_pallas_xent=True, device=dw.device)
             plain_win = make_multi_step(plain, k)
@@ -2904,12 +2991,10 @@ def phase_windows(out):
                 "plain_windowed": (lambda: plain_win(dw.state, dpool), k),
                 "ddp_windowed": (lambda: dw.multi_step(dw.state, dpool), k)}
             turns = {}
-            for name in ("plain_eager", "ddp_eager", "ddp_eager",
-                         "plain_eager", "plain_windowed", "ddp_windowed",
-                         "ddp_windowed", "plain_windowed"):
+            for name in DDP_TURNS:
                 fn, per = calls[name]
                 turns.setdefault(name, []).append(
-                    cuda_median_ms(fn, reps=20 if per == 1 else 8) / per)
+                    cuda_median_ms(fn, reps=DDP_TURN_REPS[per > 1]) / per)
             de_ms, dw_ms = min(turns["ddp_eager"]), min(turns["ddp_windowed"])
             rec["d"] = {"losses": dw.step_losses, "eval": res_dw["eval"],
                         "ran_windowed": ran_dw, "buckets_per_update": buckets,
@@ -2957,10 +3042,10 @@ def phase_windows(out):
                         "ran_eager": ran_ae, "eval": res_aw["eval"],
                         "eager_ms_per_update": cuda_median_ms(
                             lambda: ae.train_step(ae.state, abatch),
-                            reps=10),
+                            reps=ACCUM_REPS[0]),
                         "windowed_ms_per_update": cuda_median_ms(
                             lambda: aw.multi_step(aw.state, apool),
-                            reps=5) / k}
+                            reps=ACCUM_REPS[1]) / k}
             print("[windows] (b) " + json.dumps(
                 {n: rec["b"][n] for n in ("eager_ms_per_update",
                                           "windowed_ms_per_update")}))
@@ -5537,6 +5622,9 @@ def elastic_worker(spec_path: str) -> int:
 
     with open(spec_path, encoding="utf-8") as f:
         spec = json.load(f)
+    if spec.get("grow"):
+        spec["started"] = spec.get("started", entered)
+        return _elastic_grow_worker(spec)
     rollback = spec.get("rollback", False)
 
     class Boundaries(StepHook):
@@ -5686,8 +5774,175 @@ def elastic_worker(spec_path: str) -> int:
     return PreemptedError.exit_code if rec["preempted"] else 0
 
 
+def _elastic_grow_worker(spec: dict) -> int:
+    """One rank of phase 17's grow runs ((f), (g), (h); the spec's
+    ``"grow"``): the port's entry point `run_elastic` on ``SPEC["args"]``,
+    so that a fired ``relaunch:`` rejoins in this process. Records, across
+    both incarnations of a rejoining rank: the index lists its feed
+    placed, the books of each world's segment (set to 0 before the fit,
+    at every regroup and after the join), the boundaries' clock, wall
+    stamps of the grow's steps (departure, request, plan, final snapshot,
+    gate, re-form, reload, join), whether the joiner's state right after
+    its restore equals the snapshot it loaded, the final record, the
+    losses and a digest of the final state; exits 0."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import tpu_dp_torch.resilience.elastic as el
+    import tpu_dp_torch.train.trainer as trainer_mod
+    from tpu_dp_torch import checkpoint as ckpt_lib
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.data.pipeline import DataPipeline
+    from tpu_dp_torch.obs.counters import counters
+    from tpu_dp_torch.parallel.dist import initialize, shutdown
+    from tpu_dp_torch.train.hooks import StepHook
+
+    taken, marks, events, segments = [], [], [], []
+    rec = {"rank": spec["rank"], "wall": {"started": spec["started"],
+                                          "imported": time.time()}}
+
+    def event(name):
+        events.append([name, time.time()])
+
+    def wrap(cls, attr, name, when=None):
+        real = getattr(cls, attr)
+
+        def call(*a, **kw):
+            on = when is None or when(*a, **kw)
+            if on:
+                event(name + "_start")
+            out = real(*a, **kw)
+            if on:
+                event(name + "_end")
+            return out
+        setattr(cls, attr, call)
+
+    place = DataPipeline._place_indices
+
+    def recorded(self, take, n):
+        taken.append([int(self.sampler.epoch), take.tolist()])
+        return place(self, take, n)
+
+    DataPipeline._place_indices = recorded
+    quiesce_step = el.ElasticCoordinator.quiesce_step
+
+    def quiesce(self, *a, **kw):
+        plan = quiesce_step(self, *a, **kw)
+        if plan is not None and plan.flavor == "grow":
+            event("grow_plan")
+        return plan
+
+    el.ElasticCoordinator.quiesce_step = quiesce
+    wrap(el.ElasticCoordinator, "ack_and_await_quiesced", "snapshot_acked",
+         when=lambda self, plan: plan.flavor == "grow")
+    wrap(el.ElasticCoordinator, "reinitialize", "reform")
+    wrap(el.MembershipLedger, "publish_join", "request")
+    wrap(el.MembershipLedger, "confirm_join_ready", "join_ready")
+    wrap(trainer_mod.Trainer, "_grow_gate", "gate")
+    wrap(trainer_mod.Trainer, "_complete_join", "join_barrier")
+
+    class Boundaries(StepHook):
+        def on_step_end(self, ev):
+            marks.append((time.perf_counter(), self.tr._host_step,
+                          self.tr.ctx.world, time.time()))
+
+    def close_segment(t, evals=0):
+        segments.append({"world": t.ctx.world, "from": seg_from[0],
+                         "to": t._host_step, "evals": evals,
+                         "books": dict(_ran_books(t))})
+        _reset_books()
+
+    seg_from = [0]
+
+    class Instrumented(trainer_mod.Trainer):
+        """The port's Trainer with the phase's clock, books and stamps."""
+
+        def __init__(self, cfg, device=None):
+            super().__init__(cfg, device=device)
+            self._hooks.insert(-1, Boundaries(self))
+            if self._join is not None:
+                # The joiner's books start at its admission.
+                _reset_books()
+                seg_from[0] = self._host_step
+
+        def _adopt_join_resume(self, record):
+            event("reload_start")
+            super()._adopt_join_resume(record)
+            event("reload_end")
+            snap = (record.resume or {}).get("snapshot_dir")
+            raw, _ = ckpt_lib.read_checkpoint(snap)
+            want = dict(ckpt_lib._walk_state_dict(raw))
+            mine = dict(ckpt_lib._walk_state_dict(
+                ckpt_lib.state_dict_of(self.state)))
+            rec["adopted_snapshot"] = snap
+            rec["adopted_equals_snapshot"] = mine.keys() == want.keys() \
+                and all(np.asarray(mine[k]).tobytes()
+                        == np.asarray(want[k]).tobytes() for k in want)
+
+        def _execute_regroup(self, sig):
+            close_segment(self)
+            t0 = time.perf_counter()
+            out = super()._execute_regroup(sig)
+            rec.setdefault("regroup_s", []).append(time.perf_counter() - t0)
+            seg_from[0] = self._host_step
+            return out
+
+        def fit(self):
+            try:
+                return super().fit()
+            except trainer_mod.PreemptedError:
+                close_segment(self)
+                rec["departed_at"] = self._host_step
+                event("departed")
+                raise
+
+    trainer_mod.Trainer = Instrumented
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = None
+    if spec["backend"] == "gloo":
+        device = "cuda:0"
+        initialize(backend="gloo", init_method=spec["init"],
+                   world_size=spec["world"], rank=spec["rank"],
+                   device=device, timeout_s=300)
+    t = None
+    try:
+        _reset_books()
+        cfg = parse_cli(spec["args"])
+        t0 = time.perf_counter()
+        t, result = trainer_mod.run_elastic(cfg, device=device)
+        rec["fit_s"] = time.perf_counter() - t0
+        rec["eval"] = result.get("eval")
+        close_segment(t, evals=len(t.test_pipe))
+        h = hashlib.sha256()
+        for x in t._replica_tensors():
+            h.update(x.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+        rec.update(
+            sid=t.stable_rank, new_rank=t.ctx.rank, world=t.ctx.world,
+            backend=t.ctx.backend, record=t.elastic.record.to_json(),
+            host_step=t._host_step, losses=list(t.step_losses),
+            digest=h.hexdigest(), marks=marks, events=events,
+            segments=segments, taken=taken,
+            captured=getattr(t.multi_step, "captured", None) is not None,
+            counters={k: v for k, v in counters.snapshot().items()
+                      if k.startswith("elastic.")})
+    finally:
+        if t is not None and t.multi_step is not None:
+            t.multi_step.close()
+        t = None
+        shutdown()
+    rec["wall"]["shut_down"] = time.time()
+    with open(spec["out"], "w", encoding="utf-8") as f:
+        json.dump(rec, f)
+    return 0
+
+
 def _start_elastic_ranks(work: str, backend: str, world: int,
-                         args: list, rollback: bool = False) -> list:
+                         args: list, rollback: bool = False,
+                         grow: bool = False) -> list:
     """`elastic_worker` ranks, started: gloo ranks on cuda:0 meeting
     through a ``file://`` rendezvous in ``work``, or NCCL ranks on cards
     0..world-1 through the env contract at a free loopback port."""
@@ -5702,7 +5957,7 @@ def _start_elastic_ranks(work: str, backend: str, world: int,
                 "init": "file://" + os.path.join(work, "rendezvous"),
                 "args": args + [f"--train.ckpt_dir={work}/ck"],
                 "out": os.path.join(work, f"rank{rank}.json"),
-                "rollback": rollback, "started": time.time()}
+                "rollback": rollback, "grow": grow, "started": time.time()}
         path = os.path.join(work, f"spec{rank}.json")
         with open(path, "w", encoding="utf-8") as f:
             json.dump(spec, f)
@@ -5720,12 +5975,21 @@ def _start_elastic_ranks(work: str, backend: str, world: int,
 
 
 def _elastic_oracle(args, record: dict, world0: int, epochs: int):
+    """The one-process oracle of a run with one regroup (`record`)."""
+    return _elastic_chain_oracle(args, [record], world0, epochs)
+
+
+def _elastic_chain_oracle(args, records: list, world0: int, epochs: int):
     """The one-process oracle of an elastic run on the card: the global
-    batches rebuilt from the published record alone (`ShardedSampler`
-    before the regroup, `elastic_resplit` for the re-split tail, the new
-    world's streams after it), each one update of a port `Trainer` alone
-    from the same seed, its schedule switched at the regroup to the one
-    the survivors rebuilt and its draws those of the whole global batch.
+    batches rebuilt from the published records alone (``records``: every
+    record after epoch 0, in order), each one update of a port `Trainer`
+    alone from the same seed, its schedule switched at each regroup to the
+    one the members rebuilt and its draws those of the whole global batch.
+    For each dataset epoch the newest record whose resume names it gives
+    the epoch's whole consumption lineage (segment i: its updates at its
+    world on `elastic_resplit` of the segments before it, the first on
+    `ShardedSampler`), the rest runs re-split at that record's world; an
+    epoch no regroup touched runs at the world current when it started.
     Returns the per-update losses and, per epoch, the indices consumed."""
     import numpy as np
     import torch
@@ -5740,9 +6004,6 @@ def _elastic_oracle(args, record: dict, world0: int, epochs: int):
                 device="cuda:0")
     cfg, body = t.cfg, t.step_body
     n_ex, b = len(t.train_ds), cfg.data.batch_size
-    resume = record["resume"]
-    interrupted, lineage = int(resume["epoch"]), resume["lineage"]
-    world1 = int(record["world"])
 
     def streams(epoch, prior, world):
         if prior:
@@ -5755,6 +6016,20 @@ def _elastic_oracle(args, record: dict, world0: int, epochs: int):
             smp.set_epoch(epoch)
             out.append(smp.shard_indices())
         return out
+
+    def segments(epoch):
+        touching = [r for r in records
+                    if int((r.get("resume") or {}).get("epoch", -1)) == epoch]
+        if touching:
+            lineage = [[int(w), int(n)]
+                       for w, n in touching[-1]["resume"]["lineage"]]
+            return ([(lineage[:i], w, n) for i, (w, n) in enumerate(lineage)]
+                    + [(lineage, int(touching[-1]["world"]), None)])
+        world = world0
+        for r in records:
+            if int((r.get("resume") or {}).get("epoch", 10**9)) < epoch:
+                world = int(r["world"])
+        return [([], world, None)]
 
     def use_world(world):
         spe = (-(-n_ex // world)) // b
@@ -5769,14 +6044,7 @@ def _elastic_oracle(args, record: dict, world0: int, epochs: int):
     images = torch.from_numpy(t.train_ds.images)
     labels = torch.from_numpy(t.train_ds.labels).long()
     for epoch in range(epochs):
-        if epoch < interrupted:
-            segments = [([], world0, None)]
-        elif epoch == interrupted:
-            segments = [([], world0, int(lineage[0][1])),
-                        (lineage, world1, None)]
-        else:
-            segments = [([], world1, None)]
-        for prior, world, steps in segments:
+        for prior, world, steps in segments(epoch):
             use_world(world)
             ss = streams(epoch, prior, world)
             n = min(len(x) for x in ss) // b if steps is None else steps
@@ -5791,7 +6059,7 @@ def _elastic_oracle(args, record: dict, world0: int, epochs: int):
 
 
 def _start_elastic(key: str, backend: str, world: int, args: list,
-                   rollback: bool = False) -> dict:
+                   rollback: bool = False, grow: bool = False) -> dict:
     """One run's `elastic_worker` ranks, started, with the run's deadline
     (`ELASTIC_RANK_DEADLINE_S`)."""
     work = os.path.join(HERE, "build", "elastic_smoke",
@@ -5799,7 +6067,7 @@ def _start_elastic(key: str, backend: str, world: int, args: list,
     return {"key": key, "work": work, "t0": time.perf_counter(),
             "deadline": time.monotonic() + ELASTIC_RANK_DEADLINE_S,
             "procs": _start_elastic_ranks(work, backend, world, args,
-                                          rollback=rollback)}
+                                          rollback=rollback, grow=grow)}
 
 
 def _await_started(started: dict) -> list[str]:
@@ -6295,16 +6563,277 @@ def _elastic_sdc_run(out, started: dict) -> dict:
     return rec
 
 
+def _ledger_records(work: str) -> tuple[str, list]:
+    """The run's generation directory and its records, in order."""
+    gen = os.path.join(work, "ck", "membership")
+    gen = os.path.join(gen, os.listdir(gen)[0])
+    recs = []
+    for name in sorted(os.listdir(gen)):
+        if name.startswith("epoch_") and name.endswith(".json"):
+            with open(os.path.join(gen, name), encoding="utf-8") as f:
+                recs.append(json.load(f))
+    return gen, recs
+
+
+def _last_event(x: dict, name: str):
+    got = [t for n, t in x["events"] if n == name]
+    return got[-1] if got else None
+
+
+def _segment_books_exact(x: dict, convs: int = 10, draws: int = 1) -> bool:
+    """Every world's segment of a rank (`_elastic_grow_worker`) holds the
+    books of its updates and evals exactly."""
+    return bool(x["segments"]) and all(
+        _books_exact(sg["books"], sg["to"] - sg["from"], sg["evals"],
+                     convs=convs, draws=draws) for sg in x["segments"])
+
+
+def _elastic_grow_run(out, started: dict, backend: str, world: int,
+                      victim: int, args: list) -> dict:
+    """(f) and (h): one relaunch of phase 17, its ranks started
+    (`_start_elastic` on ``args`` with ``grow``), and its checks (module
+    docstring)."""
+    key, work, procs = started["key"], started["work"], started["procs"]
+    logs = _await_started(started)
+    ranks_s = time.perf_counter() - started["t0"]
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * world:
+        for rank, log in enumerate(logs):
+            print(f"[{key}] rank {rank} rc {rcs[rank]}:\n{log[-3000:]}")
+        raise AssertionError(f"{key}: exit codes {rcs}, want all 0")
+    res = {}
+    for rank in range(world):
+        with open(os.path.join(work, f"rank{rank}.json"),
+                  encoding="utf-8") as f:
+            res[rank] = json.load(f)
+    gen, records = _ledger_records(work)
+    shrink, grow = (records + [{}, {}])[1:3]
+    with open(os.path.join(gen, f"join_e0002_r{victim:05d}.json"),
+              encoding="utf-8") as f:
+        request = json.load(f)
+    with open(os.path.join(gen, "grow_verdict_e0002.json"),
+              encoding="utf-8") as f:
+        verdict = json.load(f)
+    a, j = res[0], res[victim]
+    epochs = int([v for v in args if v.startswith("--train.epochs=")][-1]
+                 .split("=")[1])
+    n_ex = next(int(v.split("=")[1]) for v in args
+                if v.startswith("--data.synthetic_train_size="))
+    oracle, consumed = _elastic_chain_oracle(
+        [x for x in args if not x.startswith("--resilience.")]
+        + [f"--train.ckpt_dir={work}/oracle"], records[1:], world, epochs)
+    diffs = [abs(p - q) for p, q in zip(a["losses"], oracle)]
+    stop = int(grow.get("resume", {}).get("global_step", 0))
+    bound = diffs[:stop + ELASTIC_ORACLE_AFTER]
+    took: dict = {}
+    for x in res.values():
+        for epoch, idx in x["taken"]:
+            took.setdefault(epoch, []).extend(idx)
+    worlds = {r: [sg["world"] for sg in x["segments"]]
+              for r, x in res.items()}
+    incumbents = [r for r in range(world) if r != victim]
+
+    def stretch_rates(x):
+        out_, cur, w0 = [], [], None
+        for t, st, ww, *_ in x["marks"]:
+            if w0 is not None and ww != w0:
+                out_.append((w0, cur))
+                cur = []
+            w0 = ww
+            cur.append((t, st))
+        out_.append((w0, cur))
+        return [{"world": w, "ms_per_update": statistics.median(
+            [1e3 * (t1 - t0_) / (s1 - s0) for (t0_, s0), (t1, s1)
+             in zip(c[1:], c[2:]) if s1 > s0] or [float("nan")])}
+            for w, c in out_]
+
+    split = {
+        "joiner_rebuild_s": _last_event(j, "request_start")
+        - _last_event(j, "departed"),
+        "request_to_plan_s": _last_event(a, "grow_plan")
+        - _last_event(j, "request_start"),
+        "quiesce_to_snapshot_s": _last_event(a, "snapshot_acked_start")
+        - _last_event(a, "grow_plan"),
+        "join_ready_gate_s": _last_event(a, "gate_end")
+        - _last_event(a, "gate_start"),
+        "reform_s": _last_event(a, "reform_end")
+        - _last_event(a, "reform_start"),
+        "joiner_reload_s": _last_event(j, "reload_end")
+        - _last_event(j, "reload_start"),
+        "departure_to_joined_s": _last_event(j, "join_barrier_end")
+        - _last_event(j, "departed")}
+    checks = {
+        "exit_codes": rcs == [0] * world,
+        "records_shrink_then_grow": [r.get("world") for r in records]
+        == [world, world - 1, world],
+        "record_1_graceful": shrink.get("reason") == "graceful"
+        and [d["sid"] for d in shrink.get("departed", [])] == [victim],
+        "record_2_grow_echoes_token": grow.get("reason") == "grow"
+        and grow.get("joined") == [{"sid": victim,
+                                    "token": request["token"]}]
+        and grow.get("members") == list(range(world))
+        and grow.get("service_sid") == 0 and verdict["commit"] is True,
+        "joiner_state_equals_snapshot": j.get("adopted_equals_snapshot")
+        is True and j.get("adopted_snapshot")
+        == grow.get("resume", {}).get("snapshot_dir"),
+        "all_bit_identical": len({x["digest"] for x in res.values()}) == 1
+        and all(x["world"] == world and x["record"] == grow
+                for x in res.values()),
+        "losses_track_oracle": len(a["losses"]) == len(oracle)
+        and bool(bound) and max(bound) <= DDP_LOSS_TOL,
+        "losses_finite": all(math.isfinite(v) for v in a["losses"]),
+        "coverage_equals_records": all(
+            sorted(took.get(e, [])) == sorted(consumed[e])
+            for e in consumed) and all(
+            len(set(took.get(e, []))) == len(took.get(e, []))
+            for e in consumed),
+        "books_per_rank_at_every_world": all(
+            _segment_books_exact(x) for x in res.values())
+        and all(worlds[r] == [world, world - 1, world] for r in incumbents)
+        and worlds[victim] == [world, world],
+        "regroups_2": all(res[r]["counters"].get("elastic.regroups") == 2
+                          for r in incumbents)
+        and j["counters"].get("elastic.joins") == 1,
+    }
+    rec = {"checks": checks, "rcs": rcs, "records": records,
+           "losses": a["losses"], "oracle_losses": oracle,
+           "max_loss_diff": max(diffs) if diffs else None,
+           "max_loss_diff_bound": max(bound) if bound else None,
+           "grow_split_s": split,
+           "regroup_s": {r: x.get("regroup_s") for r, x in res.items()},
+           "ms_per_update": stretch_rates(a),
+           "coverage": {e: {"consumed": len(took.get(e, [])),
+                            "distinct": len(set(took.get(e, []))),
+                            "dropped": n_ex - len(set(took.get(e, [])))}
+                        for e in consumed},
+           "segments": {r: x["segments"] for r, x in res.items()},
+           "fit_s": {r: x["fit_s"] for r, x in res.items()},
+           "ranks_s": ranks_s, "captured": a.get("captured")}
+    out["elastic"][key] = rec
+    print(f"[{key}] " + json.dumps({k: v for k, v in rec.items()
+                                    if k not in ("losses", "oracle_losses",
+                                                 "records", "segments")}))
+    print(f"[{key}] {backend} world {world} -> {world - 1} -> {world} "
+          f"(rank {victim} relaunched at update {j.get('departed_at')}, "
+          f"rejoined at {stop}): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in split.items())
+          + f"; ms per update {rec['ms_per_update']}; ranks {ranks_s:.1f} s")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
+def _forge_join_when_live(work: str, sid: int, stop, deadline_s: float):
+    """Publish a valid join request for ``sid`` into the run's generation
+    once its epoch-0 record exists (no process answers it): the joiner
+    that never comes. Returns the thread doing it."""
+    import threading
+
+    from tpu_dp_torch.resilience.elastic import MembershipLedger
+
+    def forge():
+        root = os.path.join(work, "ck", "membership")
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline and not stop.is_set():
+            gens = sorted(os.listdir(root)) if os.path.isdir(root) else []
+            if gens and os.path.exists(os.path.join(root, gens[0],
+                                                    "epoch_0000.json")):
+                MembershipLedger(os.path.join(root, gens[0]), sid) \
+                    .publish_join(1, sid, token="ghost-token",
+                                  generation=gens[0])
+                return
+            time.sleep(0.05)
+
+    th = threading.Thread(target=forge, daemon=True)
+    th.start()
+    return th
+
+
+def _elastic_grow_aborted_run(out, started: dict) -> dict:
+    """(g): two gloo ranks of Net on the card and a joiner that never
+    comes, started (`_start_elastic` on `ELASTIC_GROW_ABORT_ARGS` with
+    ``grow``, the forged request beside), and its checks (module
+    docstring)."""
+    key, work, procs = started["key"], started["work"], started["procs"]
+    logs = _await_started(started)
+    ranks_s = time.perf_counter() - started["t0"]
+    rcs = [p.returncode for p in procs]
+    if rcs != [0, 0]:
+        for rank, log in enumerate(logs):
+            print(f"[{key}] rank {rank} rc {rcs[rank]}:\n{log[-3000:]}")
+        raise AssertionError(f"{key}: exit codes {rcs}, want [0, 0]")
+    res = {}
+    for rank in range(2):
+        with open(os.path.join(work, f"rank{rank}.json"),
+                  encoding="utf-8") as f:
+            res[rank] = json.load(f)
+    gen, records = _ledger_records(work)
+    grow, back = (records + [{}, {}])[1:3]
+    snap = (back.get("resume") or {}).get("snapshot_dir") or ""
+    with open(os.path.join(gen, "grow_verdict_e0001.json"),
+              encoding="utf-8") as f:
+        verdict = json.load(f)
+    a = res[0]
+    updates = 2 * (144 // (2 * 4))  # two epochs of 18 updates at world 2
+    aborted_s = {r: x.get("regroup_s") for r, x in res.items()}
+    gate = {r: (_last_event(x, "gate_end") or 0)
+            - (_last_event(x, "gate_start") or 0) for r, x in res.items()}
+    checks = {
+        "exit_codes": rcs == [0, 0],
+        "record_1_grow_admits_sid_2": grow.get("reason") == "grow"
+        and grow.get("joined") == [{"sid": 2, "token": "ghost-token"}]
+        and grow.get("members") == [0, 1, 2],
+        "record_2_grow_aborted": back.get("reason") == "grow_aborted"
+        and back.get("members") == [0, 1] and back.get("departed") == [
+            {"sid": 2, "reason": "join handshake timeout (grow aborted)"}]
+        and verdict["commit"] is False,
+        "resume_is_the_grow_snapshot": back.get("resume") == grow.get(
+            "resume") and os.path.exists(os.path.join(snap,
+                                                      "state.msgpack")),
+        "nothing_replayed_both_epochs": all(
+            x["host_step"] == len(x["losses"]) == updates
+            and x["world"] == 2 and x["record"] == back
+            for x in res.values()),
+        "bit_identical": len({x["digest"] for x in res.values()}) == 1,
+        "xent_books_exact": all(_segment_books_exact(x, convs=0, draws=0)
+                                for x in res.values()),
+        "one_regroup": all(x["counters"].get("elastic.regroups") == 1
+                           for x in res.values()),
+    }
+    rec = {"checks": checks, "rcs": rcs, "records": records,
+           "aborted_grow_s": aborted_s, "gate_s": gate,
+           "window_s": ELASTIC_WINDOW_S,
+           "segments": {r: x["segments"] for r, x in res.items()},
+           "fit_s": {r: x["fit_s"] for r, x in res.items()},
+           "ranks_s": ranks_s}
+    out["elastic"][key] = rec
+    print(f"[{key}] " + json.dumps({k: v for k, v in rec.items()
+                                    if k not in ("records", "segments")}))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        for rank, log in enumerate(logs):
+            print(f"[{key}] rank {rank}:\n{log[-2000:]}")
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
 def phase_elastic(out):
-    """17: the elastic shrink on the main path (module docstring): (a) the
+    """17: elastic world size on the main path (module docstring): (a) the
     graceful shrink of three gloo ranks on the one card, rank 2 leaving;
     (b) NCCL across two cards, rank 1 leaving, windows of 10 as CUDA graphs
     released and recaptured, when two or more cards are visible; (c) the
     rollback of (a)'s ranks, rank 2 killed; (d) the guard's SDC eviction
     of three Net ranks; (e) (b)'s rollback, rank 1 killed, when two or
-    more cards are visible. (a) and (d) run beside (c): their ranks start
-    once (c)'s rank 2 has exited, while (c)'s survivors wait out the
-    collection window (their times are taken on a shared card)."""
+    more cards are visible; (f) the grow: (a)'s ranks, rank 2 relaunched
+    in its process (`run_elastic`), 3 -> 2 -> 3; (g) the aborted grow of
+    two Net ranks, a joiner that never comes; (h) (b)'s NCCL pair grown
+    back, 2 -> 1 -> 2, when two or more cards are visible. (a), (d), (f)
+    and (g) run beside (c): their ranks start once (c)'s rank 2 has
+    exited, while (c)'s survivors wait out the collection window (their
+    times are taken on a shared card)."""
+    import threading
+
     import torch
 
     out["elastic"] = {"card": out["card"]}
@@ -6314,13 +6843,23 @@ def phase_elastic(out):
         "--train.steps_per_call=1"]
     leave_args = gloo_args + [
         f"--resilience.fault=leave:step={ELASTIC_K},rank=2"]
-    t0, beside = time.perf_counter(), {}
+    grow_args = gloo_args + [
+        f"--resilience.snapshot_every_steps={ELASTIC_SNAP_EVERY}",
+        "--resilience.snapshot_keep=0",
+        f"--resilience.fault=relaunch:step={ELASTIC_GROW_K},rank=2"]
+    t0, beside, stop = time.perf_counter(), {}, threading.Event()
 
     def start_beside():
         beside["a"] = _start_elastic("elastic_gloo_one_card", "gloo",
                                      ELASTIC_WORLD, leave_args)
         beside["d"] = _start_elastic("elastic_sdc_evict", "gloo", 3,
                                      ELASTIC_SDC_ARGS)
+        beside["f"] = _start_elastic("elastic_grow_gloo_one_card", "gloo",
+                                     ELASTIC_WORLD, grow_args, grow=True)
+        beside["g"] = _start_elastic("elastic_grow_aborted", "gloo", 2,
+                                     ELASTIC_GROW_ABORT_ARGS, grow=True)
+        _forge_join_when_live(beside["g"]["work"], 2, stop,
+                              ELASTIC_RANK_DEADLINE_S)
 
     try:
         _elastic_rollback_run(out, "elastic_rollback_gloo_one_card", "gloo",
@@ -6328,19 +6867,26 @@ def phase_elastic(out):
                               on_exit=start_beside)
         seconds["c"] = time.perf_counter() - t0
         if not beside:
-            raise AssertionError("elastic_gloo_one_card, elastic_sdc_evict: "
-                                 "not started (rank 2 of elastic_rollback_"
-                                 "gloo_one_card never exited)")
+            raise AssertionError("elastic_gloo_one_card, elastic_sdc_evict, "
+                                 "elastic_grow_*: not started (rank 2 of "
+                                 "elastic_rollback_gloo_one_card never "
+                                 "exited)")
         _elastic_run(out, beside["a"], "gloo", ELASTIC_WORLD, 2, leave_args)
         seconds["a"] = time.perf_counter() - beside["a"]["t0"]
         _elastic_sdc_run(out, beside["d"])
         seconds["d"] = time.perf_counter() - beside["d"]["t0"]
+        _elastic_grow_run(out, beside["f"], "gloo", ELASTIC_WORLD, 2,
+                          grow_args)
+        seconds["f"] = time.perf_counter() - beside["f"]["t0"]
+        _elastic_grow_aborted_run(out, beside["g"])
+        seconds["g"] = time.perf_counter() - beside["g"]["t0"]
     finally:
+        stop.set()
         for p in (p for run in beside.values() for p in run["procs"]):
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
-    seconds["a_c_d"] = time.perf_counter() - t0
+    seconds["a_c_d_f_g"] = time.perf_counter() - t0
     cards = torch.cuda.device_count()
     nccl_args = ELASTIC_ARGS + [
         f"--data.synthetic_train_size={ELASTIC_NCCL_TRAIN}",
@@ -6373,6 +6919,26 @@ def phase_elastic(out):
                                  "survivor's windows were not recaptured "
                                  "as a CUDA graph")
     seconds["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cards < 2:
+        out["elastic"]["elastic_grow_nccl_multi_card"] = "not run"
+        print(f"elastic_grow_nccl_multi_card: not run, {cards} card "
+              f"visible")
+    else:
+        grow = ELASTIC_ARGS + [
+            f"--data.synthetic_train_size={ELASTIC_NCCL_TRAIN}",
+            f"--train.steps_per_call={ELASTIC_NCCL_WIN}",
+            f"--resilience.snapshot_every_steps={ELASTIC_NCCL_WIN}",
+            "--resilience.snapshot_keep=0",
+            f"--resilience.fault=relaunch:step={ELASTIC_NCCL_K},rank=1"]
+        rec = _elastic_grow_run(out, _start_elastic(
+            "elastic_grow_nccl_multi_card", "nccl", 2, grow, grow=True),
+            "nccl", 2, 1, grow)
+        if not rec["captured"]:
+            raise AssertionError("elastic_grow_nccl_multi_card: the grown "
+                                 "world's windows were not captured as a "
+                                 "CUDA graph")
+    seconds["h"] = time.perf_counter() - t0
     print(f"[elastic] seconds {json.dumps(seconds)}")
 
 

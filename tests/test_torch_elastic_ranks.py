@@ -58,13 +58,14 @@ def _args(ckpt: Path, train_size: int, *extra) -> list[str]:
             "--resilience.regroup_timeout_s=60", *extra]
 
 
-def _start(tmp: Path, args: list[str]) -> list[subprocess.Popen]:
+def _start(tmp: Path, args: list[str], world: int = _WORLD
+           ) -> list[subprocess.Popen]:
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     env.pop("TPU_DP_FAULT", None)
     procs = []
-    for rank in range(_WORLD):
+    for rank in range(world):
         spec = {"job": "elastic", "args": args, "rank": rank,
-                "world": _WORLD, "init": f"file://{tmp / 'rendezvous'}",
+                "world": world, "init": f"file://{tmp / 'rendezvous'}",
                 "out": str(tmp / f"rank{rank}.pkl")}
         path = tmp / f"spec{rank}.json"
         path.write_text(json.dumps(spec))
@@ -75,7 +76,8 @@ def _start(tmp: Path, args: list[str]) -> list[subprocess.Popen]:
 
 
 def _finish(tmp: Path, procs, victim: int) -> dict:
-    """Every rank's output; the victim exits 143, the survivors 0."""
+    """Every rank's output; the victim exits 143, the survivors 0 (every
+    rank 0 when ``victim`` is -1)."""
     try:
         logs = [p.communicate(timeout=_TIMEOUT_S)[0] for p in procs]
     finally:
@@ -88,7 +90,7 @@ def _finish(tmp: Path, procs, victim: int) -> dict:
         assert p.returncode == want, f"rank {rank}: rc {p.returncode}\n" \
                                      f"{log[-4000:]}"
     return {rank: pickle.loads((tmp / f"rank{rank}.pkl").read_bytes())
-            for rank in range(_WORLD)}
+            for rank in range(len(procs))}
 
 
 def _oracle(record: dict, train_size: int, tmp: Path):

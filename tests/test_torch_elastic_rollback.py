@@ -422,14 +422,21 @@ def test_peer_failures_are_told_from_every_other_error(err, peer):
 
 def test_the_guard_runs_with_elastic_and_the_grow_half_stays_refused(
         tmp_path):
+    # The grow half runs since its port: its knobs and its relaunch fault
+    # are taken under the guard too, and only drop (the host ring's) is
+    # refused.
     cfg = parse_cli(_ELASTIC + ["--guard.enabled=true",
                                 "--resilience.fault=sdc:step=3,rank=2",
                                 f"--train.ckpt_dir={tmp_path}"])
     assert cfg.guard.enabled and cfg.resilience.elastic
-    for bad in (["--resilience.elastic_join=never"],
-                ["--resilience.fault=relaunch:step=2,rank=1"]):
-        with pytest.raises(ValueError, match="9d-iii"):
-            parse_cli(_ELASTIC + ["--guard.enabled=true", *bad])
+    cfg = parse_cli(_ELASTIC + ["--guard.enabled=true",
+                                "--resilience.elastic_join=never",
+                                "--resilience.fault=relaunch:step=2,rank=1"])
+    assert (cfg.resilience.elastic_join, cfg.resilience.fault) == (
+        "never", "relaunch:step=2,rank=1")
+    with pytest.raises(ValueError, match="host ring"):
+        parse_cli(_ELASTIC + ["--guard.enabled=true",
+                              "--resilience.fault=drop:step=2,rank=1"])
 
 
 @pytest.mark.card

@@ -104,7 +104,9 @@ def test_static_scan_finds_no_jax_or_tpu_dp_import():
         ROOT / "chip_smoke.py", ROOT / "tools" / "port_serve_warmup_ab.py",
         ROOT / "tools" / "port_resident_multicard.py",
         ROOT / "tools" / "port_profiler_loss.py",
-        ROOT / "tools" / "port_nccl_abort_probe.py"]
+        ROOT / "tools" / "port_profiler_drops.py",
+        ROOT / "tools" / "port_nccl_abort_probe.py",
+        ROOT / "tools" / "port_elastic_multicard.py"]
     assert len(files) > 15
     bad = {
         str(f.relative_to(ROOT)): n
@@ -136,6 +138,31 @@ def test_the_rollback_tests_are_port_tests_whose_ranks_import_no_jax(name):
         PKG / f for f in ("resilience/elastic.py", "parallel/dist.py",
                           "obs/health.py", "train/trainer.py",
                           "train/hooks.py", "config.py")]
+    bad = {str(f.relative_to(ROOT)): n for f in files for n in _imports(f)
+           if n.split(".")[0] in FORBIDDEN}
+    assert bad == {}
+
+
+#: The elastic grow's test files.
+_GROW_TESTS = ("test_torch_elastic_grow.py",
+               "test_torch_elastic_grow_ranks.py",
+               "test_torch_elastic_grow_join.py")
+
+
+@pytest.mark.parametrize("name", _GROW_TESTS)
+def test_the_grow_tests_are_port_tests_whose_ranks_import_no_jax(name):
+    """Each grow test file is a port test; one that starts rank processes
+    gives each run a deadline; the rank worker and every module the grow
+    changed import nothing of JAX or the JAX package."""
+    text = (ROOT / "tests" / name).read_text()
+    assert "pytestmark = pytest.mark.port" in text
+    if "_start(" in text:
+        assert "_finish(" in text
+    files = [ROOT / "tests" / "torch_ddp_worker.py"] + [
+        PKG / f for f in ("resilience/elastic.py", "parallel/dist.py",
+                          "resilience/faultinject.py", "chaos/storage.py",
+                          "obs/health.py", "train/trainer.py",
+                          "train/__main__.py", "config.py")]
     bad = {str(f.relative_to(ROOT)): n for f in files for n in _imports(f)
            if n.split(".")[0] in FORBIDDEN}
     assert bad == {}

@@ -5,8 +5,8 @@ the applicable cases of tests/test_resilience.py).
 - Fault plans parse as the JAX package parses them (fields, round trip,
   errors); the kinds the run cannot fire are refused before it starts,
   ``nan``/``spike`` without the guard with the JAX package's own message
-  and the grow half's (``relaunch``, ``drop``, ``slowfs``) naming their
-  ROADMAP item (9d-iii).
+  and ``drop`` naming the host ring it needs, which the port does not
+  carry (``relaunch`` and ``slowfs`` run: tests/test_torch_elastic_grow.py).
 - Retry: the backoff schedule, retries then success, exhaustion, terminal
   errors, and the IO budget's schedule equal to the JAX package's.
 - Snapshots: cadence crossing, double-buffer isolation and retention; the
@@ -148,10 +148,8 @@ def test_nan_fault_is_refused_with_the_jax_packages_message(tmp_path):
 
 @pytest.mark.parametrize("spec,item", [
     ("spike:step=4,scale=10", "guard.enabled=true"),
-    ("drop:step=2,rank=1", "item 9d"), ("relaunch:step=6", "item 9d"),
-    ("relaunch:step=4,rank=1", "item 9d"), ("drop:step=4", "item 9d"),
-    ("slowfs:step=4,ms=5", "item 9d"),
-    ("kill:step=9;relaunch:step=4", "item 9d")])
+    ("drop:step=2,rank=1", "host ring"), ("drop:step=4", "host ring"),
+    ("kill:step=9;drop:step=4", "host ring")])
 def test_faults_of_later_items_are_refused(tmp_path, monkeypatch, spec,
                                            item):
     with pytest.raises(ValueError, match=item):
@@ -402,10 +400,22 @@ def test_cli_preempt_exits_143_and_resumes_bit_identical(tmp_path,
 # -- storage faults --------------------------------------------------------------
 
 
-def _fit(tmp_path, *extra, name="run"):
+def _fit(tmp_path, *extra, name="run", snapshot_commits_first=False):
+    """A `Trainer` of ``_NET`` fitted. ``snapshot_commits_first``: the
+    snapshot writes in flight are joined before each epoch save is
+    enqueued, so a save-corrupting fault armed before both hits the
+    snapshot (two writer threads would otherwise race to commit first)."""
     t = Trainer(parse_cli(_NET + ["--data.device_resident=off",
                                   f"--train.ckpt_dir={tmp_path / name}",
                                   *extra]), device="cpu")
+    if snapshot_commits_first:
+        save_epoch = t._save_epoch
+
+        def ordered(epoch):
+            t.snap_mgr.wait()
+            save_epoch(epoch)
+
+        t._save_epoch = ordered
     t.fit()
     return t
 
@@ -447,7 +457,8 @@ def test_enospc_degrades_to_write_errors_and_training_finishes(tmp_path):
 @pytest.mark.parametrize("kind", ["torn", "bitrot"])
 def test_torn_and_bitrot_are_caught_and_resume_falls_back(tmp_path, kind):
     _fit(tmp_path, "--resilience.snapshot_every_steps=4",
-         "--train.epochs=1", f"--resilience.fault={kind}:step=9")
+         "--train.epochs=1", f"--resilience.fault={kind}:step=9",
+         snapshot_commits_first=True)
     snaps = tmp_path / "run" / "snapshots"
     victim = snaps / "step_0000000012"  # the first commit after arming
     with pytest.raises(ck.CorruptCheckpointError):

@@ -181,12 +181,12 @@ def test_augmentation_statistics():
 
 @pytest.mark.parametrize("knob", [
     "--train.verify_fingerprint=true",
-    "--train.recompile_guard=raise", "--resilience.elastic_max_world=4",
-    "--serve.max_queue=8", "--resilience.elastic_join_timeout_s=5",
+    "--train.recompile_guard=raise",
+    "--serve.max_queue=8",
     "--obs.comm_profile_steps=1:2", "--obs.comm_profile_dir=c",
     "--serve.max_wait_ms=1",
     "--model.fused_block_b=4",
-    "--serve.replicas=2", "--resilience.elastic_join=always",
+    "--serve.replicas=2",
     "--profile=t.json",
     "--parallel.num_devices=2"])
 def test_cli_refuses_unported_knobs(knob):

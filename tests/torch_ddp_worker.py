@@ -29,7 +29,14 @@ Two seams of the elastic rollback's tests (`run_trainer`): ``raise_at``
 (``[rank, step]``) raises `PeerFailedError` on that rank just before its
 update at that global step, every member still alive; with
 ``no_final_snapshot`` no snapshot commits at or past an adopted elastic
-plan's stop step (the final snapshot is lost).
+plan's stop step (the final snapshot is lost). An elastic rank runs
+`run_elastic`, as the CLI does: after a fired ``relaunch:`` it rejoins
+in-process, and its output is the rejoined incarnation's (``adopted``: a
+joiner's model state right after it restored the admitting snapshot). A
+spec without ``init`` is a process that forms no group of its own (a
+joiner: ``--resilience.elastic_join=always --parallel.process_id=S``);
+with ``await_ledger`` (a membership directory) it starts its `Trainer`
+once a generation there has its epoch-0 record.
 """
 
 from __future__ import annotations
@@ -95,25 +102,39 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
     from tpu_dp_torch.config import parse_cli
     from tpu_dp_torch.obs.counters import counters
     from tpu_dp_torch.resilience import DivergedError, PreemptedError
-    from tpu_dp_torch.train.trainer import Trainer
+    from tpu_dp_torch.train.trainer import Trainer, run_elastic
 
     cfg = parse_cli(args)
     if init is not None:
         cfg.parallel.coordinator_address = init
         cfg.parallel.num_processes, cfg.parallel.process_id = world, rank
+    adopted: dict = {}
+    adopt = Trainer._adopt_join_resume
+
+    def adopting(self, record):
+        # A joiner's model state and step right after it restored the
+        # admitting record's snapshot.
+        adopt(self, record)
+        adopted.update({k: v.detach().numpy().copy()
+                        for k, v in self.model.state_dict().items()})
+        adopted["step"] = int(self.state.step)
+
+    Trainer._adopt_join_resume = adopting
     trainer = Trainer(cfg, device="cpu")
     out = {"restored": flat_state(trainer), "resumed_from":
            trainer.resumed_from,
            "start": (trainer.start_epoch, trainer.start_step),
            "health_issues": []}
-    if trainer.health is not None:
-        real_report = trainer.health.report
+    from tpu_dp_torch.obs.health import HealthMonitor
 
-        def report(issues):
-            out["health_issues"] += [dataclasses.asdict(i) for i in issues]
-            return real_report(issues)
+    real_report = HealthMonitor.report
 
-        trainer.health.report = report
+    def report(self, issues):
+        # Every monitor of the run (rank 0's, rebuilt at each regroup).
+        out["health_issues"] += [dataclasses.asdict(i) for i in issues]
+        return real_report(self, issues)
+
+    HealthMonitor.report = report
     if stop_at_step is not None:
         real = trainer.train_step
 
@@ -151,7 +172,12 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
     result = None
     out["preempted"] = out["diverged"] = None
     try:
-        result = trainer.fit()
+        if trainer.elastic is not None:
+            # As the CLI runs it: a fired relaunch: rejoins in process.
+            trainer, result = run_elastic(cfg, device="cpu",
+                                          trainer=trainer)
+        else:
+            result = trainer.fit()
     except PreemptedError as e:
         out["preempted"] = str(e)
     except DivergedError as e:
@@ -174,7 +200,8 @@ def run_trainer(args, init=None, world=None, rank=None, stop_at_step=None,
                spe=len(trainer.train_pipe), host_step=trainer._host_step,
                step=trainer.state.step,
                counters={k: v for k, v in counters.snapshot().items()
-                         if k.startswith(("guard.", "elastic."))})
+                         if k.startswith(("guard.", "elastic."))},
+               adopted=adopted or None)
     if trainer.elastic is not None:
         out.update(record=trainer.elastic.record.to_json(),
                    sid=trainer.stable_rank, new_rank=trainer.ctx.rank,
@@ -197,6 +224,19 @@ def run_evals(args, sizes, init=None, world=None, rank=None) -> list:
     return out
 
 
+def _await_ledger(root: str, deadline_s: float = 120.0) -> None:
+    """Wait until a membership generation under ``root`` has its epoch-0
+    record (a joiner relaunched into a run that is live)."""
+    import glob
+    import time
+
+    deadline = time.monotonic() + deadline_s
+    while not glob.glob(f"{root}/*/epoch_0000.json"):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no membership generation under {root}")
+        time.sleep(0.05)
+
+
 def main(spec_path: str) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
@@ -204,10 +244,12 @@ def main(spec_path: str) -> int:
     if spec.get("job") in ("trainer", "elastic", "eval"):
         from tpu_dp_torch.parallel.dist import shutdown
 
-        group = dict(init=spec["init"], world=spec["world"],
-                     rank=spec["rank"])
+        group = dict(init=spec.get("init"), world=spec.get("world"),
+                     rank=spec.get("rank"))
         args = spec["args"] + spec.get("rank_args", {}).get(
             str(spec["rank"]), [])
+        if spec.get("await_ledger"):
+            _await_ledger(spec["await_ledger"])
         try:
             if spec["job"] != "eval":
                 out = run_trainer(

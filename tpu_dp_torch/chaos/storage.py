@@ -1,9 +1,7 @@
 """Storage-fault shim: deterministic disk failures at the IO seams (port of
 `tpu_dp.chaos.storage`, which the port never imports). Its seams are the
-port's checkpoint and snapshot writes and the membership ledger's writes.
-The JAX package's ``slowfs`` kind and its ``on_read`` seam slow the
-ledger's reads; they come with ROADMAP Queue 1 item 9d-iii (the fault
-injector refuses ``slowfs`` until then). The JAX package's text follows.
+port's checkpoint and snapshot writes and the membership ledger's writes
+and reads. The JAX package's text follows.
 
 The fault domain `TPU_DP_FAULT` could not reach before this module: the
 whole recovery story (tmp+rename snapshots, the ``latest`` pointer, the
@@ -39,6 +37,7 @@ from __future__ import annotations
 import errno
 import logging
 import os
+import time
 from pathlib import Path
 
 from tpu_dp_torch.obs import flightrec as _flightrec
@@ -60,13 +59,15 @@ class StorageFaultShim:
     def reset(self) -> None:
         self._ioerr_left = 0
         self._enospc = False
+        self._slowfs_ms = 0.0
+        self._slowfs_left: int | None = None  # None = unbounded
         self._torn_pending = False
         self._bitrot_pending = False
         self.active = False
 
     def _update_active(self) -> None:
         self.active = bool(
-            self._ioerr_left or self._enospc
+            self._ioerr_left or self._enospc or self._slowfs_ms
             or self._torn_pending or self._bitrot_pending
         )
 
@@ -79,6 +80,9 @@ class StorageFaultShim:
             self._ioerr_left += max(1, int(plan.count))
         elif kind == "enospc":
             self._enospc = True
+        elif kind == "slowfs":
+            self._slowfs_ms = float(plan.delay_ms) or 50.0
+            self._slowfs_left = int(plan.count) or None
         elif kind == "torn":
             self._torn_pending = True
         elif kind == "bitrot":
@@ -110,6 +114,19 @@ class StorageFaultShim:
                              path=str(path))
             raise OSError(errno.EIO,
                           f"injected transient EIO (chaos) writing {path}")
+
+    def on_read(self, path: str | os.PathLike) -> None:
+        """Ledger read seam: ``slowfs`` latency."""
+        if not self.active or not self._slowfs_ms:
+            return
+        if self._slowfs_left is not None:
+            if self._slowfs_left <= 0:
+                self._slowfs_ms = 0.0
+                self._update_active()
+                return
+            self._slowfs_left -= 1
+        _counters.inc("chaos.storage_slow_reads")
+        time.sleep(self._slowfs_ms / 1000.0)
 
     def post_commit(self, step_dir: str | os.PathLike) -> None:
         """Corrupt a JUST-COMMITTED save (``torn``/``bitrot``), one-shot."""

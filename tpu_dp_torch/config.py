@@ -138,8 +138,8 @@ class ParallelConfig:
 
 @dataclass
 class ResilienceConfig:
-    """The resilience fields the port runs (`tpu_dp_torch.resilience`);
-    the grow half of elastic world size is refused (`NOT_PORTED`)."""
+    """The resilience fields (`tpu_dp_torch.resilience`), the JAX
+    package's, with its defaults."""
 
     # Snapshot cadence in optimizer steps; 0 = off (the epoch checkpoint
     # still runs, and a preemption's final snapshot still lands).
@@ -157,11 +157,12 @@ class ResilienceConfig:
     # Total backoff budget (s) of every checkpoint, snapshot and
     # membership-ledger write.
     io_retry_s: float = 3.1
-    # Elastic world size, the graceful shrink (`tpu_dp_torch.resilience.
-    # elastic`): a rank that announces its departure (SIGTERM, preempt:,
-    # leave:) leaves at an agreed step and the survivors regroup at world
-    # N-1, reshard and re-split the epoch. Needs data.drop_remainder and a
-    # filesystem under train.ckpt_dir that every rank shares.
+    # Elastic world size (`tpu_dp_torch.resilience.elastic`): a rank that
+    # announces its departure (SIGTERM, preempt:, leave:, relaunch:) or
+    # vanishes leaves, the survivors regroup at world N-1, reshard and
+    # re-split the epoch; a joiner grows the world back. Needs
+    # data.drop_remainder and a filesystem under train.ckpt_dir that every
+    # rank shares.
     elastic: bool = False
     # Membership-ledger directory ("" = <train.ckpt_dir>/membership).
     membership_dir: str = ""
@@ -179,6 +180,20 @@ class ResilienceConfig:
     # regroup; HLO-based there, so an elastic run here needs it false
     # (its stand-in is ROADMAP Queue 1 item 13).
     elastic_verify_fingerprint: bool = True
+    # The grow: whether a starting process JOINS a live run through the
+    # membership ledger instead of starting one. "auto": join when the
+    # newest generation's record does not list this rank's stable id (a
+    # relaunched departed rank); "always": join or raise a typed error
+    # (an explicit relaunch); "never": the classic bootstrap only.
+    elastic_join: str = "auto"  # auto | always | never
+    # Bound on the joiner's admission wait per attempt (0 =
+    # regroup_timeout_s). The members bound the handshake by
+    # regroup_timeout_s either way: a joiner that never comes costs them
+    # the join-ready wait, then they re-form at world N.
+    elastic_join_timeout_s: float = 0.0
+    # Refuse to grow beyond this world size (0 = unbounded): a join past it
+    # is refused with a typed reason on the ledger.
+    elastic_max_world: int = 0
 
 
 @dataclass
@@ -366,10 +381,6 @@ NOT_PORTED: dict[str, Any] = {
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
     "train.profile": "",
-    # The grow half of elastic world size (ROADMAP Queue 1 item 9d-iii).
-    "resilience.elastic_join": "auto",
-    "resilience.elastic_join_timeout_s": 0.0,
-    "resilience.elastic_max_world": 0,
     # The in-run comm/compute attribution (item 10b).
     "obs.comm_profile_steps": "",
     "obs.comm_profile_dir": "",
@@ -378,7 +389,7 @@ NOT_PORTED: dict[str, Any] = {
 #: The ROADMAP Queue 1 item that ports each refused section or field
 #: (longest matching prefix); `model.fused_block_b` stays refused by design.
 _NOT_PORTED_ITEMS = {
-    "resilience": "9d-iii", "obs": "10b", "serve": "11",
+    "obs": "10b", "serve": "11",
     "train.profile": "12",
     "train.recompile_guard": "11", "train.verify_fingerprint": "13",
 }

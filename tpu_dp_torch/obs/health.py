@@ -26,8 +26,8 @@ Protocol:
 File-based and collective-free on purpose: health checking must keep
 working exactly when collectives are what is wedged. A writer re-homed
 after an elastic regroup stamps its membership epoch (``me``) into every
-beat, as the JAX package's does; the admission path of a grown world
-(``HealthMonitor.admit``) waits for ROADMAP Queue 1 item 9d-iii.
+beat, as the JAX package's does; a rank admitted into a grown world gets
+its own "missing" grace from its admission (``HealthMonitor.admit``).
 """
 
 from __future__ import annotations
@@ -200,6 +200,18 @@ class HealthMonitor:
         self.on_flag = on_flag
         self._log = logger
         self._start = time.time()
+        # Per-rank admission times (elastic grow): a freshly admitted rank
+        # has no heartbeat history, and judging its absence against the
+        # monitor's start would flag it "missing" the moment the startup
+        # grace ran out, while it still builds its first window. `admit`
+        # restarts that rank's grace at its admission.
+        self._admitted: dict[int, float] = {}
+
+    def admit(self, rank: int, ts: float | None = None) -> None:
+        """Mark ``rank`` (re)admitted at ``ts`` (default: now): its
+        "missing" grace restarts from then instead of the monitor's
+        construction."""
+        self._admitted[int(rank)] = time.time() if ts is None else float(ts)
 
     # -- reading -------------------------------------------------------
 
@@ -306,11 +318,14 @@ class HealthMonitor:
             # design (it must work when collectives are what's wedged).
             # The startup grace keeps the first checks, which can run
             # before any rank finishes its first window (cuDNN plans, the
-            # graph capture), from flagging a healthy, still-warming run.
-            if rank not in by_rank and now - self._start > self.stale_after_s:
+            # graph capture), from flagging a healthy, still-warming run;
+            # a rank admitted mid-run (the elastic grow) gets it from its
+            # own admission.
+            since = self._admitted.get(rank, self._start)
+            if rank not in by_rank and now - since > self.stale_after_s:
                 issues.append(HealthIssue(
                     kind="missing", rank=rank,
-                    age_s=round(now - self._start, 3),
+                    age_s=round(now - since, 3),
                 ))
         fresh: dict[int, dict] = {}
         for rank, beats in sorted(by_rank.items()):

@@ -24,11 +24,13 @@ process without a coordinator.
 
 Elastic world size (`tpu_dp_torch.resilience.elastic`): `elastic_initialize`
 forms a membership epoch's group at the address its record publishes (a
-fresh port every epoch: a reused store would collide with the old group),
-on the backend the run started with; `abandon_distributed` walks away from
-the old group; `agree_token` and `membership_barrier` agree a string and
-meet over the current group's store (host-level, no device collective);
-`fault_tolerant_barrier` is the preemption exit's bounded barrier.
+fresh store every epoch, opened by the member that publishes the address
+at a port the OS assigns, `open_rendezvous_store`: a reused store would
+collide with the old group), on the backend the run started with;
+`abandon_distributed` walks away from the old group; `agree_token` and
+`membership_barrier` agree a string and meet over the current group's
+store (host-level, no device collective); `fault_tolerant_barrier` is the
+preemption exit's bounded barrier.
 
 A peer that vanishes (the rollback regroup): `is_peer_failure` tells the
 errors that mean "a peer is gone" from every other (the JAX package's
@@ -275,36 +277,62 @@ def fault_tolerant_barrier(retries: int = 2,
             rank=process_index(), world=process_count()) from e
 
 
+def current_context() -> "DistContext | None":
+    """This process's `DistContext`, or None before it joined a group (an
+    abandoned group's context is kept for the next epoch's)."""
+    return _ctx
+
+
+def open_rendezvous_store(host: str, timeout_s: float = DEFAULT_TIMEOUT_S):
+    """A membership epoch's rendezvous store, listening from now on at a
+    port of ``host`` the OS assigns (``.port``): the member that publishes
+    the epoch's address opens it before it publishes and hands it to
+    `elastic_initialize`, so no other process can take the port between
+    the publish and the rendezvous."""
+    return dist.TCPStore(host, 0, None, True,
+                         timeout=datetime.timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
+
+
 def elastic_initialize(coordinator_address: str | None, num_processes: int,
                        process_id: int, backend: str, device,
-                       timeout_s: float = DEFAULT_TIMEOUT_S) -> DistContext:
+                       timeout_s: float = DEFAULT_TIMEOUT_S, store=None,
+                       host_service: bool = False) -> DistContext:
     """Form (or re-form) the group of one membership epoch: ``process_id``
     of ``num_processes`` meeting at ``coordinator_address`` (``host:port``
-    from the epoch's record; dense rank 0 hosts the store), on ``backend``
-    and ``device`` (the process keeps its card and the run's backend).
-    A sole survivor (the record names no address) forms a group of one at
-    a free loopback port, so the run keeps its backend and its code path.
+    from the epoch's record), on ``backend`` and ``device`` (the process
+    keeps its card and the run's backend). The service member
+    (``host_service``) hosts the store: ``store``, the one it opened with
+    `open_rendezvous_store` before it published the address, or one it
+    binds at that address now; every other member connects to it as a
+    client, waiting for it up to ``timeout_s``. A sole survivor (the
+    record names no address) forms a group of one on a store of its own,
+    so the run keeps its backend and its code path.
     Raises `DistInitError` when the rendezvous fails, and `RuntimeError`
     while a group is live (`abandon_distributed` first)."""
     global _ctx
     if dist.is_initialized():
         raise RuntimeError("elastic_initialize: a process group is live; "
                            "call abandon_distributed() first")
-    if num_processes == 1:
-        from tpu_dp_torch.resilience.elastic import free_port
-
-        coordinator_address = f"127.0.0.1:{free_port()}"
-    elif not coordinator_address:
+    if num_processes > 1 and not coordinator_address:
         raise DistConfigError(
             f"world {num_processes} needs the record's coordinator address")
+    timeout = datetime.timedelta(seconds=timeout_s)
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     where = f"tcp://{coordinator_address}"
     try:
-        dist.init_process_group(
-            backend, init_method=where, world_size=num_processes,
-            rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
+        if num_processes == 1:
+            store = open_rendezvous_store("127.0.0.1", timeout_s)
+            coordinator_address = f"127.0.0.1:{store.port}"
+        elif store is None:
+            host, _, port = coordinator_address.rpartition(":")
+            store = dist.TCPStore(host, int(port), None, host_service,
+                                  timeout=timeout, wait_for_workers=False)
+        dist.init_process_group(backend, store=store,
+                                world_size=num_processes, rank=process_id,
+                                timeout=timeout)
     except (RuntimeError, ValueError, TimeoutError) as e:
         raise DistInitError(
             f"elastic process group ({backend}) at {where} failed for rank "

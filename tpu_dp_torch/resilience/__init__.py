@@ -1,16 +1,21 @@
 """Resilience of the port (of `tpu_dp.resilience`): step snapshots, the
 preemption handler and resume, the IO retry budget, deterministic fault
 injection and the training guard (the divergence policy, the quarantine
-log and the SDC audit), and the shrink of elastic world size, graceful
-and rollback (`tpu_dp_torch.resilience.elastic`: the membership ledger
-and the coordinator; the grow half is ROADMAP Queue 1 item 9d-iii)."""
+log and the SDC audit), and elastic world size, its shrink (graceful and
+rollback) and its grow (`tpu_dp_torch.resilience.elastic`: the membership
+ledger, the coordinator and the joiner's handshake)."""
 
 from tpu_dp_torch.resilience.elastic import (
     ElasticCoordinator,
     ElasticError,
+    JoinOutcome,
     MembershipLedger,
     MembershipRecord,
     QuiescePlan,
+    ServeMembership,
+    find_live_generation,
+    maybe_join,
+    request_join,
 )
 from tpu_dp_torch.resilience.faultinject import (
     GUARD_KINDS,
@@ -50,10 +55,11 @@ from tpu_dp_torch.resilience.snapshot import SnapshotManager
 __all__ = ["DIVERGED_EXIT_CODE", "GUARD_KINDS", "KILL_EXIT_CODE",
            "PREEMPTED_EXIT_CODE", "DivergedError", "ElasticCoordinator",
            "ElasticError", "FaultInjector", "FaultPlan", "GuardPolicy",
-           "GuardTrigger", "MembershipLedger", "MembershipRecord",
-           "PeerFailedError", "QuiescePlan",
+           "GuardTrigger", "JoinOutcome", "MembershipLedger",
+           "MembershipRecord", "PeerFailedError", "QuiescePlan",
            "PreemptedError", "PreemptionHandler", "QuarantineLog",
-           "SnapshotManager", "configure_io_retry", "digest_of_sums",
-           "find_candidates", "io_retry_params", "leaf_paths",
-           "live_records", "params_checksum", "quarantine_save_dir",
+           "ServeMembership", "SnapshotManager", "configure_io_retry",
+           "digest_of_sums", "find_candidates", "find_live_generation",
+           "io_retry_params", "leaf_paths", "live_records", "maybe_join",
+           "params_checksum", "quarantine_save_dir", "request_join",
            "resume_latest", "retry_call", "robust_stats", "sdc_verdict"]

@@ -4,18 +4,19 @@ exit code; the port never imports the JAX package).
 
 The port runs the step-boundary kinds ``kill``, ``preempt``, ``delay``,
 ``leave`` (it sets `FaultInjector.leave_requested`, which an elastic
-trainer polls: a graceful departure without a signal), the storage kinds ``ioerr``, ``enospc``, ``torn`` and ``bitrot``, and the
-guard's kinds (`GUARD_KINDS`): ``nan`` and ``spike`` through the
-sentinel step's seam (`device_fault`, `disarm_device`; they need
-``guard.enabled``, refused otherwise with the JAX package's message) and
-``sdc``, a bit flip in this rank's parameters (`take_sdc`; the Trainer's
-``_inject_sdc``). `refuse_unported` turns away the rest before a run
-starts, since a fault that silently never fires is the worst property an
-injector can have: ``relaunch`` (the grow half of elastic world size,
-ROADMAP Queue 1 item 9d-iii), ``drop`` (the JAX package's retrying host
-ring; the port's collectives go through `torch.distributed`) and
-``slowfs`` (the storage shim's read seam on the membership ledger), both
-item 9d-iii.
+trainer polls: a graceful departure without a signal) and ``relaunch``
+(it departs exactly like ``leave``; `tpu_dp_torch.train.trainer.
+run_elastic` then rejoins the run in the same process), the storage kinds
+``ioerr``, ``enospc``, ``torn``, ``bitrot`` and ``slowfs`` (latency on
+every membership-ledger read), and the guard's kinds (`GUARD_KINDS`):
+``nan`` and ``spike`` through the sentinel step's seam (`device_fault`,
+`disarm_device`; they need ``guard.enabled``, refused otherwise with the
+JAX package's message) and ``sdc``, a bit flip in this rank's parameters
+(`take_sdc`; the Trainer's ``_inject_sdc``). `refuse_unported` turns away
+``drop`` before a run starts, since a fault that silently never fires is
+the worst property an injector can have: its one consumer is the JAX
+package's retrying host ring, which the port does not carry (its
+collectives go through `torch.distributed`).
 
 The JAX package's text follows.
 
@@ -120,15 +121,13 @@ GUARD_KINDS = ("nan", "spike", "sdc")
 KILL_EXIT_CODE = 137
 
 
-#: kinds the port refuses until the ROADMAP item that brings their seam:
-#: kind -> (item, what it needs).
+#: kinds the port refuses, each with the reason it has no seam to fire.
 UNPORTED_KINDS = {
-    "relaunch": ("9d-iii", "the grow half of elastic world size "
-                           "(resilience.elastic_join)"),
-    "drop": ("9d-iii", "the JAX package's retrying host ring; the port's "
-                       "collectives go through torch.distributed"),
-    "slowfs": ("9d-iii", "the storage shim's read seam on the membership "
-                         "ledger"),
+    "drop": "its one consumer is the JAX package's retrying host ring "
+            "(ResilientRing), which the JAX trainer never builds and the "
+            "port does not carry: the port's collectives go through "
+            "torch.distributed (ROADMAP: the host ring is not to be "
+            "ported)",
 }
 
 
@@ -136,8 +135,7 @@ def refuse_unported(kinds: Sequence[str], guard_enabled: bool = False
                     ) -> None:
     """Raise for a fault kind the run cannot fire: ``nan``/``spike``
     without ``guard_enabled``, with the JAX package's message (their seam
-    is the sentinel step), and the `UNPORTED_KINDS` with the ROADMAP item
-    that brings them."""
+    is the sentinel step), and the `UNPORTED_KINDS` with their reason."""
     seam = [k for k in kinds if k in ("nan", "spike")]
     if seam and not guard_enabled:
         raise ValueError(
@@ -146,10 +144,9 @@ def refuse_unported(kinds: Sequence[str], guard_enabled: bool = False
             f"program)")
     for kind in kinds:
         if kind in UNPORTED_KINDS:
-            item, needs = UNPORTED_KINDS[kind]
             raise ValueError(
-                f"TPU_DP_FAULT {kind!r} needs {needs}: not ported to "
-                f"tpu_dp_torch yet (ROADMAP Queue 1 item {item})")
+                f"TPU_DP_FAULT {kind!r} never fires in tpu_dp_torch: "
+                f"{UNPORTED_KINDS[kind]}")
 
 
 def storage_shim():
@@ -292,6 +289,14 @@ class FaultInjector:
     def kinds(self) -> tuple[str, ...]:
         return tuple(p.kind for p in self.plans)
 
+    def spend(self, kind: str) -> None:
+        """Mark every plan of ``kind`` fired (a relaunch consumed by
+        `tpu_dp_torch.train.trainer.run_elastic` before the rejoined
+        incarnation)."""
+        for i, p in enumerate(self.plans):
+            if p.kind == kind:
+                self._fired[i] = True
+
     @classmethod
     def from_spec(cls, spec: str, rank: int = 0) -> "FaultInjector | None":
         """Injector from a (possibly ``;``-composed) spec string, falling
@@ -357,10 +362,13 @@ class FaultInjector:
                 self.rank, plan.delay_ms, global_step,
             )
             time.sleep(plan.delay_ms / 1000.0)
-        elif plan.kind == "leave":
+        elif plan.kind in ("leave", "relaunch"):
+            # relaunch departs exactly like leave; the "comes back" half is
+            # `train.trainer.run_elastic`, which keys off the fired plan's
+            # kind after the departure's PreemptedError.
             logger.warning(
-                "fault injection: elastic leave request on rank %d at "
-                "step %d", self.rank, global_step,
+                "fault injection: elastic %s request on rank %d at "
+                "step %d", plan.kind, self.rank, global_step,
             )
             self.leave_requested = True
 

@@ -75,9 +75,15 @@ false`` (with ``data.drop_remainder``, a ``train.ckpt_dir`` every rank
 shares) makes a SIGTERM, ``preempt:`` or ``--resilience.fault=leave:step=
 K,rank=R`` a graceful departure: that rank exits 143 after ``preempted:
 elastic departure ...`` and the others regroup at world N-1 and finish,
-their JSON line carrying an ``elastic`` rollup. A launcher that tears
-every worker down when one exits non-zero (plain ``torchrun``) cannot
-host the shrink: start each rank as its own process with ``RANK``,
+their JSON line carrying an ``elastic`` rollup. ``--resilience.fault=
+relaunch:step=K,rank=R`` departs the same way, then the rank rejoins the
+run in its own process and the world grows back to N (`run_elastic`). A
+departed rank relaunched with its stable id (``RANK`` or ``--parallel.
+process_id``) and ``--resilience.elastic_join=always`` (``auto``, the
+default, joins when the newest membership record does not list it)
+joins the live run instead of starting one. A launcher that tears every
+worker down when one exits non-zero (plain ``torchrun``) cannot host the
+shrink: start each rank as its own process with ``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` (README).
 
 ``--train.update_sharding=sharded`` trains with the sharded weight update
@@ -110,7 +116,7 @@ def main(argv=None) -> int:
     from tpu_dp_torch.parallel.dist import shutdown
     from tpu_dp_torch.obs.counters import counters
     from tpu_dp_torch.resilience import DivergedError, PreemptedError
-    from tpu_dp_torch.train.trainer import Trainer
+    from tpu_dp_torch.train.trainer import Trainer, run_elastic
 
     # f32 means f32: no TF32 in cuDNN's convs or in matmuls.
     torch.backends.cudnn.allow_tf32 = False
@@ -124,7 +130,14 @@ def main(argv=None) -> int:
             print(f"train: {e}", file=sys.stderr)
             return 2
         try:
-            result = trainer.fit()
+            if cfg.resilience.elastic:
+                # A fired relaunch: fault rejoins the run in-process
+                # instead of exiting 143; a relaunched process JOINs a
+                # live run through resilience.elastic_join.
+                trainer, result = run_elastic(cfg, device=device,
+                                              trainer=trainer)
+            else:
+                result = trainer.fit()
         except PreemptedError as e:
             # The final snapshot is committed: the terminated-by-SIGTERM
             # status, so a supervisor restarts with --resume (an elastic

@@ -144,7 +144,19 @@ acting leader declares the silent member departed once
 N-1, reload the newest complete save (not a final snapshot), rebuild the
 re-split tail from its lineage and replay the updates since it. A
 rollback whose members are all alive and staying is no membership event:
-every rank re-raises. The grow half is ROADMAP Queue 1 item 9d-iii.
+every rank re-raises. The grow: a process that is not a member (a
+departed rank relaunched, `run_elastic` after a fired ``relaunch:``, or
+``resilience.elastic_join=auto|always`` with a stable id) asks to join
+before it forms any group (`elastic.maybe_join`); the members see the
+request at a window boundary and run a graceful quiesce whose plan admits
+it (flavour ``grow``: the final snapshot at the stop step), the incumbent
+leader waits for the joiner's ``join_ready`` (bounded by
+``regroup_timeout_s``) and publishes the verdict, and everyone forms the
+group at world N+1; the joiner restores the grow's snapshot (never its
+own disk: `_adopt_join_resume`), and the interrupted epoch's rest is
+re-split over the grown world. A joiner that never comes costs the
+incumbents that wait; they re-form at world N from the same snapshot
+(``grow_aborted``).
 """
 
 from __future__ import annotations
@@ -267,13 +279,31 @@ class Trainer:
             # An elastic run finds a dead peer at its window fence
             # (`dist.PeerFence`) and aborts the communicators itself.
             os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
-        addr = par.coordinator_address
-        self.ctx = initialize(
-            init_method=(None if not addr else addr if "://" in addr
-                         else f"tcp://{addr}"),
-            world_size=par.num_processes, rank=par.process_id,
-            device=device)
+        #: the admission of a process that JOINS a live elastic run instead
+        #: of starting one (`elastic.maybe_join`): it replaces the
+        #: bootstrap, since the joiner's world and dense rank exist only
+        #: once the members admit it.
+        self._join = None
+        if cfg.resilience.elastic:
+            from tpu_dp_torch.resilience.elastic import maybe_join
+
+            self._join = maybe_join(cfg, device=device)
+        if self._join is not None:
+            self.ctx = self._join.ctx
+        else:
+            addr = par.coordinator_address
+            self.ctx = initialize(
+                init_method=(None if not addr else addr if "://" in addr
+                             else f"tcp://{addr}"),
+                world_size=par.num_processes, rank=par.process_id,
+                device=device)
         self.device = self.ctx.device
+        # Elastic world size (`resilience.elastic`): this rank's stable id
+        # is its rank at the generation's start (a joiner's, the one it was
+        # admitted with); dense ranks are reassigned per membership epoch,
+        # stable ids never.
+        self.stable_rank = (self._join.coordinator.sid if self._join
+                            else self.ctx.rank)
         seed = cfg.train.seed
 
         self.train_ds = load_dataset(
@@ -357,30 +387,35 @@ class Trainer:
         if cfg.obs.flightrec_capacity <= 0:
             _flightrec.recorder.disable()
         else:
+            # Named by the stable rank; a rejoined incarnation's dump is
+            # tagged with the membership epoch that admitted it, beside its
+            # predecessor's departure dump.
             self.flightrec = _flightrec.recorder.configure(
-                rank=self.ctx.rank, dump_dir=self.obs_dir,
+                rank=self.stable_rank, dump_dir=self.obs_dir,
                 capacity=cfg.obs.flightrec_capacity, fresh=True,
+                tag=(f"me{self._join.record.epoch:04d}"
+                     if self._join is not None else ""),
                 run={"model": cfg.model.name, "world": self.ctx.world,
                      "devices": self.num_devices,
                      "global_batch": self.global_batch_size,
                      "elastic": bool(cfg.resilience.elastic),
                      "guard": self.guard_enabled,
-                     "joined": False})
+                     "joined": self._join is not None})
         self._build_telemetry()
         self._register_program_costs()
         self._build_hooks()
         self.start_epoch = 0
         self.start_step = 0  # step within start_epoch (mid-epoch resume)
         self.resumed_from: str | None = None
-        if cfg.train.resume:
+        if cfg.train.resume and self._join is None:
             self._maybe_resume()
+        elif cfg.train.resume:
+            log.info("elastic join: ignoring --resume — a joiner's state "
+                     "comes from the admitted membership record's "
+                     "snapshot, never its stale local disk")
         self._host_step = int(self.state.step)
         #: the batch clock at `step_losses`' first entry (`fit` resets it).
         self._losses_from = self._host_step
-        # Elastic world size (`resilience.elastic`): this rank's stable id
-        # is its rank at the generation's start; dense ranks are reassigned
-        # per membership epoch, stable ids never.
-        self.stable_rank = self.ctx.rank
         self._quiesce_plan = None
         self._q_flavor = "graceful"
         #: epoch steps done at the last boundary (`_elastic_rollback`), and
@@ -389,14 +424,80 @@ class Trainer:
         self._inflight_losses: list[torch.Tensor] = []
         #: the bounded window fence of an elastic NCCL run (module doc).
         self._peer_fence = None
-        if res.elastic:
+        if res.elastic and self._join is not None:
+            # The admission attached this process to the live generation:
+            # the record's resume is the state, the step clock and the
+            # re-split tail.
+            self.elastic = self._join.coordinator
+            self._adopt_join_resume(self._join.record)
+        elif res.elastic:
             self.elastic = self._build_elastic()
+        if res.elastic:
             if self.ctx.backend == "nccl":
                 from tpu_dp_torch.parallel.dist import PeerFence
 
                 self._peer_fence = PeerFence(self.device,
                                              self._peer_wait_s)
             self._bound_peer_waits()
+        if self._join is not None:
+            self._complete_join(self._join.record)
+
+    def _adopt_join_resume(self, record) -> None:
+        """Install the admitting record's resume: the state from the grow
+        quiesce's final snapshot (``resume.snapshot_dir``) through the
+        resharding load, never this process's own disk (a retired
+        incarnation's); the step clock, the snapshot cadence, the lineage
+        and the re-split tail as the incumbents set theirs
+        (`_execute_regroup`). A snapshot that fails its checksums raises
+        `ElasticError`: restoring other bytes than the incumbents hold is
+        never silent (their join gate or rendezvous then times out and
+        they re-form without this process)."""
+        from tpu_dp_torch.resilience.elastic import ElasticError
+
+        resume = dict(record.resume or {})
+        snap = resume.get("snapshot_dir")
+        if snap:
+            try:
+                ckpt_lib.load_checkpoint(Path(snap), self.state)
+            except ckpt_lib.CorruptCheckpointError as e:
+                raise ElasticError(
+                    f"elastic join: admitted snapshot {snap} failed "
+                    f"checksum verification — aborting the join ({e})"
+                ) from e
+        else:
+            # The run itself restarted from scratch at this epoch.
+            self._log0("elastic join: admitted record carries no snapshot "
+                       "— starting from init like the incumbents")
+        self._host_step = int(resume.get("global_step", 0))
+        self._losses_from = self._host_step
+        self.snap_mgr.rewind(self._host_step)
+        self.start_epoch, self.start_step = self._lineage_position(
+            int(resume.get("epoch", 0)), int(resume.get("steps_done", 0)),
+            resume.get("lineage") or [])
+        self._log0("elastic join: adopted resume — epoch %d step %d (global "
+                   "step %d, membership epoch %d, world %d)",
+                   self.start_epoch, self.start_step, self._host_step,
+                   record.epoch, record.world)
+
+    def _complete_join(self, record) -> None:
+        """The joiner's half of `_execute_regroup`'s epilogue: its
+        ``elastic_join`` flight-recorder event, the observers homed into
+        the membership epoch, the guard's fresh audit baseline, then the
+        same ``regroup_ready`` barrier the incumbents meet."""
+        from tpu_dp_torch.parallel.dist import membership_barrier
+
+        _flightrec.record("elastic_join", step=self._host_step,
+                          sid=self.stable_rank,
+                          membership_epoch=record.epoch, world=record.world,
+                          rank=self.ctx.rank)
+        self._rebuild_observers(record)
+        if self._guard_hook is not None:
+            self._guard_hook.on_regroup()
+        membership_barrier("regroup_ready", record.epoch,
+                           timeout_s=self.cfg.resilience.regroup_timeout_s)
+        log.info("elastic join: membership epoch %d live — joined at world "
+                 "%d as dense rank %d (stable id %d)", record.epoch,
+                 record.world, self.ctx.rank, self.stable_rank)
 
     def _build_elastic(self):
         """The run's `ElasticCoordinator`. Its generation key joins what
@@ -422,7 +523,8 @@ class Trainer:
             regroup_timeout_s=res.regroup_timeout_s,
             poll_every_steps=res.elastic_poll_every_steps,
             coordinator_host=res.elastic_coordinator_host,
-            min_world=res.elastic_min_world)
+            min_world=res.elastic_min_world,
+            max_world=res.elastic_max_world)
 
     @property
     def _peer_wait_s(self) -> float:
@@ -631,8 +733,11 @@ class Trainer:
         self._last_efficiency: dict | None = None
         if self.obs_mode != "off":
             self.spans = SpanRecorder(capacity=cfg.obs.span_capacity)
-            if cfg.obs.heartbeat_every_steps > 0:
-                # Every rank appends to its own heartbeat file.
+            if cfg.obs.heartbeat_every_steps > 0 and self._join is None:
+                # Every rank appends to its own heartbeat file. A joiner
+                # never writes into the launch's obs root, where its dense
+                # rank's file belongs to another seat: `_complete_join`
+                # homes it into obs/me<E>/.
                 self.heartbeat = HeartbeatWriter(
                     self.obs_dir, rank=self.ctx.rank,
                     every_steps=cfg.obs.heartbeat_every_steps)
@@ -1234,11 +1339,12 @@ class Trainer:
             self._finish_quiesce(epoch, done, plan)
 
     def _finish_quiesce(self, epoch: int, done: int, plan) -> None:
-        """The quiesce's end. Graceful: the final snapshot at the agreed
-        step (the regroup's resume point: nothing replayed, nothing
-        dropped), joined before the ledger's barrier; one that does not
-        commit (a peer died between the plan and the stop step) leaves the
-        new leader to fall back to the rollback resume. Rollback: no final
+        """The quiesce's end. Graceful and grow: the final snapshot at the
+        agreed step (the regroup's resume point: nothing replayed, nothing
+        dropped; a grow's joiner restores it), joined before the ledger's
+        barrier; one that does not commit (a peer died between the plan
+        and the stop step) leaves the new leader to fall back to the
+        rollback resume. Rollback: no final
         snapshot (the regroup resumes from the newest complete save), and
         a rollback with no membership change is refused. Then the
         hand-off."""
@@ -1255,7 +1361,7 @@ class Trainer:
                 f"rollback quiesce e{plan.epoch} carries no membership "
                 f"change: a peer reported a non-membership failure (see "
                 f"its log); refusing to regroup the same world")
-        if plan.flavor == "graceful":
+        if plan.flavor in ("graceful", "grow"):
             try:
                 committed = self._take_snapshot(epoch, done, wait=True)
             except (RuntimeError, OSError):
@@ -1287,9 +1393,15 @@ class Trainer:
         rollback flavour and converge without stepping, hand over to the
         regroup. A graceful plan (its leaver was killed before the stop
         step) is downgraded to rollback here; the leader's resume then
-        comes from the newest complete save. Raises; never returns:
-        ``err`` itself when every member is alive and staying."""
+        comes from the newest complete save. A grow plan cannot be: its
+        survivors (every incumbent and the joiner) now hold a dead member,
+        so neither the grown group nor a re-form of that set can meet,
+        and this raises `ElasticError` (a restart of the world resumes
+        from the newest save). Raises; never returns: ``err`` itself when
+        every member is alive and staying."""
         import dataclasses
+
+        from tpu_dp_torch.resilience.elastic import ElasticError
 
         done = self._epoch_done
         log.warning("elastic: collective failure at epoch %d step %d — "
@@ -1299,6 +1411,14 @@ class Trainer:
             self._quiesce_plan = self.elastic.quiesce_blocking(
                 epoch, self._host_step, leaving=False, flavor="rollback",
                 window=self.steps_per_call)
+        elif self._quiesce_plan.flavor == "grow":
+            plan_epoch = self._quiesce_plan.epoch
+            self._quiesce_plan = None
+            raise ElasticError(
+                f"member failure while grow plan e{plan_epoch} was in "
+                f"flight ({err}); the planned membership (incumbents + "
+                f"joiner) is unsatisfiable with a dead member — restart "
+                f"the world") from err
         if self._quiesce_plan.flavor == "graceful":
             # The group died under a graceful plan (adopted before the
             # failure, or published from check-ins made before it): its
@@ -1367,6 +1487,16 @@ class Trainer:
         if self.heartbeat is not None:
             self.heartbeat.close()
 
+    def _retire(self) -> None:
+        """Let go of all a departed incarnation holds on the card and on
+        its group (`run_elastic`'s rejoin): the world (`_release_world`),
+        then the model, optimizer, state, steps and pipelines, so that a
+        caller still holding this object holds nothing of them."""
+        self._release_world()
+        self.model = self.optimizer = self.state = None
+        self.step_body = self.train_step = self.eval_step = None
+        self.train_pipe = self.test_pipe = None
+
     def _end_wedged_window(self) -> None:
         """End a window replay wedged on a dead peer. NCCL's abort waits
         for the CUDA graphs that captured its work to be destroyed, and a
@@ -1408,14 +1538,19 @@ class Trainer:
             self.snap_mgr._record_write_error(self._host_step, e)
 
     def _execute_regroup(self, sig: "_RegroupSignal") -> tuple[int, int]:
-        """Form the survivors' group and go on; returns the ``(epoch,
-        start_step)`` to continue from. The JAX package's sequence: the new
-        leader publishes the membership record, whose resume is the final
-        snapshot and the epoch's lineage (graceful), or the newest
-        complete save (rollback, and a graceful plan whose final snapshot
-        never committed: the leader checks before it publishes); everyone
-        adopts it; the old group is released and the new one formed at
-        the record's rendezvous with dense new ranks; the pipelines,
+        """Form the new epoch's group (shrunk to the survivors, or grown to
+        admit a joiner) and go on; returns the ``(epoch, start_step)`` to
+        continue from. The JAX package's sequence: the new leader (the
+        lowest incumbent) publishes the membership record, whose resume is
+        the final snapshot and the epoch's lineage (graceful, grow), or the
+        newest complete save (rollback, and a graceful or grow plan whose
+        final snapshot never committed: the leader checks before it
+        publishes); everyone adopts it; a grow record passes its gate
+        (`_grow_gate`: the joiner signalled ready, or the incumbents
+        re-form at world N from the same snapshot); the old group is
+        released and the new one formed at the record's rendezvous with
+        dense new ranks (a grown rendezvous that fails falls back the
+        same way); the pipelines,
         model, DDP or the sharded update, schedule and windows are rebuilt
         on it (`_build_world`); every survivor reloads the agreed save
         through the resharding checkpoint path (the shared filesystem; a
@@ -1427,7 +1562,7 @@ class Trainer:
 
         t0 = time.perf_counter()
         plan, cfg = sig.plan, self.cfg
-        if plan.flavor == "graceful":
+        if plan.flavor in ("graceful", "grow"):
             snap_dir = Path(self.snapshot_dir) / f"step_{self._host_step:010d}"
             resume = {"epoch": sig.epoch, "steps_done": sig.done,
                       "lineage": [list(map(int, seg))
@@ -1435,7 +1570,7 @@ class Trainer:
                       + [[self.ctx.world, self._segment_steps(sig.done)]],
                       "global_step": self._host_step,
                       "snapshot_dir": str(snap_dir)}
-            if (self.elastic.sid == min(plan.survivors)
+            if (self.elastic.sid == min(plan.incumbents or plan.survivors)
                     and not ckpt_lib.checkpoint_exists(snap_dir)):
                 # The final snapshot never landed: the new leader checks
                 # before it publishes, so every survivor follows one
@@ -1448,12 +1583,31 @@ class Trainer:
             self._join_writes()
             resume = self._rollback_resume()
         record = self.elastic.establish(plan, resume)
+        if record.joined:
+            record = self._grow_gate(record)
         resume = record.resume  # the leader's payload is canonical
         old_world, old_rank = self.ctx.world, self.ctx.rank
+        backend = self.ctx.backend
         from_step = self._host_step
         self._release_world()
-        self.ctx = self.elastic.reinitialize(self.ctx.backend, self.device,
-                                             record)
+        try:
+            self.ctx = self.elastic.reinitialize(backend, self.device,
+                                                 record)
+        except Exception:
+            if not record.joined:
+                raise
+            # The joiner signalled ready, then never reached the
+            # rendezvous: every incumbent's timed out alike. Re-form at
+            # world N from the same resume (the grow's snapshot).
+            log.warning("elastic: grow rendezvous at world %d failed — "
+                        "joiner presumed dead mid-handshake; re-forming at "
+                        "world %d", record.world,
+                        record.world - len(record.joined), exc_info=True)
+            record = self.elastic.establish_fallback(
+                record, reason="join handshake timeout (grow aborted)")
+            resume = record.resume
+            self.ctx = self.elastic.reinitialize(backend, self.device,
+                                                 record)
         self._build_world()
         self._bound_peer_waits()
         collect_released()  # the old world's objects
@@ -1483,14 +1637,20 @@ class Trainer:
                            timeout_s=cfg.resilience.regroup_timeout_s)
         dt = time.perf_counter() - t0
         departed = [d.get("sid") for d in record.departed]
+        joined = [int(j["sid"]) for j in record.joined]
         _counters.inc("elastic.regroups")
         _counters.inc("elastic.lost_ranks", max(0, old_world - record.world))
-        _counters.inc("elastic.joined_ranks", 0)
+        _counters.inc("elastic.joined_ranks", max(0, record.world - old_world))
         _counters.inc("elastic.regroup_s", dt)
         _flightrec.record("elastic_regroup", step=self._host_step,
                           membership_epoch=record.epoch, flavor=plan.flavor,
-                          world=record.world, departed=departed, joined=[],
-                          regroup_s=round(dt, 3))
+                          world=record.world, departed=departed,
+                          joined=joined, regroup_s=round(dt, 3))
+        if joined:
+            # "Capacity came back" gets its own marker beside the regroup.
+            _flightrec.record("elastic_grow", step=self._host_step,
+                              membership_epoch=record.epoch,
+                              world=record.world, joined=joined)
         if self.spans is not None:
             self.spans.record_window(self._host_step, 1,
                                      {"elastic_regroup": dt * 1e3},
@@ -1499,10 +1659,14 @@ class Trainer:
         self._log_metrics({
             "event": "elastic_regroup", "membership_epoch": record.epoch,
             "flavor": plan.flavor, "world": record.world,
-            "departed": departed, "joined": [],
+            "departed": departed, "joined": joined,
             "resume_epoch": position[0],
             "resume_step": position[1] or tail_base,
             "regroup_s": round(dt, 3)})
+        if joined:
+            self._log_metrics({
+                "event": "elastic_grow", "membership_epoch": record.epoch,
+                "world": record.world, "joined": joined})
         self._log0("elastic: membership epoch %d live — world %d→%d (rank "
                    "%d→%d), %s resume at epoch %d step %d (global step %d, "
                    "%d update(s) replayed), regroup took %.2fs",
@@ -1511,6 +1675,47 @@ class Trainer:
                    tail_base or position[1], self._host_step,
                    from_step - self._host_step, dt)
         return position
+
+    def _grow_gate(self, record):
+        """Commit to a grow record's rendezvous only for joiners that are
+        alive now: each signals ``join_ready`` just before its own
+        rendezvous, and one that does not within ``regroup_timeout_s`` is
+        presumed dead mid-handshake. One decider: the incumbent leader
+        waits and publishes the verdict, the other incumbents follow it
+        (their own timers would split them on a joiner that signals inside
+        the timers' skew). Returns the record to form: ``record``, or the
+        corrective world-N record (`establish_fallback`, the same resume).
+        A verdict that never comes raises `ElasticError`."""
+        from tpu_dp_torch.resilience.elastic import ElasticError
+
+        timeout = self.cfg.resilience.regroup_timeout_s
+        ledger = self.elastic.ledger
+        joined = [int(j["sid"]) for j in record.joined]
+        incumbents = [m for m in record.members if m not in joined]
+        if self.elastic.sid == min(incumbents):
+            missing = ledger.await_join_ready(record.epoch, joined,
+                                              timeout_s=timeout)
+            ledger.publish_grow_verdict(
+                record.epoch, commit=not missing,
+                reason="" if not missing else f"no join_ready from "
+                                              f"{missing}")
+            commit = not missing
+        else:
+            verdict = ledger.await_grow_verdict(record.epoch,
+                                                timeout_s=2 * timeout)
+            if verdict is None:
+                raise ElasticError(
+                    f"grow e{record.epoch}: no verdict from the incumbent "
+                    f"leader within {2 * timeout:.0f}s (leader died "
+                    f"mid-grow)")
+            commit = bool(verdict.get("commit"))
+        if commit:
+            return record
+        self._log0("elastic: admitted joiner(s) %s never signalled ready "
+                   "within %.0fs — aborting the grow, re-forming at world "
+                   "%d", joined, timeout, len(incumbents))
+        return self.elastic.establish_fallback(
+            record, reason="join handshake timeout (grow aborted)")
 
     def _rebuild_observers(self, record) -> None:
         """Re-home the heartbeats and rank 0's health monitor for a new
@@ -2066,3 +2271,56 @@ class Trainer:
             self._elastic_tail = None
             self._epoch_lineage = []
             epoch, start_step = epoch + 1, 0
+
+
+def run_elastic(cfg: Config, device=None, trainer: Trainer | None = None
+                ) -> tuple[Trainer, dict[str, Any]]:
+    """`Trainer.fit` with the ``relaunch:`` fault's in-process rejoin (the
+    JAX package's `run_elastic`): a fired ``relaunch:step=K,rank=R``
+    departs exactly like ``leave:``, the survivors shrink to world N-1,
+    and instead of surfacing the `PreemptedError` this builds a join-mode
+    `Trainer` in the same process (``resilience.elastic_join=always``,
+    the fault spent, ``--resume`` off: ledger discovery, fenced request,
+    admission, the state from the agreed snapshot) and trains to the end
+    at the grown world. The departed incarnation lets go of its world
+    first: its windows' CUDA graphs, its DDP and its group (torch has one
+    default group, and the old graphs hold card memory and a dead group);
+    the card's kernels stay built in the process. Every other
+    `PreemptedError` propagates (the CLI's exit 143), and so does a second
+    departure. ``trainer``: the first incarnation, when the caller built
+    it already."""
+    import copy
+
+    from tpu_dp_torch.parallel.dist import abandon_distributed
+
+    tr = trainer if trainer is not None else Trainer(cfg, device=device)
+    rejoined = False
+    while True:
+        try:
+            return tr, tr.fit()
+        except PreemptedError:
+            fault = tr.fault
+            if rejoined or not (fault is not None
+                                and fault.fired_kind("relaunch")):
+                raise
+        # Out of the handler, so the departure's traceback no longer holds
+        # the departed incarnation.
+        rejoined = True
+        log.warning("relaunch fault: departed at global step %d — "
+                    "rejoining the run in-process", tr._host_step)
+        sid = tr.stable_rank
+        tr._retire()
+        abandon_distributed()
+        tr = None
+        collect_released()  # the departed incarnation's objects
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.resilience.fault = ""
+        cfg2.resilience.elastic_join = "always"
+        cfg2.train.resume = False
+        if cfg2.parallel.process_id is None:
+            cfg2.parallel.process_id = sid  # the seat it held
+        tr = Trainer(cfg2, device=device)
+        if tr.fault is not None and tr.fault.has_kind("relaunch"):
+            # A TPU_DP_FAULT spec from the environment survives into the
+            # rejoined incarnation; it fired once in this process.
+            tr.fault.spend("relaunch")
