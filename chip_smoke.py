@@ -69,14 +69,23 @@ Phases, in order; any failure exits non-zero before the last line:
    (20 conv launches, 1 + 1 xent, 20 + 20 sync-BN pmeans, one metrics
    all-reduce, DDP's buckets): (a) two ranks on the one card through
    gloo on CUDA tensors (NCCL refuses two ranks on one card; a
-   correctness run, its step time no DDP figure); (b) `Trainer` at world 1
+   correctness run, its step time no DDP figure), each pair's rank 0
+   with the comm attribution's window over updates [2, 4)
+   (`_comm_report_checks`: source "host", every kind reconciled with the
+   books, the sharded wire against `quant.wire_report`); (b) `Trainer` at world 1
    on NCCL through `initialize()` and the env contract, 30 steps and one
    eval, against the same run in one process (losses within 0.05, falling;
    books per update; eval count = test set), its step beside the one
    process's and, in turns on one model, the step with and without DDP's
-   wrapper;
+   wrapper; the same run (cuDNN deterministic) with
+   ``--obs.comm_profile_steps=10:20`` against it without: source
+   "device", the window's conv and xent kernels by name equal to the
+   books, the spin bracket left out, the NCCL kernels printed (none at
+   one rank, each kind absent), the parameters bit for bit;
    (c) with two or more cards, NCCL with one rank per card (two, and every
-   visible card), else ``ddp_nccl_multi_card: not run, 1 card visible``;
+   visible card), else ``ddp_nccl_multi_card: not run, 1 card visible``
+   (and ``commprof_nccl_multi_card: not run``: the comm windows across
+   cards are `tools/port_commprof_multicard.py`'s);
 8. checkpoint (run between phases 6 and 7): the same fused full-width
    path, f32, cuDNN deterministic, B=128, 10 steps an epoch: 3 epochs
    uninterrupted; the same run interrupted at the start of epoch 3 and resumed by a fresh
@@ -250,7 +259,11 @@ Phases, in order; any failure exits non-zero before the last line:
    and the promfiles; ``--train.profile_steps=10:20``: a CUDA-only Chrome
    trace holding the conv and xent kernels of the two windows in range
    and no other's, with the flight recorder's ``profile_start`` and
-   ``profile_stop``; an epoch's ms per update at each mode, in turns;
+   ``profile_stop``; ``python -m tpu_dp_torch.obs`` over the full run's
+   directory: ``timeline``, ``stragglers``, ``merge-trace`` and ``diff``
+   against its own baseline exit 0 (against a tampered one 1), ``watch
+   --replay`` 0 clean and 1 on a rule that must trip; an epoch's ms per
+   update at each mode, in turns;
 17. ``elastic``: the elastic shrink (``--resilience.elastic=true
    --resilience.elastic_verify_fingerprint=false``) on the main path (the
    preset with the kernel knobs, the default resident feed, augmentation
@@ -314,7 +327,11 @@ Phases, in order; any failure exits non-zero before the last line:
    oracle fed the global batches rebuilt from the records alone (3 -> 2
    -> 3); each sample of each epoch once across the segments, as the
    records predict; every rank's books exact at every world (rank 2 after
-   it rejoined too); two regroups; the grow's seconds split into the
+   it rejoined too); two regroups; at ``train.obs=basic``, ``obsctl
+   fleet --replay`` over its directory gives one ``fleet_step`` a step,
+   each at the membership epoch and world the records give it, and
+   ``obsctl timeline`` the departure before the rejoin; the grow's
+   seconds split into the
    joiner's rebuild, its request up to the plan, the quiesce up to the
    final snapshot, the join-ready gate, the re-form and the joiner's
    reload, and the ms per update at worlds 3, 2 and 3; (g) two gloo ranks
@@ -419,6 +436,17 @@ TRAIN_STEPS = 30
 DDP_STEPS = 5
 DDP_WORLD = 2
 DDP_SCHED = ("cosine", 0.1, 30, 1, 0.0)
+#: phase 7a: the comm attribution's window over each pair's rank 0 (global
+#: updates [2, 4): the second update holds DDP's bucket rebuild).
+DDP_COMM_WINDOW = (2, 4)
+#: phase 7b: the comm window over the world-1 DDP run's updates.
+WORLD1_COMM_WINDOW = (10, 20)
+#: the comm window across cards (`commprof_multi_card`): the preset with
+#: the kernel knobs, B=128 a rank, windows of 10 as CUDA graphs, 40
+#: updates; the window is the fourth graph window (DDP's 11 warm-up
+#: updates run eagerly in the first two, the third is captured).
+COMMPROF_MC_WINDOW = (31, 41)
+COMMPROF_MC_UPDATES = 40
 #: the fused bound of tests/test_models.py and PERF.md §2.
 DDP_LOSS_TOL = 0.05
 TRAIN_ARGS = ["--preset=resnet18_cifar10", "--model.fused_stages=all",
@@ -1391,9 +1419,13 @@ def phase_train_kernels(out):
 #: spin kernels launched at the start of a by-name session, before the
 #: calls it counts, and again at its end, after them (`profile_forward`'s
 #: ``lead_in`` and ``lead_out``), each spinning `PROFILE_SPIN_CYCLES`
-#: (about a quarter of a millisecond at the H100's clock).
-PROFILE_LEAD_IN = 64
-PROFILE_SPIN_CYCLES = 500_000
+#: (about a quarter of a millisecond at the H100's clock): the package's
+#: bracket, which the trainer's own profiler sessions open and close with
+#: too (`tpu_dp_torch.utils.profiling`).
+from tpu_dp_torch.utils.profiling import (  # noqa: E402
+    PROFILE_LEAD_IN,
+    PROFILE_SPIN_CYCLES,
+)
 
 
 def profile_forward(fn, n: int = 5, cuda_only: bool = False,
@@ -2030,7 +2062,7 @@ def _ddp_batches(world: int):
 
 
 def _ddp_train(ctx, world: int, profile: bool = False,
-               wire: str | None = None) -> dict:
+               wire: str | None = None, comm_dir: str | None = None) -> dict:
     """``DDP_STEPS`` fused full-width updates (f32, the slice's kernels)
     from the seed-0 init on this rank's rows of `_ddp_batches`: per-step
     global losses, the books of each step (kernel launches by the
@@ -2040,7 +2072,9 @@ def _ddp_train(ctx, world: int, profile: bool = False,
     profiler (CUDA activity alone): wall and device-busy time per step and
     the NCCL kernels' share. ``wire`` ("" f32, "bf16", "int8"): the
     sharded update over the group instead of DDP, with the exchange's
-    collectives per update it should issue (``exchange_books``)."""
+    collectives per update it should issue (``exchange_books``).
+    ``comm_dir`` (rank 0): the comm attribution's window over updates
+    `DDP_COMM_WINDOW` (`_comm_window`), its report under ``comm_report``."""
     import torch
 
     import torch.distributed as dist
@@ -2080,13 +2114,25 @@ def _ddp_train(ctx, world: int, profile: bool = False,
     rows = (slice(None) if ctx is None
             else slice(ctx.rank * TRAIN_B, (ctx.rank + 1) * TRAIN_B))
     losses, books, ms = [], [], []
-    for img, lab in zip(images, labels):
+    # The books reset every update: the comm window's run from the start.
+    ran = dict.fromkeys(collectives.books(), 0)
+    comm = None
+    if comm_dir is not None and ctx is not None and ctx.rank == 0:
+        comm = _comm_window(ctx, world, opt if wire is not None else None,
+                            wire, comm_dir, lambda: {
+                                k: ran[k] + v for k, v in
+                                collectives.books().items()})
+    for i, (img, lab) in enumerate(zip(images, labels)):
         batch = {"image": torch.from_numpy(img[rows]).to(dev),
                  "label": torch.from_numpy(lab[rows]).to(dev)}
         torch.cuda.synchronize(dev)
         cb.reset_launches()
         tx.reset_launches()
+        for k, v in collectives.books().items():
+            ran[k] += v
         collectives.reset_counts()
+        if comm is not None:
+            comm["profiler"].on_window_start(i + 1, 1)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -2097,6 +2143,8 @@ def _ddp_train(ctx, world: int, profile: bool = False,
         losses.append(float(m["loss"]))
         books.append({"conv": dict(cb.launches_by_role),
                       "xent": dict(tx.launches), **collectives.counts})
+        if comm is not None:
+            comm["profiler"].on_step(i + 1)
     prof = None
     if profile:
         p = profile_forward(lambda: step(state, batch), cuda_only=True,
@@ -2106,11 +2154,92 @@ def _ddp_train(ctx, world: int, profile: bool = False,
                                   "kernel_launches_per_call")}
         prof["nccl"] = {k: v for k, v in p["all"].items()
                         if "nccl" in k.lower()}
+    report = None
+    if comm is not None:
+        comm["profiler"].close()
+        report = comm["read"]()
     return {"losses": losses, "books": books, "step_ms": ms, "profile": prof,
             "device": str(next(model.parameters()).device),
-            "exchange_books": exchange,
+            "exchange_books": exchange, "comm_report": report,
             "state": {k: v.detach().cpu() for k, v in
                       model.state_dict().items()}}
+
+
+def _comm_report_checks(rep, wire, world) -> dict:
+    """Phase 7a's checks of a pair's comm report (rank 0's window over
+    `DDP_COMM_WINDOW`): written and read back; source "host" (gloo's
+    collectives are CPU ops); the window's updates; every kind the books
+    say ran reconciled exactly (all-reduce: DDP's buckets, or the
+    metrics' under the sharded update; sync-BN's pmeans; DDP's bucket
+    rebuild at update 2; reduce-scatter, all-gather and, under int8,
+    all-to-all), no kind seen that the books lack; the sharded wire held
+    against `quant.wire_report`; comm time measured and an overlap
+    share."""
+    if rep is None:
+        return {"comm_report_written": False}
+    recon = rep.get("reconciliation") or {}
+    by = recon.get("by_kind") or {}
+    want = {"all-reduce"} | (set() if wire is None else
+                             {"reduce-scatter", "all-gather"}
+                             | ({"all-to-all"} if wire == "int8" else set()))
+    ran = {k for k, v in by.items() if v["expected"]}
+    a, b = DDP_COMM_WINDOW
+    checks = {
+        "comm_report_written": True,
+        "comm_source_host": rep["source"] == "host",
+        "comm_window_steps": (rep["start_step"], rep["end_step"],
+                              rep["steps"], rep["world"]) == (a, b, b - a,
+                                                              world),
+        "comm_reconciled_every_kind": recon.get("ok") is True
+        and all(v["ok"] is True for v in by.values())
+        and want <= ran <= want | {"broadcast"},
+        "comm_ms_positive": rep["comm_ms"] > 0,
+        "comm_overlap_frac_measured": rep["overlap_frac"] is not None}
+    if wire is not None:
+        checks["comm_wire_reconciled"] = (
+            (rep.get("wire") or {}).get("reconciliation") or {}).get(
+                "ok") is True
+    return checks
+
+
+def _comm_window(ctx, world, opt, wire, trace_dir, books_fn) -> dict:
+    """The port's comm attribution driven by hand over a training loop's
+    updates `DDP_COMM_WINDOW` (``profiler``: call its ``on_window_start``
+    before update i + 1 and ``on_step`` after it): its trace under
+    ``trace_dir``, its expected collectives from ``books_fn`` (the
+    cumulative `collectives.books`), the sharded exchange's wire held
+    against `quant.wire_report` (``opt``, the sharded optimizer, else
+    None). ``read()``: the window's ``comm_report.json``, written with
+    `write_comm_report` and read back with `read_comm_report`, or None
+    when the window published nothing (a failed parse)."""
+    import torch
+
+    from tpu_dp_torch.obs import chips
+    from tpu_dp_torch.obs.commprof import (
+        CommProfiler,
+        read_comm_report,
+        write_comm_report,
+    )
+    from tpu_dp_torch.parallel import quant
+    from tpu_dp_torch.utils.profiling import ChromeTrace
+
+    gloo, cuda = ctx.backend == "gloo", ctx.device.type == "cuda"
+    tracer = ChromeTrace(rank=ctx.rank, cuda=cuda, cpu=gloo)
+    path = os.path.join(trace_dir, "comm_report.json")
+    wire_report = None if opt is None else quant.wire_report(
+        opt.leaves, world, getattr(opt.codec, "block_size",
+                                   quant.DEFAULT_BLOCK_SIZE))
+    profiler = CommProfiler(
+        trace_dir, ("range", *DDP_COMM_WINDOW), devices=1, world=world,
+        books_fn=books_fn, source="host" if gloo else "device",
+        wire_report=wire_report, wire_dtype=wire or "",
+        link_gbs=chips.link_gbs(torch.cuda.get_device_name(ctx.device))
+        if cuda else None,
+        publish=lambda rep, *_: write_comm_report(path, rep),
+        start_fn=tracer.start, stop_fn=tracer.stop)
+    return {"profiler": profiler,
+            "read": lambda: read_comm_report(path) if os.path.exists(path)
+            else None}
 
 
 def ddp_worker(spec_path: str) -> int:
@@ -2131,7 +2260,7 @@ def ddp_worker(spec_path: str) -> int:
                      device=spec["device"], timeout_s=300)
     try:
         rec = _ddp_train(ctx, spec["world"], spec["profile"],
-                         spec.get("wire"))
+                         spec.get("wire"), spec.get("comm_dir"))
         rec["backend"] = ctx.backend
         torch.save(rec, spec["out"])
     finally:
@@ -2140,10 +2269,11 @@ def ddp_worker(spec_path: str) -> int:
 
 
 def _start_ddp_ranks(world: int, backend, devices, profile: bool,
-                     wire: str | None = None) -> tuple:
+                     wire: str | None = None, comm: bool = False) -> tuple:
     """Start ``world`` ranks of `ddp_worker` as processes of this script,
     rank r on ``devices[r]``, in a rendezvous directory of their own (so
-    several groups may run at once); `_ddp_ranks` collects them."""
+    several groups may run at once); `_ddp_ranks` collects them. With
+    ``comm`` rank 0 runs the comm attribution's window."""
     import shutil
 
     work = os.path.join(HERE, "build", "ddp_smoke",
@@ -2155,6 +2285,8 @@ def _start_ddp_ranks(world: int, backend, devices, profile: bool,
         spec = {"rank": rank, "world": world, "backend": backend,
                 "device": devices[rank], "profile": profile,
                 "wire": wire,
+                "comm_dir": os.path.join(work, "commprof") if comm
+                else None,
                 "init": "file://" + os.path.join(work, "rendezvous"),
                 "out": os.path.join(work, f"rank{rank}.pt")}
         path = os.path.join(work, f"spec{rank}.json")
@@ -2196,7 +2328,7 @@ def _ddp_ranks(world: int, backend, devices, profile: bool,
 
 def _ddp_parity(out, key: str, world: int, backend, devices,
                 profile: bool = False, wire: str | None = None,
-                started=None, ref=None) -> dict:
+                started=None, ref=None, comm_checked: bool = False) -> dict:
     """``world`` ranks against one process on the concatenated batch:
     per-step global loss within ``DDP_LOSS_TOL``, parameters and buffers
     bit-identical across the ranks, and each rank's books per step: 20
@@ -2204,7 +2336,8 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
     sync-BN pmeans, one metrics all-reduce, DDP's buckets (printed); with
     ``wire`` the sharded update instead of DDP, its exchange's
     reduce-scatters, all-to-alls and all-gather as planned and no DDP
-    bucket."""
+    bucket. ``comm_checked``: the ranks ran rank 0's comm window, and its
+    report is held to `_comm_report_checks`."""
     import torch
 
     ranks = _ddp_ranks(world, backend, devices, profile, wire, started)
@@ -2226,8 +2359,9 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
                        and all(b[k] == v for k, v in
                                r["exchange_books"].items())
                        for r in ranks for b in r["books"])
+    comm = ranks[0].get("comm_report")
     rec = {
-        "world": world, "wire": wire,
+        "world": world, "wire": wire, "comm_report": comm,
         "backend": [r["backend"] for r in ranks],
         "devices": [r["device"] for r in ranks],
         "losses": [r["losses"] for r in ranks],
@@ -2253,6 +2387,10 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
         },
         "card": out["card"],
     }
+    if comm_checked:
+        rec["checks"].update(_comm_report_checks(comm, wire, world))
+        rec["checks"]["comm_window_on_rank_0_alone"] = not any(
+            r["comm_report"] for r in ranks[1:])
     step = rec["step_ms_median"][0]
     rec["global_images_per_s"] = world * TRAIN_B / (step / 1e3)
     out[key] = rec
@@ -2265,6 +2403,15 @@ def _ddp_parity(out, key: str, world: int, backend, devices,
           f"(max diff {max(diffs):.3g}); ranks bit-identical: {same}; DDP "
           f"buckets per step {rec['ddp_buckets_per_step']}; step "
           f"{step:.3f} ms")
+    if comm is not None:
+        print(f"[{key}] comm window {comm['start_step']}:{comm['end_step']}"
+              f" on rank 0 ({comm['source']}): comm {comm['comm_ms']} ms "
+              f"an update, exposed {comm['exposed_comm_ms']}, overlap "
+              f"{comm['overlap_frac']}, compute {comm['compute_ms']}; "
+              f"collectives an update " + json.dumps(
+                  {k: v["per_step"] for k, v in comm["by_kind"].items()})
+              + f"; reconciled {comm['reconciliation']['ok']}, wire "
+              + json.dumps((comm.get("wire") or {}).get("reconciliation")))
     failed = [k for k, v in rec["checks"].items() if not v]
     if failed:
         raise AssertionError(f"{key} checks failed: {failed}")
@@ -2279,7 +2426,8 @@ def phase_ddp_gloo_one_card(out):
     print("[ddp_gloo_one_card] backend gloo, asked for explicitly: two "
           "ranks share cuda:0")
     cards = ["cuda:0"] * DDP_WORLD
-    started = {wire: _start_ddp_ranks(DDP_WORLD, "gloo", cards, False, wire)
+    started = {wire: _start_ddp_ranks(DDP_WORLD, "gloo", cards, False, wire,
+                                      comm=True)
                for wire in (None, "", "int8")}
     try:
         _ddp_gloo_pairs(out, cards, started)
@@ -2297,7 +2445,7 @@ def phase_ddp_gloo_one_card(out):
 def _ddp_gloo_pairs(out, cards, started) -> None:
     ref = _ddp_train(None, DDP_WORLD)  # the three pairs' one yardstick
     _ddp_parity(out, "ddp_gloo_one_card", DDP_WORLD, "gloo", cards,
-                started=started[None], ref=ref)
+                started=started[None], ref=ref, comm_checked=True)
     # The sharded update on the same two ranks. gloo may not implement a
     # reduce-scatter or an all-to-all of CUDA tensors: then the run is
     # reported as not run, with gloo's error (nothing stages through the
@@ -2306,7 +2454,7 @@ def _ddp_gloo_pairs(out, cards, started) -> None:
         key = f"ddp_gloo_one_card_sharded_{wire or 'f32'}"
         try:
             _ddp_parity(out, key, DDP_WORLD, "gloo", cards, wire=wire,
-                        started=started[wire], ref=ref)
+                        started=started[wire], ref=ref, comm_checked=True)
         except AssertionError as e:
             if "exited" not in str(e):
                 raise
@@ -2452,9 +2600,201 @@ def _world1_vs_one_process(out, key, args, steps, convs, turns=False):
 def phase_ddp_nccl_world1(out):
     """7b: DDP's machinery on the card: `_world1_vs_one_process` on the
     fused full-width ResNet-18, 30 steps and one eval, with the plain and
-    DDP steps in turns."""
+    DDP steps in turns; then the comm attribution's window over it
+    (`_world1_comm_window`)."""
     _world1_vs_one_process(out, "ddp_nccl_world1", TRAIN_ARGS, TRAIN_STEPS,
                            convs=10, turns=True)
+    _world1_comm_window(out)
+
+
+def commprof_multi_card(out, world: int, wire: str | None,
+                        timeout_s: float = 600) -> dict:
+    """The comm attribution across ``world`` cards, one NCCL rank a card:
+    ``python -m torch.distributed.run --standalone --nproc_per_node=WORLD
+    -m tpu_dp_torch.train`` on the preset with the kernel knobs, windows
+    of 10 as CUDA graphs, ``--obs.comm_profile_steps`` over
+    `COMMPROF_MC_WINDOW`; ``wire`` None replicated (DDP), "" or "int8"
+    the sharded update. Rank 0's report: source "device", the window's
+    10 updates at this world, every collective kind reconciled exactly
+    with the books (none absent across cards), the sharded wire held
+    against `quant.wire_report`, ``wire_gbs`` and ``ici_util`` (against
+    the card's NVLink rate) for every kind that moved bytes, the overlap
+    share recorded. The run's log goes to ``chiprun_out/``."""
+    import shutil
+
+    name = "replicated" if wire is None else (wire or "f32")
+    key = f"commprof_nccl_world{world}_{name}"
+    work = os.path.join(HERE, "build", "commprof_mc", key)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    a, b = COMMPROF_MC_WINDOW
+    args = [
+        "--preset=resnet18_cifar10", "--model.fused_stages=all",
+        "--model.fused_bwd=true", "--train.pallas_xent=true",
+        "--data.dataset=synthetic", f"--data.batch_size={TRAIN_B}",
+        f"--data.synthetic_train_size="
+        f"{COMMPROF_MC_UPDATES * world * TRAIN_B}",
+        "--train.epochs=1", "--train.eval_at_end=false",
+        "--train.steps_per_call=10", f"--obs.comm_profile_steps={a}:{b}",
+        f"--train.ckpt_dir={os.path.join(work, 'ck')}"]
+    if wire is not None:
+        args += _sharded_args(wire, 0)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={world}", "-m", "tpu_dp_torch.train", *args],
+        cwd=HERE, capture_output=True, text=True, timeout=timeout_s)
+    seconds = time.perf_counter() - t0
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", f"{key}.log"), "w",
+              encoding="utf-8") as f:
+        f.write(p.stdout + "\n--- stderr ---\n" + p.stderr)
+    path = os.path.join(work, "ck", "obs", "comm_report.json")
+    rep = None
+    if p.returncode == 0 and os.path.exists(path):
+        from tpu_dp_torch.obs.commprof import read_comm_report
+
+        rep = read_comm_report(path)
+    checks = {"exit_0": p.returncode == 0, "report_written": rep is not None}
+    if rep is not None:
+        recon = rep.get("reconciliation") or {}
+        by = recon.get("by_kind") or {}
+        moved = {k: v for k, v in rep["by_kind"].items()
+                 if v.get("wire_bytes_per_step")}
+        want = {"all-reduce"} | (set() if wire is None else
+                                 {"reduce-scatter", "all-gather"}
+                                 | ({"all-to-all"} if wire == "int8"
+                                    else set()))
+        checks.update({
+            "source_device": rep["source"] == "device",
+            "window": (rep["start_step"], rep["end_step"], rep["steps"],
+                       rep["world"]) == (a, b, b - a, world),
+            "reconciled_every_kind": recon.get("ok") is True
+            and all(v["ok"] is True for v in by.values())
+            and want <= {k for k, v in by.items() if v["expected"]},
+            "wire_gbs_and_link_share": bool(moved) and all(
+                "wire_gbs" in v and "ici_util" in v for v in moved.values()),
+            "overlap_recorded": rep["overlap_frac"] is not None})
+        if wire is not None:
+            checks["wire_reconciled"] = ((rep.get("wire") or {}).get(
+                "reconciliation") or {}).get("ok") is True
+    rec = {"world": world, "wire": name, "report": rep, "checks": checks,
+           "seconds": seconds, "card": out.get("card")}
+    out[key] = rec
+    print(f"[{key}] " + json.dumps(rec))
+    if rep is not None:
+        print(f"[{key}] {out.get('card')}: comm {rep['comm_ms']} ms an "
+              f"update, exposed {rep['exposed_comm_ms']}, overlap "
+              f"{rep['overlap_frac']}, compute {rep['compute_ms']}; "
+              + json.dumps({k: {f: v.get(f) for f in
+                                ("per_step", "dur_ms_per_step",
+                                 "wire_bytes_per_step", "wire_gbs",
+                                 "ici_util")}
+                            for k, v in rep["by_kind"].items()}))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        print(p.stderr[-3000:])
+        raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
+def _world1_comm_window(out) -> dict:
+    """7b's comm window: the same `Trainer` at NCCL world 1 (cuDNN
+    deterministic) fitted with ``--obs.comm_profile_steps`` over
+    `WORLD1_COMM_WINDOW` and without it. The report's source is "device"
+    (CUDA kernels); the window's conv and xent kernels by name equal the
+    books of its updates, with the session's spin bracket counted apart
+    (up to 2 x `PROFILE_LEAD_IN`: the spins at the session's edges are
+    where its lost records fall, 127 in one of three calls); the NCCL
+    kernels found, by name and count an
+    update, are printed (none at one rank: NCCL runs a one-rank
+    collective as a device-to-device copy, and the report gives each kind
+    absent with that reason, never ok and never failed); the flight
+    recorder holds the window without a parse error; the parameters
+    after the run are bit-identical to the unprofiled run's."""
+    import torch
+
+    from tpu_dp_torch.config import parse_cli
+    from tpu_dp_torch.obs import flightrec, kineto
+    from tpu_dp_torch.obs.commprof import read_comm_report
+    from tpu_dp_torch.train.trainer import Trainer
+
+    a, b = WORLD1_COMM_WINDOW
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_commprof_")
+    states, ran = {}, {}
+    try:
+        for window in (False, True):
+            flightrec.recorder.reset()
+            with _nccl_world1_env():
+                t = Trainer(parse_cli(TRAIN_ARGS + [
+                    f"--train.ckpt_dir={os.path.join(tmp.name, str(window))}"]
+                    + ([f"--obs.comm_profile_steps={a}:{b}"] if window
+                       else [])))
+                _, ran[window] = _fit_books(t)
+                states[window] = _flat_state(t)
+            if window:
+                rep = read_comm_report(t.obs_dir / "comm_report.json")
+                summary = kineto.summarize(rep["trace_dir"], "device")
+                events = [e for e in flightrec.recorder.events()
+                          if e["kind"] == "comm_profile"]
+            del t
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+        tmp.cleanup()
+    steps = b - a
+    want = {"conv_block_kernel": 20 * steps, "xent_fwd": steps,
+            "xent_bwd": steps}
+    ops = {r["name"]: r["count"] for r in summary["ops"]}
+    got = {k: sum(n for name, n in ops.items() if k in name.lower())
+           for k in want}
+    nccl = {r["name"]: r["count"] / steps for r in summary["ops"]
+            if r["category"] == "comm"}
+    by = rep["reconciliation"]["by_kind"]
+    rec = {"window": [a, b], "report": rep, "kernels_by_name": got,
+           "books_in_window": want, "nccl_kernels_per_update": nccl,
+           "spins_left_out": summary["skipped"].get("spin", 0),
+           "card": out["card"]}
+    rec["checks"] = checks = {
+        "source_device": rep["source"] == "device",
+        "window_steps": (rep["start_step"], rep["end_step"], rep["steps"],
+                         rep["world"]) == (a, b, steps, 1),
+        "kernels_by_name_equal_books": got == want,
+        "books_per_update": _per_update_ok(ran[True], TRAIN_STEPS, 2)
+        and ran[True] == ran[False],
+        # The bracket's spins absorb the records a session loses at its
+        # edges: some of them may be gone, none may count as compute.
+        "spin_bracket_left_out": 0 < rec["spins_left_out"]
+        <= 2 * PROFILE_LEAD_IN,
+        # At one rank NCCL launches no kernel: every booked kind absent
+        # with its reason; any kind that did run reconciled.
+        "reconciliation_compares_what_runs":
+            rep["reconciliation"]["ok"] is not False
+            and all(v["ok"] is True or (v["ok"] is None and v.get("absent")
+                                        and not v["observed_raw"])
+                    for v in by.values()),
+        "flightrec_window_without_error": len(events) == 1
+        and "error" not in events[0],
+        "params_bit_identical_to_unprofiled":
+            _same_state(states[True], states[False]),
+    }
+    out["ddp_nccl_world1_commprof"] = rec
+    print("[ddp_nccl_world1_commprof] " + json.dumps(rec))
+    print(f"[ddp_nccl_world1_commprof] {out['card']}: window [{a}, {b}) "
+          f"at NCCL world 1, source {rep['source']}: kernels by name {got} "
+          f"(books {want}), {rec['spins_left_out']} spins left out; NCCL "
+          f"kernels an update {nccl or 'none'}; kinds "
+          + json.dumps({k: v.get("absent") or v["ok"] for k, v in by.items()})
+          + f"; comm {rep['comm_ms']} ms an update, compute "
+          f"{rep['compute_ms']}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"ddp_nccl_world1_commprof checks failed: "
+                             f"{failed}")
+    return rec
 
 
 def phase_ddp_nccl_multi_card(out):
@@ -2468,6 +2808,9 @@ def phase_ddp_nccl_multi_card(out):
     if n < 2:
         print(f"ddp_nccl_multi_card: not run, {n} card visible")
         out["ddp_nccl_multi_card"] = {"run": False, "cards": n}
+        print(f"commprof_nccl_multi_card: not run, {n} card visible "
+              f"(tools/port_commprof_multicard.py)")
+        out["commprof_nccl_multi_card"] = {"run": False, "cards": n}
         return
     recs, sharded, vs_ddp = {}, {}, {}
     for world in sorted({2, n}):
@@ -5324,6 +5667,62 @@ def _obs_epoch_ms(t) -> float:
     return 1e3 * (time.perf_counter() - t0) / OBS_UPDATES
 
 
+def _obsctl(*argv) -> tuple[int, str]:
+    """``python -m tpu_dp_torch.obs ARGV`` as a user runs it: (exit code,
+    standard output)."""
+    p = subprocess.run([sys.executable, "-m", "tpu_dp_torch.obs", *argv],
+                       cwd=HERE, capture_output=True, text=True, timeout=300)
+    if p.returncode not in (0, 1):
+        print(f"[obsctl] {' '.join(argv[:2])}: rc {p.returncode}: "
+              f"{p.stderr[-1500:]}")
+    return p.returncode, p.stdout
+
+
+def _obsctl_checks(run_dir: str, work: str) -> dict:
+    """Phase 16's post-hoc tools over a run directory: ``timeline``,
+    ``stragglers``, ``merge-trace`` and ``diff`` against a baseline minted
+    from the same run exit 0 (and ``diff`` against a baseline whose p95
+    step time is a tenth of the run's exits 1); ``watch --replay`` exits 0
+    on a rule the run keeps and 1 on a rule it must trip. (The off-mode
+    run mints no baseline: it records no efficiency signal, and ``diff``
+    refuses to certify on nothing, exit 2.)"""
+    os.makedirs(work, exist_ok=True)
+    base, tampered = (os.path.join(work, n)
+                      for n in ("base.json", "tampered.json"))
+    rc, res = {}, {}
+    rc["timeline"], t = _obsctl("timeline", run_dir, "--json")
+    rc["stragglers"], st = _obsctl("stragglers", run_dir, "--json")
+    rc["merge_trace"], _ = _obsctl("merge-trace", run_dir, "-o",
+                                   os.path.join(work, "merged.json"))
+    rc["write_baseline"], _ = _obsctl("diff", run_dir, "--write-baseline",
+                                      base)
+    rc["diff"], d = _obsctl("diff", run_dir, "--baseline", base, "--json")
+    if os.path.exists(base):
+        with open(base, encoding="utf-8") as f:
+            payload = json.load(f)
+        if payload.get("p95_ms"):
+            payload["p95_ms"] /= 10
+        with open(tampered, "w", encoding="utf-8") as f:
+            json.dump(payload, f)
+    rc["diff_tampered"], _ = _obsctl("diff", run_dir, "--baseline", tampered)
+    rc["watch_clean"], _ = _obsctl("watch", run_dir, "--replay", "--rule",
+                                   "goodput<0.0001")
+    rc["watch_trips"], w = _obsctl("watch", run_dir, "--replay", "--rule",
+                                   "goodput<2")
+    try:
+        res["timeline_events"] = len(json.loads(t)["events"])
+        res["stragglers"] = json.loads(st)["stragglers"]
+        res["diff_checks"] = {c["signal"]: c["verdict"]
+                              for c in json.loads(d)["checks"]}
+    except (ValueError, KeyError):
+        res["unreadable"] = True
+    want = {"diff_tampered": 1, "watch_trips": 1}
+    return {"rcs": rc, **res, "watch_trips_output": w[-600:], "checks": {
+        k: v == want.get(k, 0) for k, v in rc.items()}
+        | {"outputs_read": "unreadable" not in res
+           and res["timeline_events"] > 0}}
+
+
 def phase_obs(out):
     """16: the telemetry on the main path (module docstring): the same run
     at train.obs off, basic and full (books, parameters, host
@@ -5503,6 +5902,10 @@ def phase_obs(out):
             == kinds.count("profile_stop") == 1})
         pt.multi_step.close()
         del pt
+        # The post-hoc tools over the full run's directory.
+        rec["obsctl"] = _obsctl_checks(where("full"), where("obsctl"))
+        checks.update({f"obsctl_{k}": v
+                       for k, v in rec["obsctl"]["checks"].items()})
         # The cost of each mode per update, in turns on a quiet card: an
         # epoch of 30 updates fenced at its end. fit closed the heartbeat
         # writers: the timed epochs beat into fresh ones.
@@ -5556,7 +5959,8 @@ def phase_obs(out):
           f"{rec['epoch_ms_per_update']}; full costs "
           f"{rec['full_cost_ms_per_update']:.3f} ms per update, basic "
           f"{rec['basic_cost_ms_per_update']:.3f}; profile "
-          f"{rec['profile']['kernels']}")
+          f"{rec['profile']['kernels']}; obsctl exit codes "
+          f"{json.dumps(rec['obsctl']['rcs'])}")
     failed = [n for n, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"obs checks failed: {failed}")
@@ -6589,10 +6993,11 @@ def _segment_books_exact(x: dict, convs: int = 10, draws: int = 1) -> bool:
 
 
 def _elastic_grow_run(out, started: dict, backend: str, world: int,
-                      victim: int, args: list) -> dict:
+                      victim: int, args: list, fleet: bool = False) -> dict:
     """(f) and (h): one relaunch of phase 17, its ranks started
     (`_start_elastic` on ``args`` with ``grow``), and its checks (module
-    docstring)."""
+    docstring); with ``fleet`` (the ranks beat, ``train.obs=basic``) the
+    post-hoc tools over its run directory too (`_fleet_checks`)."""
     key, work, procs = started["key"], started["work"], started["procs"]
     logs = _await_started(started)
     ranks_s = time.perf_counter() - started["t0"]
@@ -6695,6 +7100,12 @@ def _elastic_grow_run(out, started: dict, backend: str, world: int,
                           for r in incumbents)
         and j["counters"].get("elastic.joins") == 1,
     }
+    fleet_rec = None
+    if fleet:
+        fleet_rec = _fleet_checks(os.path.join(work, "ck"), records,
+                                  a.get("host_step"))
+        checks.update({f"obsctl_{k}": v
+                       for k, v in fleet_rec["checks"].items()})
     rec = {"checks": checks, "rcs": rcs, "records": records,
            "losses": a["losses"], "oracle_losses": oracle,
            "max_loss_diff": max(diffs) if diffs else None,
@@ -6708,7 +7119,8 @@ def _elastic_grow_run(out, started: dict, backend: str, world: int,
                         for e in consumed},
            "segments": {r: x["segments"] for r, x in res.items()},
            "fit_s": {r: x["fit_s"] for r, x in res.items()},
-           "ranks_s": ranks_s, "captured": a.get("captured")}
+           "ranks_s": ranks_s, "captured": a.get("captured"),
+           "obsctl": fleet_rec}
     out["elastic"][key] = rec
     print(f"[{key}] " + json.dumps({k: v for k, v in rec.items()
                                     if k not in ("losses", "oracle_losses",
@@ -6721,6 +7133,60 @@ def _elastic_grow_run(out, started: dict, backend: str, world: int,
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"{key} checks failed: {failed}")
+    return rec
+
+
+def _fleet_checks(ck: str, records: list, last_step) -> dict:
+    """(f)'s run directory through ``python -m tpu_dp_torch.obs``:
+    ``fleet --replay`` writes ``fleet_step`` records that cover each
+    global step once across the regroups (through ``last_step``, when the
+    rank said), each stamped with the membership epoch the ledger's
+    records give it (the newest whose resume step is below it) at that
+    epoch's world; ``timeline`` shows the departure and the rejoin."""
+    path = os.path.join(os.path.dirname(ck), "fleet.jsonl")
+    if os.path.exists(path):
+        os.remove(path)  # the stream appends
+    rc_f, _ = _obsctl("fleet", ck, "--replay", "-o", path)
+    rc_t, tl = _obsctl("timeline", ck, "--json")
+    steps = []
+    if os.path.exists(path):
+        with open(path, encoding="utf-8") as f:
+            steps = [r for r in map(json.loads, f)
+                     if r.get("kind") == "fleet_step"]
+    starts = [(int(r["epoch"]), int((r.get("resume") or {}).get(
+        "global_step", 0)), int(r["world"])) for r in records]
+
+    def epoch_of(step):
+        return max(s for s in starts if s[1] < step)
+
+    try:
+        kinds = [e["kind"] for e in json.loads(tl)["events"]]
+    except (ValueError, KeyError):
+        kinds = []
+    nums = [r["step"] for r in steps]
+    checks = {
+        "fleet_exit_0": rc_f == 0, "timeline_exit_0": rc_t == 0,
+        "fleet_each_step_once": bool(nums)
+        and nums == list(range(1, len(nums) + 1))
+        and (last_step is None or nums[-1] == last_step),
+        "fleet_membership_epochs_follow_ledger": all(
+            (r["me"], r["world"]) == (epoch_of(r["step"])[0],
+                                      epoch_of(r["step"])[2])
+            for r in steps)
+        and {r["me"] for r in steps} == {s[0] for s in starts},
+        "timeline_departure_then_rejoin": "elastic_departure" in kinds
+        and "elastic_join" in kinds and kinds.index("elastic_departure")
+        < kinds.index("elastic_join")}
+    per_epoch = {}
+    for r in steps:
+        per_epoch.setdefault(r["me"], []).append(r["step"])
+    rec = {"checks": checks, "fleet_rc": rc_f, "timeline_rc": rc_t,
+           "steps_by_membership_epoch": {
+               e: [v[0], v[-1]] for e, v in per_epoch.items()},
+           "skew_ratio_max": max((r["skew_ratio"] for r in steps
+                                  if r.get("skew_ratio") is not None),
+                                 default=None)}
+    print("[elastic_grow_gloo_one_card] obsctl " + json.dumps(rec))
     return rec
 
 
@@ -6846,7 +7312,8 @@ def phase_elastic(out):
     grow_args = gloo_args + [
         f"--resilience.snapshot_every_steps={ELASTIC_SNAP_EVERY}",
         "--resilience.snapshot_keep=0",
-        f"--resilience.fault=relaunch:step={ELASTIC_GROW_K},rank=2"]
+        f"--resilience.fault=relaunch:step={ELASTIC_GROW_K},rank=2",
+        "--train.obs=basic"]
     t0, beside, stop = time.perf_counter(), {}, threading.Event()
 
     def start_beside():
@@ -6876,7 +7343,7 @@ def phase_elastic(out):
         _elastic_sdc_run(out, beside["d"])
         seconds["d"] = time.perf_counter() - beside["d"]["t0"]
         _elastic_grow_run(out, beside["f"], "gloo", ELASTIC_WORLD, 2,
-                          grow_args)
+                          grow_args, fleet=True)
         seconds["f"] = time.perf_counter() - beside["f"]["t0"]
         _elastic_grow_aborted_run(out, beside["g"])
         seconds["g"] = time.perf_counter() - beside["g"]["t0"]

@@ -36,7 +36,10 @@ _TELEMETRY = ("tpu_dp_torch.metrics", "tpu_dp_torch.metrics.metrics",
               "tpu_dp_torch.obs", "tpu_dp_torch.obs.chips",
               "tpu_dp_torch.obs.costs", "tpu_dp_torch.obs.health",
               "tpu_dp_torch.obs.promfile", "tpu_dp_torch.obs.export",
-              "tpu_dp_torch.utils.profiling")
+              "tpu_dp_torch.utils.profiling", "tpu_dp_torch.obs.kineto",
+              "tpu_dp_torch.obs.commprof", "tpu_dp_torch.obs.obsctl",
+              "tpu_dp_torch.obs.fleet", "tpu_dp_torch.obs.tail",
+              "tpu_dp_torch.obs.objective")
 
 
 def _modules() -> list[str]:
@@ -106,7 +109,9 @@ def test_static_scan_finds_no_jax_or_tpu_dp_import():
         ROOT / "tools" / "port_profiler_loss.py",
         ROOT / "tools" / "port_profiler_drops.py",
         ROOT / "tools" / "port_nccl_abort_probe.py",
-        ROOT / "tools" / "port_elastic_multicard.py"]
+        ROOT / "tools" / "port_elastic_multicard.py",
+        ROOT / "tools" / "port_commprof_multicard.py",
+        ROOT / "tools" / "port_nccl_world1_probe.py"]
     assert len(files) > 15
     bad = {
         str(f.relative_to(ROOT)): n

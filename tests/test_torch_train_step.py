@@ -183,7 +183,7 @@ def test_augmentation_statistics():
     "--train.verify_fingerprint=true",
     "--train.recompile_guard=raise",
     "--serve.max_queue=8",
-    "--obs.comm_profile_steps=1:2", "--obs.comm_profile_dir=c",
+    "--train.profile=t.json", "--serve.profile_batches=2:4",
     "--serve.max_wait_ms=1",
     "--model.fused_block_b=4",
     "--serve.replicas=2",

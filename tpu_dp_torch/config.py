@@ -234,8 +234,7 @@ class GuardConfig:
 @dataclass
 class ObsConfig:
     """Telemetry tuning (`tpu_dp_torch.obs`; enabled by ``train.obs``),
-    the JAX package's fields and defaults but the comm-attribution pair
-    (``comm_profile_*``, ROADMAP Queue 1 item 10b)."""
+    the JAX package's fields and defaults."""
 
     # Shared telemetry dir ("" = <train.ckpt_dir>/obs): heartbeat files,
     # the flight recorder's dumps and the Perfetto export land here.
@@ -268,6 +267,20 @@ class ObsConfig:
     # Count one train step's FLOPs (FlopCounterMode, on the plain path)
     # instead of the analytic per-model estimate.
     measure_flops: bool = False
+    # In-run comm/compute attribution (`tpu_dp_torch.obs.commprof`):
+    # "START:END" captures one torch.profiler window over those global
+    # steps, "every:N[:W]" a W-step window (default 1) at every N-step
+    # boundary. Each captured window is parsed into a per-collective
+    # comm/compute/overlap breakdown, reconciled against the books of the
+    # collectives that ran, and published as the obs.comm_ms /
+    # obs.exposed_comm_ms / obs.overlap_frac gauges + a comm_profile
+    # metrics event + <obs dir>/comm_report.json. Mutually exclusive with
+    # train.profile_steps / train.profile_dir (profiler sessions cannot
+    # nest). Rank 0 only.
+    comm_profile_steps: str = ""
+    # Capture-window trace root ("" = <obs run dir>/commprof); each
+    # window lands in its own w<START> subdir.
+    comm_profile_dir: str = ""
 
 
 @dataclass
@@ -381,15 +394,12 @@ NOT_PORTED: dict[str, Any] = {
     "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
     "train.profile": "",
-    # The in-run comm/compute attribution (item 10b).
-    "obs.comm_profile_steps": "",
-    "obs.comm_profile_dir": "",
 }
 
 #: The ROADMAP Queue 1 item that ports each refused section or field
 #: (longest matching prefix); `model.fused_block_b` stays refused by design.
 _NOT_PORTED_ITEMS = {
-    "obs": "10b", "serve": "11",
+    "serve": "11",
     "train.profile": "12",
     "train.recompile_guard": "11", "train.verify_fingerprint": "13",
 }
@@ -531,8 +541,11 @@ def _check_elastic(cfg: Config) -> None:
 
 def _check_telemetry(cfg: Config) -> None:
     """The JAX package's checks of the telemetry knobs, with its messages
-    (its `Trainer` and `StepProfiler`): ``train.obs``, then
-    ``train.profile_steps`` (its form, and ``train.profile_dir`` with it)."""
+    (its `Trainer`, `StepProfiler` and `commprof`): ``train.obs``, then
+    ``train.profile_steps`` (its form, and ``train.profile_dir`` with it),
+    then ``obs.comm_profile_steps`` (its form, and no ``train.profile_*``
+    beside it)."""
+    from tpu_dp_torch.obs.commprof import parse_comm_profile_steps
     from tpu_dp_torch.utils.profiling import parse_profile_steps
 
     if cfg.train.obs not in ("off", "basic", "full"):
@@ -542,6 +555,13 @@ def _check_telemetry(cfg: Config) -> None:
             and not cfg.train.profile_dir):
         raise ValueError(
             "profile_steps needs train.profile_dir for the trace output")
+    if parse_comm_profile_steps(cfg.obs.comm_profile_steps) is not None and (
+            cfg.train.profile_steps or cfg.train.profile_dir):
+        raise ValueError(
+            "obs.comm_profile_steps cannot combine with "
+            "train.profile_steps/train.profile_dir — jax.profiler "
+            "sessions cannot nest, and the comm window replaces the "
+            "undirected trace")
 
 
 def check_guard(guard: GuardConfig) -> None:

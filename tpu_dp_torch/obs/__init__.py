@@ -18,13 +18,18 @@
 **Crash forensics** (always on): `flightrec`, a bounded ring of
 structured events dumped on every `Trainer.fit` exit path.
 
-**Post-hoc**: `export`, the Perfetto / Chrome-trace JSON of the spans
-(rollback generations as separate track groups).
+**Comm attribution** (``obs.comm_profile_steps``): `commprof`, the
+in-run windows, their reconciliation with the books of what ran and the
+``obs.comm_ms`` / ``obs.exposed_comm_ms`` / ``obs.overlap_frac`` gauges,
+over `kineto`, the reader of `torch.profiler`'s Chrome traces.
 
-The comm/compute attribution (`commprof`, `xplane`) and the post-hoc
-tools (`obsctl`, `fleet`, `tail`, `objective`) wait for ROADMAP Queue 1
-item 10b. The package imports nothing but the standard library at load
-(the memory gauges import torch lazily).
+**Post-hoc**: `export`, the Perfetto / Chrome-trace JSON of the spans
+(rollback generations as separate track groups); `obsctl` (``python -m
+tpu_dp_torch.obs``: timeline, stragglers, merge-trace, diff, watch,
+fleet) over `fleet` and `tail`; `objective`, the tuner's score.
+
+The package imports nothing but the standard library at load (the memory
+gauges import torch lazily).
 """
 
 from tpu_dp_torch.obs.costs import (

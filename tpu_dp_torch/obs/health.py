@@ -349,7 +349,8 @@ class HealthMonitor:
         issues.extend(self._straggler_issues(fresh))
         return issues
 
-    def scan(self) -> list[HealthIssue]:
+    def scan(self, beats: dict[int, list[dict]] | None = None
+             ) -> list[HealthIssue]:
         """Post-hoc attribution over the full history: for every step at
         which ≥ 2 ranks reported, flag ranks whose step time exceeded
         ``straggler_factor ×`` that step's cross-rank median — "which rank
@@ -358,9 +359,14 @@ class HealthMonitor:
         Steps replayed after a guard rollback appear once: per (rank,
         step) only the highest-generation record (the surviving attempt)
         enters the attribution — rolled-back work is never double-counted.
+
+        ``beats`` (a `read_beats` result) lets a caller that also needs
+        the raw streams share one file pass (`obsctl watch` polls this
+        every tick).
         """
         by_step: dict[int, dict[int, dict]] = {}
-        for rank, beats in self.read_beats().items():
+        for rank, beats in (self.read_beats()
+                            if beats is None else beats).items():
             for b in beats:
                 cur = by_step.setdefault(b["step"], {}).get(rank)
                 if cur is None or b.get("gen", 0) >= cur.get("gen", 0):

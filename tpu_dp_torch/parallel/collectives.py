@@ -18,7 +18,16 @@ from a thread of this package's own.
 ``pmean_forward`` and ``pmean_backward`` (sync-BN's), ``psum`` (metrics),
 ``ddp_buckets`` (DDP's bucket all-reduces, through
 `counting_allreduce_hook`), and the sharded update's ``reduce_scatter``,
-``all_to_all`` and ``all_gather``.
+``all_to_all`` and ``all_gather``. ``wire_bytes`` books, by collective
+kind (the JAX package's HLO names), the bytes of the tensors handed to
+each booked collective: a reduce-scatter's or an all-to-all's whole input
+(this rank's contribution), an all-gather's whole result, an
+all-reduce's tensor. The comm attribution (`tpu_dp_torch.obs.commprof`)
+holds both books against a profiler trace and the sharded exchange's
+bytes against `quant.wire_report`. ``torch_issued`` books what torch
+issues on the port's behalf outside its calls: DDP's one bucket rebuild
+at its second forward, two broadcasts of the bucket layout from rank 0
+(`book_ddp_rebuilds`).
 
 The sharded weight update (``train.update_sharding=sharded``; Xu et al.,
 the JAX package's second and third gradient schedules) splits the
@@ -58,11 +67,32 @@ from tpu_dp_torch.parallel import bucketing, quant
 counts = {"pmean_forward": 0, "pmean_backward": 0, "psum": 0,
           "ddp_buckets": 0, "reduce_scatter": 0, "all_to_all": 0,
           "all_gather": 0}
+#: bytes handed to the booked collectives since import or the last
+#: `reset_counts`, by kind.
+wire_bytes = {"all-reduce": 0, "reduce-scatter": 0, "all-to-all": 0,
+              "all-gather": 0}
+#: collectives torch issued for the port outside its own calls.
+torch_issued = {"ddp_rebuild_broadcasts": 0}
 
 
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+    for k in wire_bytes:
+        wire_bytes[k] = 0
+    for k in torch_issued:
+        torch_issued[k] = 0
+
+
+def books() -> dict[str, int]:
+    """Every book, flat: ``counts``, ``torch_issued`` and ``wire_bytes``
+    (keys ``bytes:<kind>``)."""
+    return {**counts, **torch_issued,
+            **{f"bytes:{k}": v for k, v in wire_bytes.items()}}
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def world_of(group) -> int:
@@ -91,6 +121,7 @@ def _all_reduce(x: torch.Tensor, group, mean: bool) -> torch.Tensor:
     """A reduced copy of ``x`` (``all_reduce`` works in place)."""
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    wire_bytes["all-reduce"] += _nbytes(y)
     return y.div_(dist.get_world_size(group)) if mean else y
 
 
@@ -138,7 +169,28 @@ def counting_allreduce_hook(group, bucket):
     from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
 
     counts["ddp_buckets"] += 1
+    wire_bytes["all-reduce"] += _nbytes(bucket.buffer())
     return default_hooks.allreduce_hook(group, bucket)
+
+
+def book_ddp_rebuilds(ddp) -> None:
+    """Book ``ddp``'s bucket rebuild in ``torch_issued`` where it happens:
+    DDP rebuilds its buckets once, at the first forward after a backward
+    (its ``_pre_forward``), and broadcasts the new layout from rank 0 in
+    two broadcasts (`torch`'s ``Reducer::sync_bucket_indices``). Forward
+    hooks on the wrapper see its flag turn."""
+    seen = {}
+
+    def before(module, args):
+        seen["rebuilt"] = getattr(module, "_has_rebuilt_buckets", False)
+
+    def after(module, args, out):
+        if getattr(module, "_has_rebuilt_buckets", False) and not seen.get(
+                "rebuilt", True):
+            torch_issued["ddp_rebuild_broadcasts"] += 2
+
+    ddp.register_forward_pre_hook(before)
+    ddp.register_forward_hook(after)
 
 
 # -- the sharded update's exchange -------------------------------------------
@@ -249,6 +301,7 @@ def psum_scatter(rows: torch.Tensor, group, *, mean: bool = False,
         _reduce_scatter_single()(out, x.reshape(-1), op=dist.ReduceOp.SUM,
                                  group=group)
         counts["reduce_scatter"] += 1
+        wire_bytes["reduce-scatter"] += _nbytes(x)
     out = out.to(torch.float32)
     return out / world if mean else out
 
@@ -260,6 +313,7 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
     counts["all_to_all"] += 1
+    wire_bytes["all-to-all"] += _nbytes(x)
     return out
 
 
@@ -306,4 +360,5 @@ def all_gather(shard: torch.Tensor, group, world: int | None = None,
     _all_gather_single()(out, shard.contiguous(), group=group)
     if book:
         counts["all_gather"] += 1
+        wire_bytes["all-gather"] += _nbytes(out)
     return out

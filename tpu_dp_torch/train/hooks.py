@@ -24,10 +24,10 @@ a later hook raises out of), then the guard (a triggering window must
 not be snapshotted before its rollback picks a target), the snapshot
 cadence, fault injection (a kill at step K lands after the step-K
 snapshot, the kill/resume contract), heartbeats (an injected ``delay:``
-is attributed to the step it fired at), the step-ranged profiler, and
-the elastic / preemption boundary last (it raises, and everything before
-it must have run for the final state to be coherent). The JAX package's comm
-profiler hook waits for ROADMAP Queue 1 item 10b.
+is attributed to the step it fired at), the step-ranged profiler, the
+comm attribution's windows, and the elastic / preemption boundary last
+(it raises, and everything before it must have run for the final state
+to be coherent).
 
 `GuardHook` is the one hook that reads the device: one fetch of the
 window's health per window (the guard's fence).
@@ -166,6 +166,26 @@ class ProfilerHook(StepHook):
     def on_step_end(self, ev: StepEvent) -> None:
         if self.tr._step_profiler is not None:
             self.tr._step_profiler.on_step(self.tr._host_step)
+
+
+class CommProfilerHook(StepHook):
+    """In-run comm/compute attribution windows (`tpu_dp_torch.obs.
+    commprof`, ``obs.comm_profile_steps``). Same arm-before-dispatch
+    discipline as `ProfilerHook`; the stop path additionally parses the
+    captured trace and publishes the comm gauges (parse failures log and
+    never raise into the hot loop)."""
+
+    def on_window_start(self, first_step: int, n: int) -> None:
+        if self.tr._comm_profiler is not None:
+            self.tr._comm_profiler.on_window_start(first_step, n)
+
+    def on_step_end(self, ev: StepEvent) -> None:
+        if self.tr._comm_profiler is not None:
+            self.tr._comm_profiler.on_step(self.tr._host_step)
+
+    def close(self) -> None:
+        if self.tr._comm_profiler is not None:
+            self.tr._comm_profiler.close()
 
 
 class FlightRecorderHook(StepHook):

@@ -128,6 +128,7 @@ def data_parallel(model, ctx):
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
             broadcast_buffers=False, find_unused_parameters=False)
     ddp.register_comm_hook(None, collectives.counting_allreduce_hook)
+    collectives.book_ddp_rebuilds(ddp)
     return ddp
 
 
@@ -554,7 +555,9 @@ class MultiStep:
     window after. The wrappers' counters tick at capture only:
     ``captured`` holds the books (`launch_books`) of the captured K
     updates and ``replays`` the replays since, so the launches that ran
-    are the eager ones plus ``captured × replays``.
+    are the eager ones plus ``captured × replays``. ``replayed_books``
+    keeps the same correction for `collectives.books` (counts and bytes)
+    across recaptures: the books plus it are the collectives that ran.
     """
 
     def __init__(self, train_step: TrainStep, num_steps: int, stream=None):
@@ -574,6 +577,8 @@ class MultiStep:
         self.graph = None
         self.captured: dict[str, int] | None = None
         self.replays = 0
+        self.replayed_books = dict.fromkeys(collectives.books(), 0)
+        self._captured_books: dict[str, int] = {}
         self.capture_ms: float | None = None
         self.capture_bytes: int | None = None
         self._static = self._out = None
@@ -601,6 +606,7 @@ class MultiStep:
         held = torch.cuda.memory_reserved(dev)
         self._static = tuple(torch.empty_like(t) for t in inputs)
         before = launch_books()
+        coll_before = collectives.books()
         graph = torch.cuda.CUDAGraph()
         bench = torch.backends.cudnn.benchmark
         torch.backends.cudnn.benchmark = False
@@ -617,6 +623,12 @@ class MultiStep:
         self.capture_bytes = torch.cuda.memory_reserved(dev) - held
         after = launch_books()
         self.captured = {k: after[k] - before[k] for k in after}
+        # The capture ticked the books once and ran nothing; each replay
+        # runs them once.
+        self._captured_books = {k: v - coll_before[k]
+                                for k, v in collectives.books().items()}
+        for k, v in self._captured_books.items():
+            self.replayed_books[k] -= v
         self.graph = graph
 
     def _replay(self, *inputs):
@@ -624,6 +636,8 @@ class MultiStep:
             static.copy_(t)
         self.graph.replay()
         self.replays += 1
+        for k, v in self._captured_books.items():
+            self.replayed_books[k] += v
         # The graph updated these in place where the host did not look:
         # bump their versions, as the eager ops would (the model's packed
         # eval weights are cached by parameter version).

@@ -119,6 +119,13 @@ update. Nothing is recorded inside a captured window. ``obs.prom_path``
 is rewritten at log boundaries, epoch ends and exit; rank 0 writes
 ``trace.perfetto.json`` at the end of `fit`; ``train.profile_dir`` traces
 the whole of `fit` with `torch.profiler`, or only ``train.profile_steps``.
+``obs.comm_profile_steps`` (rank 0; never with ``train.profile_*``)
+captures its windows into ``obs.comm_profile_dir`` (``<obs dir>/
+commprof``), parses each trace (`obs.kineto`), reconciles the collectives
+in it with the books of what ran and publishes the comm/compute/overlap
+report (`obs.commprof`): the ``comm_profile`` event, ``<obs dir>/
+comm_report.json``, the ``obs.comm_ms``, ``obs.exposed_comm_ms`` and
+``obs.overlap_frac`` gauges, the flight recorder and the promfile.
 
 Elastic world size, the graceful shrink (``resilience.elastic``;
 `tpu_dp_torch.resilience.elastic`): a rank told to go (SIGTERM,
@@ -185,7 +192,7 @@ from tpu_dp_torch.obs import costs as _costs
 from tpu_dp_torch.obs import flightrec as _flightrec
 from tpu_dp_torch.obs.counters import counters as _counters
 from tpu_dp_torch.obs.counters import update_device_memory_gauges
-from tpu_dp_torch.parallel import bucketing, quant
+from tpu_dp_torch.parallel import bucketing, collectives, quant
 from tpu_dp_torch.parallel.dist import (
     broadcast_one_to_all,
     collect_released,
@@ -755,15 +762,107 @@ class Trainer:
                     torch.cuda.get_device_name(self.device))
             self._eff = _costs.EfficiencyMeter(
                 peak=peak, capacity=cfg.obs.span_capacity)
-        # torch.profiler: one Chrome trace per rank (`utils.profiling`).
+        # torch.profiler: one Chrome trace per rank (`utils.profiling`),
+        # with the CPU ops under gloo (its collectives are host ops).
         self._tracer = ChromeTrace(rank=self.ctx.rank,
-                                   cuda=self.device.type == "cuda")
+                                   cuda=self.device.type == "cuda",
+                                   cpu=self.ctx.backend == "gloo")
         profile_range = parse_profile_steps(cfg.train.profile_steps)
         self._step_profiler = None
         if profile_range is not None:
             self._step_profiler = StepProfiler(
                 cfg.train.profile_dir, *profile_range,
                 start_fn=self._tracer.start, stop_fn=self._tracer.stop)
+        self._comm_profiler = None
+        self._build_comm_profiler()
+
+    def _build_comm_profiler(self) -> None:
+        """The comm-attribution capture driver (rank 0 only; `config.
+        check_ported` refuses it beside ``train.profile_*``: profiler
+        sessions cannot nest). Its expected collectives are the books of
+        what ran (`_collective_books`), with the resident feed as with
+        the streamed one; the sharded update's wire is held against
+        `quant.wire_report` for this world. Built again against the new
+        world after an elastic regroup (`_execute_regroup`)."""
+        from tpu_dp_torch.obs import chips
+        from tpu_dp_torch.obs.commprof import (
+            CommProfiler,
+            parse_comm_profile_steps,
+        )
+
+        cfg = self.cfg
+        spec = parse_comm_profile_steps(cfg.obs.comm_profile_steps)
+        if spec is None or not self.ctx.is_main_process:
+            return
+        trace_dir = cfg.obs.comm_profile_dir or str(self.obs_dir / "commprof")
+        wire_report = None
+        if self.sharded:
+            wire_report = quant.wire_report(
+                self.optimizer.leaves, self.ctx.world,
+                cfg.train.quant_block_size,
+                bucket_bytes=bucketing.parse_bucket_mb(cfg.train.bucket_mb))
+        cuda = self.device.type == "cuda"
+        self._comm_profiler = CommProfiler(
+            trace_dir, spec, devices=1, world=self.ctx.world,
+            books_fn=self._collective_books,
+            source="device" if cuda and self.ctx.backend != "gloo"
+            else "host",
+            wire_report=wire_report,
+            wire_dtype=cfg.train.collective_dtype or "",
+            link_gbs=(chips.link_gbs(torch.cuda.get_device_name(self.device))
+                      if cuda else None),
+            publish=self._publish_comm_report,
+            start_fn=self._tracer.start, stop_fn=self._tracer.stop)
+        self._log0("comm profile: windows %r -> %s",
+                   cfg.obs.comm_profile_steps, trace_dir)
+
+    def _collective_books(self) -> dict[str, int]:
+        """The collectives that ran, counts and bytes (`collectives.
+        books`), a window's replays included (`MultiStep.
+        replayed_books`)."""
+        books = collectives.books()
+        if self.multi_step is not None:
+            for k, v in self.multi_step.replayed_books.items():
+                books[k] += v
+        return books
+
+    def _publish_comm_report(self, report: dict, start: int, end: int,
+                             trace_dir: str) -> None:
+        """One captured window's breakdown -> metrics event + report file.
+
+        The gauges were already set by the CommProfiler (they ride the
+        next records' counter snapshots and the promfile); this stamps
+        the schema-3 ``comm_profile`` event and rewrites
+        ``<obs dir>/comm_report.json`` (newest window wins — the file is
+        a gauge, the metrics stream the history).
+        """
+        from tpu_dp_torch.obs.commprof import write_comm_report
+
+        recon = report.get("reconciliation") or {}
+        self._log_metrics({
+            "event": "comm_profile",
+            "start_step": start,
+            "end_step": end,
+            "comm_ms": report["comm_ms"],
+            "exposed_comm_ms": report["exposed_comm_ms"],
+            "overlap_frac": report["overlap_frac"],
+            "compute_ms": report["compute_ms"],
+            "reconciled": recon.get("ok"),
+            "by_kind": {k: v["per_step"]
+                        for k, v in report["by_kind"].items()},
+            "trace_dir": trace_dir,
+        })
+        write_comm_report(self.obs_dir / "comm_report.json", report)
+        self._write_prom()
+        self._log0("comm profile [%d, %d): comm %.3f ms/step (exposed %.3f, "
+                   "overlap %s), compute %.3f ms/step%s — %s",
+                   start, end, report["comm_ms"], report["exposed_comm_ms"],
+                   report["overlap_frac"], report["compute_ms"],
+                   "" if not recon else (
+                       ", books reconciled" if recon.get("ok")
+                       else ", nothing to reconcile" if recon.get("ok") is None
+                       else ", RECONCILIATION MISMATCH"),
+                   trace_dir)
 
     def _register_program_costs(self) -> None:
         """Stamp one optimizer step's per-card cost into the process-wide
@@ -811,7 +910,8 @@ class Trainer:
         """The step-lifecycle hooks, in the JAX package's load-bearing
         order (`tpu_dp_torch.train.hooks`): the flight recorder first, then
         the guard, the snapshot cadence, fault injection, heartbeats, the
-        step-ranged profiler, and the preemption boundary last."""
+        step-ranged profiler, the comm attribution's windows, and the
+        preemption boundary last."""
         self._guard_hook = (hooks_lib.GuardHook(self) if self.guard_enabled
                             else None)
         hooks: list = []
@@ -821,6 +921,7 @@ class Trainer:
             hooks.append(self._guard_hook)
         hooks += [hooks_lib.SnapshotHook(self), hooks_lib.FaultHook(self),
                   hooks_lib.HeartbeatHook(self), hooks_lib.ProfilerHook(self),
+                  hooks_lib.CommProfilerHook(self),
                   hooks_lib.BoundaryHook(self)]
         self._hooks = hooks
 
@@ -1460,8 +1561,10 @@ class Trainer:
             self.step_losses.extend(torch.cat(pending).double().tolist())
 
     def _release_world(self) -> None:
-        """Drop what holds the old group before it goes: the windows' CUDA
-        graphs first (a graph replayed after its NCCL communicator is
+        """Drop what holds the old group before it goes: an armed comm
+        capture is stopped (its driver is bound to the world; unparsed),
+        then the windows' CUDA
+        graphs (a graph replayed after its NCCL communicator is
         destroyed faults on the card), DDP, the resident table, the
         re-split tail and the heartbeat writer. Under the window fence the
         card's queued work is waited for, bounded, first; work wedged on a
@@ -1479,6 +1582,9 @@ class Trainer:
             if fence.wedged:
                 self._end_wedged_window()
                 fence.settle()
+        if self._comm_profiler is not None:
+            self._comm_profiler.close()
+            self._comm_profiler = None
         if self.multi_step is not None:
             self.multi_step.close()
         self.multi_step = self.ddp = None
@@ -1623,6 +1729,9 @@ class Trainer:
         del self.step_losses[max(0, self._host_step - self._losses_from):]
         self.snap_mgr.rewind(self._host_step)
         self._register_program_costs()
+        # The comm attribution re-keyed to this world: its rank 0, its
+        # wire report, its books (the new windows').
+        self._build_comm_profiler()
         position = self._lineage_position(
             int(resume.get("epoch", 0)), int(resume.get("steps_done", 0)),
             resume.get("lineage") or [])
@@ -1850,6 +1959,16 @@ class Trainer:
         eff = self._eff.rollup() if self._eff is not None else None
         if eff is not None:
             out["efficiency"] = eff
+        cp = self._comm_profiler
+        if cp is not None and cp.last_report is not None:
+            r = cp.last_report
+            out["comm"] = {
+                "windows": cp.reports,
+                "comm_ms": r["comm_ms"],
+                "exposed_comm_ms": r["exposed_comm_ms"],
+                "overlap_frac": r["overlap_frac"],
+                "reconciled": (r.get("reconciliation") or {}).get("ok"),
+            }
         return out
 
     def _export_final(self) -> None:

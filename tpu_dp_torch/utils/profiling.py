@@ -8,7 +8,16 @@ optimizer steps (`StepProfiler`). The artifact is a Chrome-trace JSON,
 not the TensorBoard directory `jax.profiler` writes. On a card the
 profiler records CUDA activity only: with CPU and CUDA activities
 together it loses device records (`tools/port_profiler_loss.py`). On the
-CPU it records CPU activity.
+CPU it records CPU activity, and on a card under gloo both (the comm
+attribution reads gloo's collectives from the CPU ops,
+`tpu_dp_torch.obs.kineto`).
+
+On a card a session opens and closes with a spin bracket: `PROFILE_LEAD_IN`
+spin kernels of `PROFILE_SPIN_CYCLES` each (`torch.cuda._sleep`), waited
+for, right after it starts and again before it stops, after the device
+drained. Without them a session loses the records of the first kernels it
+sees (`tools/port_profiler_loss.py`) and of the last
+(`tools/port_profiler_drops.py`); the trace parser leaves the spins out.
 """
 
 from __future__ import annotations
@@ -16,6 +25,24 @@ from __future__ import annotations
 import contextlib
 from pathlib import Path
 from typing import Callable
+
+#: spin kernels launched at the start of a session on a card, before the
+#: work it records, and again at its end, after it; each spins
+#: `PROFILE_SPIN_CYCLES` clock cycles (about a quarter of a millisecond at
+#: the H100's clock).
+PROFILE_LEAD_IN = 64
+PROFILE_SPIN_CYCLES = 500_000
+
+
+def spin_bracket() -> None:
+    """`PROFILE_LEAD_IN` spin kernels on the current stream, waited for,
+    after everything queued before them on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_LEAD_IN):
+        torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+    torch.cuda.synchronize()
 
 
 def parse_profile_steps(spec: str | None) -> tuple[int, int] | None:
@@ -50,11 +77,14 @@ class ChromeTrace:
     """One `torch.profiler` session at a time, exported as a Chrome trace:
     `start` (``trace_dir``) begins recording, `stop` ends it and writes
     ``<trace_dir>/trace_r<rank:05d>.json`` (``path``). CUDA activity only
-    on a card, CPU activity on the CPU."""
+    on a card (with ``cpu`` CPU activity too: gloo's collectives), CPU
+    activity on the CPU; on a card inside the spin bracket (module
+    doc)."""
 
-    def __init__(self, rank: int = 0, cuda: bool = True):
+    def __init__(self, rank: int = 0, cuda: bool = True, cpu: bool = False):
         self.rank = int(rank)
         self.cuda = bool(cuda)
+        self.cpu = bool(cpu) or not self.cuda
         self.path: Path | None = None
         self._prof = None
 
@@ -63,14 +93,19 @@ class ChromeTrace:
 
         self.path = Path(trace_dir) / f"trace_r{self.rank:05d}.json"
         self.path.parent.mkdir(parents=True, exist_ok=True)
-        act = ProfilerActivity.CUDA if self.cuda else ProfilerActivity.CPU
-        self._prof = profile(activities=[act])
+        acts = ([ProfilerActivity.CUDA] if self.cuda else []) + (
+            [ProfilerActivity.CPU] if self.cpu else [])
+        self._prof = profile(activities=acts)
         self._prof.start()
+        if self.cuda:
+            spin_bracket()
 
     def stop(self) -> None:
         prof, self._prof = self._prof, None
         if prof is None:
             return
+        if self.cuda:
+            spin_bracket()
         prof.stop()
         prof.export_chrome_trace(str(self.path))
 
@@ -107,7 +142,8 @@ class StepProfiler:
     ``start_fn``/``stop_fn`` begin and end the trace (the trainer's
     `ChromeTrace`; tests inject their own). Arm/stop transitions are recorded as flight-recorder
     ``profile_start``/``profile_stop`` events carrying the trace dir and
-    step range, so a captured trace is discoverable from the run's
+    step range (and ``label``: "commprof" for the comm attribution's
+    windows), so a captured trace is discoverable from the run's
     artifacts alone.
     """
 
@@ -118,6 +154,7 @@ class StepProfiler:
         end_step: int,
         start_fn: Callable[[str], None],
         stop_fn: Callable[[], None],
+        label: str = "profile",
     ):
         if not trace_dir:
             raise ValueError(
@@ -128,13 +165,14 @@ class StepProfiler:
         self.end_step = int(end_step)
         self._start = start_fn
         self._stop = stop_fn
+        self.label = str(label)
         self.active = False
         self.done = False
 
     def _record(self, kind: str, step: int) -> None:
         from tpu_dp_torch.obs import flightrec
 
-        flightrec.record(kind, step=step, label="profile",
+        flightrec.record(kind, step=step, label=self.label,
                          trace_dir=str(self.trace_dir),
                          start_step=self.start_step,
                          end_step=self.end_step)
