@@ -48,10 +48,24 @@ Phases, in order; any failure exits non-zero before the last line:
    loop would time the host's launch rate, which is also recorded);
 5. serve: the full-width fused CIFAR ResNet-18 (f32, random weights and
    random BN statistics from a seed) behind `InferenceEngine` with
-   buckets 1..32, 200 Poisson requests of 1-4 images: audited books, the
-   device class histogram equal to the handles' predictions, exactly 10
-   kernel launches per forward, and bucket-32 logits equal to the same
-   weights run unfused (cuDNN) within 1e-2 of their magnitude;
+   buckets 1..32, each a CUDA graph captured at warmup, 200 Poisson
+   requests of 1-4 images: audited books, the device class histogram
+   equal to the handles' predictions, 0 retraces, the launch books (10
+   per eager warm-up pass and per capture, the replays equal to the
+   warm-up's plus the batches; 10 kernels by name per replay under the
+   profiler), and bucket-32 logits equal to the same weights run unfused
+   (cuDNN) within 1e-2 of their magnitude; the bucket-32 serve step as
+   its graph against eager;
+5b. serve_cluster: `ServeCluster` on phase 5's model: (a) two replicas
+   sharing the card, each on its own stream, 400 Poisson requests at
+   800/s in two SLO classes: books per class, both replicas serving, one
+   capture per bucket per replica, the launch books, each replica's
+   bucket-32 graph bit-identical to its eager step; (b) the CLI's chaos
+   matrix (drain, hot swap, rejoin; the membership ledger, version
+   stamps, ``obs timeline``), and in process the post-swap answers equal
+   to an eager forward of the swapped weights; (c) failover of a replica
+   whose programs raise; (d) a wedged replica quarantined and restored;
+   (f) with two or more cards `tools/port_serve_multicard.py`;
 6. train: `Trainer` on ``--preset=resnet18_cifar10 --model.fused_stages=all
    --model.fused_bwd=true --train.pallas_xent=true`` at full width (f32,
    batch 128, synthetic data), 30 steps and one eval: finite losses that
@@ -97,7 +111,8 @@ Phases, in order; any failure exits non-zero before the last line:
    write ms, the payload MB, a verified load, the first resumed step
    against a steady one); `InferenceEngine.from_checkpoint` of the
    epoch-3 save with buckets 1..32 and 50 Poisson requests (audited books,
-   10 conv launches per forward, bucket-32 logits bit-identical to the
+   10 conv launches per captured forward x replays, bucket-32 logits
+   bit-identical to the
    trained model's eval forward); the reference workload (`Net`, batch 4,
    ``python -m tpu_dp_torch.train`` with synthetic data, 200 steps an
    epoch, 2 epochs) as a subprocess on the card (exit 0, falling finite
@@ -112,9 +127,11 @@ Phases, in order; any failure exits non-zero before the last line:
    and both routes' device time by batch; on the fused full-width
    ResNet-18, f32, B=128, cuDNN deterministic: (a) 40 eager updates against
    windows of 10 (an eager warm-up window, then one capture replayed 3
-   times), per-update losses, final state (parameters, BN statistics,
-   momentum) and eval bit-identical, the books per update from the captured
-   counts × replays and per replay by kernel name under the profiler; (c)
+   times) under ``--train.recompile_guard=raise`` (0 retraces, the window
+   guard's cache size 1), per-update losses, final state (parameters, BN
+   statistics, momentum) and eval bit-identical, the books per update
+   from the captured counts × replays and per replay by kernel name under
+   the profiler; (c)
    eager step ms against windowed ms per update, images/s by the fenced
    meter, device busy share and ops per update, host ms per window, the
    capture's ms and bytes (each timed over `WINDOW_TURNS`); at world 1
@@ -1533,7 +1550,8 @@ def _serve_run(name: str, num_classes: int, per_forward: int,
     from seed 0) behind `InferenceEngine` with buckets 1..32, 200 Poisson
     requests of 1-4 images at 400/s: its record, with ``checks`` (audited
     books, the device class histogram equal to the handles' predictions,
-    ``per_forward`` kernel launches per forward, bucket-32 logits equal to
+    ``per_forward`` kernel launches per captured forward x replays
+    (`_serve_graph_books`) and per replay by name, bucket-32 logits equal to
     the same weights run unfused on cuDNN within 1e-2 of their
     magnitude)."""
     import numpy as np
@@ -1555,7 +1573,7 @@ def _serve_run(name: str, num_classes: int, per_forward: int,
     engine = InferenceEngine(model, device="cuda",
                              buckets=(1, 2, 4, 8, 16, 32), slo_ms=250.0)
     cb.reset_launches()
-    engine.start()  # warms every bucket on the dispatch thread
+    engine.start()  # warms and captures every bucket on the dispatch thread
     warm = engine.replica.warmup_ms
     rec = _Recorder(engine)
     try:
@@ -1564,7 +1582,9 @@ def _serve_run(name: str, num_classes: int, per_forward: int,
     finally:
         engine.stop()
     launches = cb.launches
-    forwards = len(warm) + report["batches"]
+    books = _serve_graph_books([engine.replica], per_forward, launches,
+                               report["batches"])
+    forwards = books["forwards_ran"]
 
     truth = report["ground_truth"]
     dev = report["device_stats"]
@@ -1577,9 +1597,23 @@ def _serve_run(name: str, num_classes: int, per_forward: int,
         "served_eq_images": dev["served"] == truth["images_served"],
         "completed_eq_submitted": truth["completed"] == truth["submitted"],
         "histogram_eq_handles": dev["class_counts"] == hist.tolist(),
-        f"launches_eq_{per_forward}_per_forward":
-            launches == per_forward * forwards,
+        f"launches_eq_{per_forward}_per_captured_forward_x_replays":
+            books["ok"],
+        "no_retraces": report["retraces"] == 0,
     }
+    # The served forwards by kernel name: replays of the bucket-32 graph
+    # (its weights zeroed: the books count nothing), under the profiler.
+    r = engine.replica
+    r._dev[32]["weight"].zero_()
+    prog = r._program(32)
+    named_ok, named = _profiled_books(
+        lambda: prog(r._stats, r._dev[32]),
+        {"conv_block_kernel": per_forward})
+    checks[f"replay_runs_{per_forward}_kernels_by_name"] = named_ok
+    # Bucket 32's serve step, graph against eager, on the same buffers.
+    step32 = r._step(32)
+    graph_ms = cuda_median_ms(lambda: prog(r._stats, r._dev[32]), reps=20)
+    eager_ms = cuda_median_ms(lambda: step32(r._stats, r._dev[32]), reps=20)
 
     # Bucket-32 parity: the fused model (kernel) vs the same weights run
     # unfused on cuDNN, on one seeded batch.
@@ -1604,6 +1638,10 @@ def _serve_run(name: str, num_classes: int, per_forward: int,
     return {
         "model": name, "num_classes": num_classes,
         "checks": checks, "launches": launches, "forwards": forwards,
+        "launches_ran": books["ran"], "graph_books": books,
+        "profiled_by_name": named[-1],
+        "b32_serve_step_graph_ms": graph_ms,
+        "b32_serve_step_eager_ms": eager_ms,
         "warmup_ms": warm, "batches": report["batches"],
         "bucket_counts": report["bucket_counts"],
         "p50_ms": lat.get("p50_ms"), "p95_ms": lat.get("p95_ms"),
@@ -1620,6 +1658,30 @@ def _serve_run(name: str, num_classes: int, per_forward: int,
     }
 
 
+def _serve_graph_books(replicas, per_forward, counted, batches,
+                       role="eval") -> dict:
+    """The served forwards' launch books under the bucket graphs: each
+    replica's warmup runs every bucket's step once eagerly, captures it
+    (the wrappers count at capture only) and replays it once, and every
+    batch is one replay. ``ok``: ``counted`` (the wrappers' count) equals
+    ``per_forward`` x (eager warm-up passes + captures), one capture per
+    bucket holding ``per_forward`` launches of ``role``, and the replays
+    equal the warm-up's plus ``batches``; ``ran``: the launches that ran,
+    ``per_forward`` x (eager passes + replays)."""
+    eager = sum(len(r.warmup_ms) for r in replicas)
+    graphs = [g for r in replicas for g in r.graph_books().values()]
+    captures = sum(g["captures"] for g in graphs)
+    replays = sum(g["replays"] for g in graphs)
+    return {"eager_warmup": eager, "captures": captures, "replays": replays,
+            "forwards_ran": eager + replays,
+            "ran": per_forward * (eager + replays),
+            "ok": (counted == per_forward * (eager + captures)
+                   and captures == eager == len(graphs)
+                   and all(g["captured"].get(f"conv.{role}") == per_forward
+                           for g in graphs)
+                   and replays == eager + batches)}
+
+
 def _print_serve(tag: str, rec: dict) -> None:
     lat, breakdown = rec, rec["b32_profile"]
     print(f"[{tag}] " + json.dumps(rec))
@@ -1628,7 +1690,9 @@ def _print_serve(tag: str, rec: dict) -> None:
           f"{rec['images_per_s']:.1f} images/s offered-load "
           f"(200 Poisson requests at 400/s); bucket-32 forward "
           f"{rec['b32_forward_ms']:.3f} ms = {rec['b32_images_per_s']:.0f} "
-          f"images/s")
+          f"images/s; bucket-32 serve step as its graph "
+          f"{rec['b32_serve_step_graph_ms']:.3f} ms, eager "
+          f"{rec['b32_serve_step_eager_ms']:.3f} ms")
     print(f"[{tag}] bucket-32 forward under the profiler: "
           f"{breakdown['wall_us_per_call']:.1f} us wall, device busy "
           f"{breakdown['device_busy_us_per_call']:.1f} us "
@@ -1642,6 +1706,518 @@ def phase_serve(out):
     failed = [k for k, v in out["serve"]["checks"].items() if not v]
     if failed:
         raise AssertionError(f"serve checks failed: {failed}")
+
+
+#: phase 5b (a): two replicas on the one card, their load, classes and
+#: class SLOs; (b) and (d): the CLI's chaos scenario and its quarantine.
+CLUSTER_REQUESTS, CLUSTER_RATE = 400, 800.0
+CLUSTER_CLASS_MIX, CLUSTER_CLASS_SLO = (0.6, 0.4), {0: 250.0, 1: 800.0}
+CHAOS_ARGS = ["--requests", "300", "--pattern", "burst", "--burst", "10",
+              "--rate-rps", "500", "--sizes", "1,2", "--class-mix",
+              "0.7,0.3", "--class-slo-ms", "250,800"]
+CHAOS_EVENTS = {"drain": (50, 1), "swap": 120, "rejoin": (200, 1)}
+#: (d): Poisson at 60/s, so the load (~5 s) outlasts replica 1's 3 s
+#: wedge: the health loop restores a replica while it still runs.
+QUARANTINE_ARGS = ["--requests", "300", "--pattern", "poisson",
+                   "--rate-rps", "60", "--sizes", "1,2",
+                   "--fault", "delay:step=5,ms=3000,rank=1",
+                   "--stale-after-s", "1"]
+
+
+def _serve_model(name: str = "resnet18", num_classes: int = 10, seed=0):
+    """Phase 5's served model: the fused full-width ``name`` (f32), random
+    weights and random BN statistics from ``seed``, on the CPU."""
+    import torch
+
+    from tpu_dp_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(name, num_filters=64, num_classes=num_classes,
+                        fused_stages=(0, 1, 2, 3), generator=gen)
+    _randomize_bn(model, gen)
+    return model
+
+
+def _start_serve_cli(log: str, *argv):
+    """``python -m tpu_dp_torch.serve ARGV`` as a user runs it on the
+    card, started in the background, its output into ``log``."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("TPU_DP_FAULT", None)
+    with open(log, "w", encoding="utf-8") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "tpu_dp_torch.serve", *argv], cwd=HERE,
+            env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def _finish_serve_cli(proc, log: str) -> tuple[int, str]:
+    """(exit code, output tail) of a `_start_serve_cli` run."""
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    with open(log, encoding="utf-8", errors="replace") as f:
+        return rc, f.read()[-3000:]
+
+
+def _flight_events(run_dir: str) -> list:
+    """The flight recorder's events dumped under ``run_dir``/obs."""
+    path = os.path.join(run_dir, "obs", "flightrec_r00000.json")
+    with open(path, encoding="utf-8") as f:
+        return json.load(f).get("events", [])
+
+
+def _cluster_a(out, card) -> tuple[dict, dict]:
+    """5b (a): phase 5's model behind two replicas sharing the card."""
+    import numpy as np
+    import torch
+
+    from tpu_dp_torch.obs.counters import Counters
+    from tpu_dp_torch.ops import conv_block as cb
+    from tpu_dp_torch.serve import ServeCluster, run_load
+
+    cluster = ServeCluster(
+        _serve_model(), replicas=2, devices=["cuda:0"] * 2,
+        buckets=(1, 2, 4, 8, 16, 32), slo_ms=250.0,
+        class_slo_ms=CLUSTER_CLASS_SLO, registry=Counters(),
+        model_name="resnet18")
+    cb.reset_launches()
+    cluster.start()  # replica by replica: eager pass + capture per bucket
+    rec = _Recorder(cluster)
+    try:
+        report = run_load(rec, n_requests=CLUSTER_REQUESTS,
+                          pattern="poisson", rate_rps=CLUSTER_RATE,
+                          sizes=(1, 2, 3, 4), seed=0,
+                          class_mix=CLUSTER_CLASS_MIX,
+                          class_slo_ms=CLUSTER_CLASS_SLO)
+    finally:
+        cluster.stop()
+    launches = cb.launches
+    books = _serve_graph_books(cluster.replicas, 10, launches,
+                               report["batches"])
+    truth, dev = report["ground_truth"], report["device_stats"]
+    hist = np.zeros(cluster.num_classes, np.int64)
+    for h in rec.handles:
+        if h.ok:
+            np.add.at(hist, np.asarray(h.predictions, np.int64), 1)
+    guards = cluster.guard_stats()
+    checks = {
+        "consistent": report["consistent"],
+        "completed_eq_submitted": truth["completed"] == truth["submitted"],
+        "served_eq_images": dev["served"] == truth["images_served"],
+        "histogram_eq_handles": dev["class_counts"] == hist.tolist(),
+        "both_replicas_served": all(
+            r["batches"] > 0 for r in report["replicas"].values()),
+        "no_retraces": report["retraces"] == 0,
+        "one_capture_per_bucket_per_replica": len(guards) == 12 and all(
+            g["cache_size"] == 1 and g["retraces"] == 0 for g in guards),
+        "launches_eq_10_per_captured_forward_x_replays": books["ok"],
+    }
+    # Each replica: its bucket-32 graph against its eager step on one
+    # seeded batch (weights 0: the books count nothing), bit for bit, and
+    # its replays by kernel name.
+    imgs = np.random.default_rng(1).integers(0, 256, (32, 32, 32, 3),
+                                             dtype=np.uint8)
+    per = {}
+    for r in cluster.replicas:
+        with torch.cuda.stream(r.stream):
+            batch = r._place_batch(32, imgs, np.zeros(32, np.float32))
+            _, g = r._program(32)(r._stats, batch)
+            got = {k: v.clone() for k, v in g.items()}
+            _, e = r._step(32)(r._stats, batch)
+            r.stream.synchronize()
+        prog = r._program(32)
+        named_ok, named = _profiled_books(
+            lambda: prog(r._stats, r._dev[32]), {"conv_block_kernel": 10})
+        per[r.sid] = {
+            "graph_eq_eager": all(torch.equal(got[k], e[k]) for k in got),
+            "by_name": named_ok, "profiled": named[-1]}
+    checks["b32_graph_bit_identical_to_eager"] = all(
+        v["graph_eq_eager"] for v in per.values())
+    checks["replays_run_10_kernels_by_name"] = all(
+        v["by_name"] for v in per.values())
+    lat = report["latency_ms"] or {}
+    wall = report["load"]["wall_s"]
+    rec_a = {
+        "card": card, "replicas": report["replicas"],
+        "devices": [str(r.device) for r in cluster.replicas],
+        "batches": report["batches"], "bucket_counts":
+            report["bucket_counts"], "classes": report["classes"],
+        "p50_ms": lat.get("p50_ms"), "p95_ms": lat.get("p95_ms"),
+        "p99_ms": lat.get("p99_ms"),
+        "images_served": truth["images_served"], "wall_s": wall,
+        "images_per_s": truth["images_served"] / wall,
+        "spans": report["spans"], "launches": launches,
+        "graph_books": books, "guards": guards,
+        "warmup_ms": {r.sid: r.warmup_ms for r in cluster.replicas},
+        "capture_ms": {r.sid: {b: g.capture_ms for b, g in
+                               sorted(r._programs.items())}
+                       for r in cluster.replicas},
+        "per_replica_b32": per,
+        "device_util": report["device_util"],
+    }
+    return checks, rec_a
+
+
+def _chaos_cli(run_dir: str) -> list:
+    """5b (b)'s CLI arguments: the chaos matrix (drain replica 1, hot
+    swap, rejoin) through ``--run-dir``."""
+    (d_at, d_sid), (r_at, r_sid) = (CHAOS_EVENTS["drain"],
+                                    CHAOS_EVENTS["rejoin"])
+    return ["--device", "cuda", "--replicas", "2", "--run-dir", run_dir,
+            *CHAOS_ARGS, "--drain-at", f"{d_at}:{d_sid}",
+            "--swap-at", str(CHAOS_EVENTS["swap"]),
+            "--rejoin-at", f"{r_at}:{r_sid}",
+            "--out", os.path.join(run_dir, "report.json")]
+
+
+def _chaos_cli_checks(run_dir: str, rc: int, tail: str) -> tuple[dict, dict]:
+    """5b (b), the CLI's half: exit 0, an ok verdict, 0 retraces, the
+    membership ledger (initial, replica 1's departure, its rejoin), every
+    dispatch after a replica's swap stamped version 2, ``obs timeline``
+    showing drain → swap → rejoin."""
+    d_sid = CHAOS_EVENTS["drain"][1]
+    checks = {"cli_exit_0": rc == 0}
+    rec = {"cli_rc": rc}
+    if rc != 0:
+        rec["cli_tail"] = tail
+    try:
+        with open(os.path.join(run_dir, "report.json"),
+                  encoding="utf-8") as f:
+            rep = json.load(f)
+        led = os.path.join(run_dir, "membership", "serve")
+        epochs = []
+        for n in sorted(os.listdir(led)):
+            if n.startswith("epoch_"):
+                with open(os.path.join(led, n), encoding="utf-8") as f:
+                    epochs.append(json.load(f))
+        events = _flight_events(run_dir)
+    except (OSError, ValueError) as e:
+        rec["unreadable"] = repr(e)
+        rep, epochs, events = {}, [], []
+    # Each replica's dispatches before its own swap event carry version
+    # 1, every one after it version 2 (the recorder keeps them in order).
+    swapped = {}
+    for i, e in enumerate(events):
+        if e.get("kind") == "model_swap" and e.get("replica", -1) >= 0:
+            swapped.setdefault(e["replica"], i)
+    dispatches = [(i, e) for i, e in enumerate(events)
+                  if e.get("kind") == "serve_dispatch"]
+    stamps_ok = sorted(swapped) == [0, 1] and bool(dispatches) and all(
+        e.get("version") == (2 if i > swapped.get(e.get("replica"), i)
+                             else 1)
+        for i, e in dispatches)
+    trc, tl = _obsctl("timeline", run_dir)
+    order = [k for k in ("replica_drain", "model_swap", "replica_rejoin")
+             if k in tl]
+    checks.update({
+        "cli_verdict_ok": (rep.get("verdict") or {}).get("ok") is True,
+        "cli_no_retraces": rep.get("retraces") == 0,
+        "membership_initial_depart_rejoin":
+            [e.get("members") for e in epochs] == [[0, 1], [0], [0, 1]]
+            and epochs[1].get("departed", [{}])[0].get("sid") == d_sid
+            and epochs[2].get("reason") == "serve_rejoin",
+        "dispatches_after_swap_stamped_2": stamps_ok,
+        "timeline_exit_0": trc == 0,
+        "timeline_drain_swap_rejoin": order == [
+            "replica_drain", "model_swap", "replica_rejoin"]
+            and tl.index("replica_drain") < tl.index("model_swap")
+            < tl.index("replica_rejoin"),
+    })
+    rec.update({"report_replicas": rep.get("replicas"),
+                "served_by_version": (rep.get("ground_truth") or {}).get(
+                    "served_by_version"),
+                "membership": [{k: e.get(k) for k in (
+                    "epoch", "members", "reason", "departed")}
+                    for e in epochs],
+                "swapped_at_batch": swapped, "timeline_rc": trc})
+    return checks, rec
+
+
+def _chaos_inproc() -> tuple[dict, dict]:
+    """5b (b) in process: the CLI's script on a cluster whose answers are
+    kept, held against an eager forward of the weights each was stamped
+    with."""
+    import numpy as np
+    import torch
+
+    from tpu_dp_torch.obs.counters import Counters
+    from tpu_dp_torch.serve import ServeCluster, run_load
+
+    (d_at, d_sid), (r_at, r_sid) = (CHAOS_EVENTS["drain"],
+                                    CHAOS_EVENTS["rejoin"])
+    checks, rec = {}, {}
+    model, new = _serve_model(), _serve_model(seed=1)
+    cluster = ServeCluster(model, replicas=2, devices=["cuda:0"] * 2,
+                           buckets=(1, 2, 4, 8, 16, 32), slo_ms=250.0,
+                           class_slo_ms=CLUSTER_CLASS_SLO,
+                           registry=Counters())
+    sent = []
+
+    class _Keep(_Recorder):
+        def submit(self, images, *a, **kw):
+            h = super().submit(images, *a, **kw)
+            sent.append((np.asarray(images), h))
+            return h
+
+    def rejoin():
+        deadline = time.monotonic() + 5.0
+        while (cluster.replicas[r_sid].status != "left"
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        cluster.rejoin(r_sid)
+
+    cluster.start()
+    try:
+        report = run_load(
+            _Keep(cluster), n_requests=300, pattern="burst", burst=10,
+            rate_rps=500.0, sizes=(1, 2), seed=0, class_mix=(0.7, 0.3),
+            class_slo_ms=CLUSTER_CLASS_SLO,
+            events=[(d_at, "drain", lambda: cluster.drain(d_sid)),
+                    (CHAOS_EVENTS["swap"], "swap",
+                     lambda: cluster.swap_model(new.state_dict())),
+                    (r_at, "rejoin", rejoin)])
+    finally:
+        cluster.stop()
+    from tpu_dp_torch.train.step import _maybe_normalize
+
+    # Each version's answered images through an eager forward of that
+    # version's weights (and of the other's), 32 at a time.
+    served = {1: ([], []), 2: ([], [])}
+    for images, h in sent:
+        if h.ok:
+            served[h.model_version][0].append(images)
+            served[h.model_version][1].append(np.asarray(h.predictions))
+    fresh = {1: model.to("cuda").eval(), 2: new.to("cuda").eval()}
+    agree = {1: [0, 0], 2: [0, 0]}
+    other = [0, 0]
+    with torch.inference_mode():
+        for v, (imgs, preds) in served.items():
+            if not imgs:
+                continue
+            x, want = np.concatenate(imgs), np.concatenate(preds)
+            for mv, m in fresh.items():
+                got = np.concatenate([torch.argmax(m(_maybe_normalize(
+                    torch.from_numpy(x[i:i + 32]).cuda())), -1).cpu().numpy()
+                    for i in range(0, len(x), 32)])
+                same = int((got == want).sum())
+                if mv == v:
+                    agree[v] = [same, len(want)]
+                else:
+                    other[0] += same
+                    other[1] += len(want)
+    checks.update({
+        "inproc_consistent": report["consistent"],
+        "inproc_no_retraces": report["retraces"] == 0,
+        "inproc_both_versions_served": agree[1][1] > 0 and agree[2][1] > 0,
+        # The graphs after the swap serve the new weights (the kernel's
+        # packed weights refreshed in place): every served prediction is
+        # the eager forward's of the version stamped on it, and not the
+        # other version's.
+        "post_swap_predictions_eq_eager_new_weights":
+            agree[2][0] == agree[2][1],
+        "pre_swap_predictions_eq_eager_old_weights":
+            agree[1][0] == agree[1][1],
+        "predictions_differ_between_versions":
+            other[0] / max(1, other[1]) < 0.5,
+    })
+    rec.update({"inproc_agree": agree, "inproc_other_version": other,
+                "inproc_served_by_version":
+                    report["ground_truth"].get("served_by_version")})
+    return checks, rec
+
+
+def _cluster_c(out) -> tuple[dict, dict]:
+    """5b (c): replica 1's bucket programs raise at its 5th batch."""
+    from tpu_dp_torch.obs.counters import Counters
+    from tpu_dp_torch.serve import ServeCluster, run_load
+
+    reg = Counters()
+    cluster = ServeCluster(_serve_model(), replicas=2,
+                           devices=["cuda:0"] * 2,
+                           buckets=(1, 2, 4, 8, 16, 32), slo_ms=5000.0,
+                           registry=reg, max_retries=1)
+    cluster.start()
+    dying = cluster.replicas[1]
+    calls = [0]
+
+    class Dying:
+        """One of replica 1's bucket graphs, raising from the replica's
+        5th batch on; its other attributes are the graph's, so the
+        replica's guards and books stay."""
+
+        def __init__(self, real):
+            self.real = real
+
+        def __call__(self, *a, **k):
+            calls[0] += 1
+            if calls[0] >= 5:
+                raise RuntimeError("injected replica death")
+            return self.real(*a, **k)
+
+        def __getattr__(self, item):
+            return getattr(self.real, item)
+
+    for prog in dying._programs.values():
+        prog._fn = Dying(prog._fn)
+    report = run_load(cluster, n_requests=200, pattern="poisson",
+                      rate_rps=400.0, sizes=(1, 2, 3, 4), seed=2)
+    try:
+        cluster.stop()
+        stop_ok = True
+    except RuntimeError:
+        stop_ok = False
+    truth = report["ground_truth"]
+    shed = truth["shed_by_reason"]
+    checks = {
+        "replica_1_dead": report["replicas"]["1"]["status"] == "dead",
+        "replica_errors_name_1": [e["sid"] for e in
+                                  report["replica_errors"]] == [1],
+        "retried_or_shed_typed":
+            report["counters"].get("serve.failover.retried", 0)
+            + shed.get("replica_failed", 0) >= 1
+            and set(shed) <= {"replica_failed"},
+        "consistent": report["consistent"],
+        "served_eq_images": report["device_stats"]["served"]
+        == truth["images_served"],
+        "all_accounted": truth["completed"] + truth["shed"] == 200
+        and truth["unresolved"] == 0,
+        "stop_does_not_raise": stop_ok,
+    }
+    return checks, {"replicas": report["replicas"],
+                    "replica_errors": report["replica_errors"],
+                    "retried": report["counters"].get(
+                        "serve.failover.retried", 0),
+                    "shed_by_reason": shed}
+
+
+def _quarantine_cli_checks(run_dir: str, rc: int,
+                           tail: str) -> tuple[dict, dict]:
+    """5b (d): replica 1 wedged 3 s in its 5th batch (`QUARANTINE_ARGS`
+    through the CLI): quarantined, then restored, exact books."""
+    try:
+        with open(os.path.join(run_dir, "report.json"),
+                  encoding="utf-8") as f:
+            rep = json.load(f)
+        events = _flight_events(run_dir)
+    except (OSError, ValueError) as e:
+        rep, events = {}, []
+        tail += repr(e)
+    kinds = [e.get("kind") for e in events if e.get("replica") == 1]
+    q = kinds.index("replica_quarantined") if (
+        "replica_quarantined" in kinds) else None
+    r = kinds.index("replica_restored") if (
+        "replica_restored" in kinds) else None
+    truth = rep.get("ground_truth") or {}
+    checks = {
+        "cli_exit_0": rc == 0,
+        "verdict_ok": (rep.get("verdict") or {}).get("ok") is True,
+        "quarantined_then_restored": q is not None and r is not None
+        and q < r,
+        "books_exact": rep.get("consistent") is True
+        and truth.get("completed") == truth.get("accepted")
+        and (rep.get("device_stats") or {}).get("served")
+        == truth.get("images_served"),
+    }
+    out_rec = {"cli_rc": rc, "replicas": rep.get("replicas"),
+               "quarantine_events": [e for e in events if e.get("kind") in (
+                   "replica_quarantined", "replica_restored")]}
+    if rc != 0:
+        out_rec["cli_tail"] = tail
+    return checks, out_rec
+
+
+def phase_serve_cluster(out):
+    """5b: the self-healing serving tier (`ServeCluster`) on phase 5's
+    model (fused full-width ResNet-18, f32, random weights and BN
+    statistics from seed 0), every bucket a CUDA graph: (a) two replicas
+    sharing the card, each on its own stream, behind one queue (400
+    Poisson requests of 1-4 images at 800/s, classes 0.6/0.4 with SLOs
+    250/800 ms): audited books overall and per class, the summed device
+    books equal to the images served and the handles' predictions, both
+    replicas serving, 0 retraces with one capture per bucket per
+    replica, the launch books (captured x replays, and by name), and each
+    replica's bucket-32 graph bit-identical to its eager step; (b) the
+    CLI's chaos matrix (drain replica 1, hot swap, rejoin): exit 0, the
+    membership ledger, version stamps, ``obs timeline`` showing drain →
+    swap → rejoin, and in process the post-swap answers equal to an eager
+    forward of the swapped weights; (c) failover: replica 1's programs
+    raise at its 5th batch — retried on replica 0 or shed typed, exact
+    books, ``stop()`` does not raise; (d) quarantine: replica 1 wedged 3 s
+    (``delay:``), quarantined then restored, exact books; (f) with two or
+    more cards, `tools/port_serve_multicard.py`. (a) runs alone (it is
+    timed); the CLI runs of (b) and (d) then run beside (b)'s in-process
+    half and (c), which check answers and books only. (e), the training
+    windows' guard, is in phase 9."""
+    import torch
+
+    card = out["card"]
+    checks, rec = {}, {"card": card}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_")
+
+    def part(tag, fn, key=None):
+        t = time.perf_counter()
+        c, r = fn()
+        r["seconds"] = time.perf_counter() - t
+        rec[key or tag] = r
+        checks.update({f"{tag}_{k}": v for k, v in c.items()})
+        print(f"[serve_cluster] ({key or tag}) " + json.dumps(
+            {"checks": c, "seconds": r["seconds"]}))
+
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        part("a", lambda: _cluster_a(out, card))
+        runs = {"b": os.path.join(tmp.name, "chaos"),
+                "d": os.path.join(tmp.name, "quarantine")}
+        argv = {"b": _chaos_cli(runs["b"]),
+                "d": ["--device", "cuda", "--replicas", "2", "--run-dir",
+                      runs["d"], *QUARANTINE_ARGS, "--out",
+                      os.path.join(runs["d"], "report.json")]}
+        procs = {k: _start_serve_cli(f"{runs[k]}.log", *argv[k])
+                 for k in runs}
+        part("b", _chaos_inproc, key="b_inproc")
+        part("c", lambda: _cluster_c(out))
+        for tag, checker in (("b", _chaos_cli_checks),
+                             ("d", _quarantine_cli_checks)):
+            rc, tail = _finish_serve_cli(procs[tag], f"{runs[tag]}.log")
+            part(tag, lambda: checker(runs[tag], rc, tail))
+        if torch.cuda.device_count() >= 2:
+            p = subprocess.run(
+                [sys.executable, os.path.join(HERE, "tools",
+                                              "port_serve_multicard.py")],
+                cwd=HERE, capture_output=True, text=True, timeout=900)
+            rec["f"] = {"rc": p.returncode, "tail": p.stdout[-3000:]
+                        + p.stderr[-2000:]}
+            checks["f_multi_card_exit_0"] = p.returncode == 0
+            print(p.stdout[-3000:])
+        else:
+            print("serve_cluster_multi_card: not run, 1 card visible")
+        rec["seconds"] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+    rec["checks"] = checks
+    out["serve_cluster"] = rec
+    a, single = rec["a"], out.get("serve") or {}
+    print(f"[serve_cluster] {card}: 2 replicas on one card "
+          f"({CLUSTER_REQUESTS} Poisson requests at {CLUSTER_RATE:.0f}/s): "
+          f"p50 {a['p50_ms']} ms, p95 {a['p95_ms']} ms, "
+          f"{a['images_per_s']:.1f} images/s; by class " + json.dumps(
+              {c: {k: v[k] for k in ("p50_ms", "p95_ms", "attainment")}
+               for c, v in a["classes"].items()})
+          + f"; phase 5's one replica (200 at 400/s): p50 "
+          f"{single.get('p50_ms')} ms, p95 {single.get('p95_ms')} ms, "
+          f"{single.get('images_per_s') or 0:.1f} images/s")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        print("[serve_cluster] " + json.dumps(
+            {k: rec[k] for k in ("b", "b_inproc", "c", "d") if k in rec},
+            default=str)[-6000:])
+        raise AssertionError(f"serve_cluster checks failed: {failed}")
 
 
 def phase_train(out):
@@ -1820,12 +2396,12 @@ def phase_checkpoint(out):
     xent launches each step; (b) the save's blocking and background ms,
     the payload, a verified load and the first resumed step against a
     steady one; (c) `InferenceEngine.from_checkpoint` of the epoch-3 save:
-    audited books, 10 conv launches per forward, bucket-32 logits equal to
-    the trained model's eval forward; (d) the reference workload (`Net`,
-    batch 4) through ``python -m tpu_dp_torch.train`` on the card, its
-    final params loaded back, a card-vs-CPU `Net` forward and gradient
-    within 1e-4 of max|.|, and 1 + 1 xent launches a step with
-    ``--train.pallas_xent=true``."""
+    audited books, 10 conv launches per captured forward x replays,
+    bucket-32 logits equal to the trained model's eval forward; (d) the
+    reference workload (`Net`, batch 4) through ``python -m
+    tpu_dp_torch.train`` on the card, its final params loaded back, a
+    card-vs-CPU `Net` forward and gradient within 1e-4 of max|.|, and
+    1 + 1 xent launches a step with ``--train.pallas_xent=true``."""
     import tempfile
 
     import numpy as np
@@ -1934,7 +2510,9 @@ def phase_checkpoint(out):
             finally:
                 engine.stop()
             served_launches = cb.launches_by_role["eval"]
-            forwards = len(engine.replica.warmup_ms) + report["batches"]
+            books = _serve_graph_books([engine.replica], 10,
+                                       served_launches, report["batches"])
+            forwards = books["forwards_ran"]
             truth, dev = report["ground_truth"], report["device_stats"]
             imgs = torch.from_numpy(np.random.default_rng(4).integers(
                 0, 256, (32, 32, 32, 3), dtype=np.uint8)).cuda()
@@ -1947,14 +2525,16 @@ def phase_checkpoint(out):
                 "serve_consistent": report["consistent"],
                 "serve_served_eq_images":
                     dev["served"] == truth["images_served"],
-                "serve_10_launches_per_forward":
-                    served_launches == 10 * forwards,
+                "serve_10_launches_per_captured_forward_x_replays":
+                    books["ok"],
+                "serve_no_retraces": report["retraces"] == 0,
                 "serve_b32_logits_bit_identical_to_trained": torch.equal(
                     served, trained),
             })
             rec["serve"] = {"batches": report["batches"],
                             "forwards": forwards,
                             "conv_launches": served_launches,
+                            "graph_books": books,
                             "p50_ms": (report["latency_ms"] or {}).get(
                                 "p50_ms"),
                             "images_served": truth["images_served"]}
@@ -3159,7 +3739,9 @@ def _windows_vs_eager(out, args, k, updates, convs, where, eager=None,
     }
     rec = {"losses": losses, "eval": res_w["eval"], "ran_windowed": ran_w,
            "ran_eager": ran_e, "captured": dict(ms.captured),
-           "replays": ms.replays, "eager_windows": ms.eager_windows}
+           "replays": ms.replays, "eager_windows": ms.eager_windows,
+           "window_guard": (win._window_guard.stats()
+                            if win._window_guard is not None else None)}
     # Books per replay by kernel name, and speed, same models.
     _, pool = _first_window(win.train_pipe, k)
     batch = next(iter(eager.train_pipe))
@@ -3276,10 +3858,22 @@ def phase_windows(out):
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_windows_")
     try:
         _windows_xent(out, rec, checks)
-        # (a) parity and books, one card, no group; (c) speed.
+        # (a) parity and books, one card, no group, the windows under
+        # the recompile guard at raise (phase 5b (e)); (c) speed.
+        from tpu_dp_torch.obs.counters import counters as obs_counters
+
+        retraces0 = obs_counters.get("recompile.retraces", 0)
         a_checks, rec["a"] = _windows_vs_eager(
-            out, lambda n, kk: _win_args(n, k=kk), k, updates, 10, tmp.name)
+            out, lambda n, kk: _win_args(
+                n, k=kk, extra=("--train.recompile_guard=raise",)),
+            k, updates, 10, tmp.name)
         checks.update({"a_" + n: v for n, v in a_checks.items()})
+        guard = rec["a"]["window_guard"] or {}
+        checks.update({
+            "a_guard_raise_no_retraces": guard.get("retraces") == 0
+            and obs_counters.get("recompile.retraces", 0) == retraces0,
+            "a_guard_cache_size_1": guard.get("cache_size") == 1,
+        })
         print("[windows] (c) " + json.dumps(
             {n: v for n, v in rec["a"].items() if n not in (
                 "losses", "ran_windowed", "ran_eager", "captured")}))
@@ -3736,7 +4330,9 @@ def phase_resnet50(out):
             finally:
                 engine.stop()
             served_launches = cb.launches
-            forwards = len(engine.replica.warmup_ms) + report["batches"]
+            books = _serve_graph_books([engine.replica], 13,
+                                       served_launches, report["batches"])
+            forwards = books["forwards_ran"]
             imgs = torch.from_numpy(np.random.default_rng(4).integers(
                 0, 256, (32, 32, 32, 3), dtype=np.uint8)).cuda()
             trainer.model.eval()
@@ -3756,13 +4352,15 @@ def phase_resnet50(out):
             "serve_ckpt_consistent": report["consistent"],
             "serve_ckpt_served_eq_images":
                 dev["served"] == truth["images_served"],
-            "serve_ckpt_13_launches_per_forward":
-                served_launches == 13 * forwards,
+            "serve_ckpt_13_launches_per_captured_forward_x_replays":
+                books["ok"],
+            "serve_ckpt_no_retraces": report["retraces"] == 0,
             "serve_ckpt_b32_logits_bit_identical_to_trained":
                 torch.equal(served, trained),
         })
         serve_ckpt = {"batches": report["batches"], "forwards": forwards,
                       "conv_launches": served_launches,
+                      "launches_ran": books["ran"],
                       "p50_ms": (report["latency_ms"] or {}).get("p50_ms"),
                       "images_served": truth["images_served"],
                       "b32_max_abs_diff":
@@ -4471,14 +5069,17 @@ def phase_resident(out):
             where = os.path.join(tmp.name, "part")
             part = Trainer(parse_cli(_res_args("on", k) + [
                 f"--train.ckpt_dir={where}"]))
-            real = part.multi_step
+            # The hook wraps what the loop calls for a window: the
+            # program under the window's `RecompileGuard`.
+            guard = part._window_guard
+            real = guard._fn
 
             def window(state, table, idx):
                 if state.step == stop:
                     raise _Stop
                 return real(state, table, idx)
 
-            part.multi_step = window
+            guard._fn = window
             try:
                 part.fit()
             except _Stop:
@@ -7409,9 +8010,12 @@ def phase_elastic(out):
     print(f"[elastic] seconds {json.dumps(seconds)}")
 
 
-def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
+def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS,
+            launches_ran=None):
     """One kernels-line entry whose times sum ``recs`` (one per launch of
-    a step or forward)."""
+    a step or forward). ``launches_ran``: where served forwards replay
+    bucket graphs, the launches that ran (``launches`` counts a graph's
+    at its capture only)."""
     total = {k: sum(r[k] for r in recs)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     if all("wrapper_ms" in r for r in recs):
@@ -7421,6 +8025,7 @@ def _summed(name, source, replaces, launches, recs, peak=PEAK_BF16_FLOPS):
     return with_ratios({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
+        **({} if launches_ran is None else {"launches_ran": launches_ran}),
         "max_abs_err": max(r["max_abs_err"] for r in recs), **total,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
@@ -7431,11 +8036,15 @@ def kernels_line(out):
     train = out["train"]["launches"]
     src = "tpu_dp_torch/ops/csrc/"
     # Times sum the 10 calls of one B=32 f32 forward; launches are the
-    # serve path's forwards plus the train path's eval forwards.
+    # serve path's forwards plus the train path's eval forwards (eager):
+    # counted by the wrappers (a bucket graph's at its capture) and as
+    # ran (its replays too).
     eval_entry = _summed(KERNEL, src + "conv_block.cu",
                          "tpu_dp/ops/conv_block.py:113",
                          out["serve"]["launches"] + train["conv"]["eval"],
-                         [cases[c] for c in FORWARD_CALLS])
+                         [cases[c] for c in FORWARD_CALLS],
+                         launches_ran=out["serve"]["launches_ran"]
+                         + train["conv"]["eval"])
     eval_entry["max_abs_err"] = max(
         r["max_abs_err"] for r in out["kernel_cases"]
         + out["kernel_small_bucket_cases"])
@@ -7488,17 +8097,20 @@ def kernels_line(out):
     r50, rk = out["resnet50"], out["resnet50_kernels"]
     by = {(r["kind"], r["stage"]): r for r in rk["conv"]}
     conv = r50["launches"]["conv"]
-    for kind, name, line, launches in (
+    for kind, name, line, launches, ran in (
             ("r50_eval", "conv_block.fused_affine_relu_conv (ResNet-50, f32 "
              "x, no residual)", 113, r50["serve"]["launches"]
-             + r50["serve_ckpt"]["conv_launches"] + conv["eval"]),
+             + r50["serve_ckpt"]["conv_launches"] + conv["eval"],
+             r50["serve"]["launches_ran"]
+             + r50["serve_ckpt"]["launches_ran"] + conv["eval"]),
             ("r50_emit_stats", "conv_block.fused_conv_bn (emit_stats, "
-             "ResNet-50)", 153, conv["stats"]),
+             "ResNet-50)", 153, conv["stats"], None),
             ("r50_input_grad", "conv_block input-grad (pallas_bwd, "
-             "ResNet-50)", 418, conv["input_grad"])):
+             "ResNet-50)", 418, conv["input_grad"], None)):
         entries.append(_summed(name, src + "conv_block.cu",
                                f"tpu_dp/ops/conv_block.py:{line}", launches,
-                               [by[(kind, st)] for st in R50_FORWARD_STAGES]))
+                               [by[(kind, st)] for st in R50_FORWARD_STAGES],
+                               launches_ran=ran))
     x = rk["xent"]
     for d, name, line, key in (
             ("fwd", "xent.mean_softmax_xent forward (mean, [128, 100], "
@@ -7561,8 +8173,9 @@ def kernels_line(out):
 
 
 PHASES = (phase_header, phase_build, phase_kernels, phase_train_kernels,
-          phase_serve, phase_train, phase_checkpoint, phase_ddp_gloo_one_card,
-          phase_ddp_nccl_world1, phase_ddp_nccl_multi_card, phase_windows,
+          phase_serve, phase_serve_cluster, phase_train, phase_checkpoint,
+          phase_ddp_gloo_one_card, phase_ddp_nccl_world1,
+          phase_ddp_nccl_multi_card, phase_windows,
           phase_resnet50_kernels, phase_resnet50, phase_resnet50_windows,
           phase_resnet50_ddp, phase_sharded, phase_resident, phase_presets,
           phase_resilience, phase_guard, phase_obs, phase_elastic)

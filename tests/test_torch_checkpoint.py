@@ -375,9 +375,21 @@ def test_config_dicts_load_in_both_packages(tmp_path):
         parse_cli([f"--config={jmeta}"])
     assert parse_cli([f"--config={jmeta}", "--resume"]) == parse_cli(
         args + ["--resume"])
-    bad = jax_config.parse_cli(args + ["--serve.max_queue=8"]).to_dict()
+    # A non-default serve section and recompile guard load both ways.
+    served = args + ["--serve.max_queue=8", "--serve.replicas=2",
+                     "--train.recompile_guard=raise"]
+    jmeta.write_text(json.dumps(
+        {"config": jax_config.parse_cli(served).to_dict()}))
+    mine = parse_cli([f"--config={jmeta}", "--train.ckpt_dir=x"])
+    assert (mine.serve.max_queue, mine.serve.replicas,
+            mine.train.recompile_guard) == (8, 2, "raise")
+    assert jax_config.Config.from_dict(json.loads(json.dumps(
+        mine.to_dict()))) == jax_config.parse_cli(
+            served + ["--train.ckpt_dir=x"])
+    bad = jax_config.parse_cli(
+        args + ["--train.verify_fingerprint=true"]).to_dict()
     jmeta.write_text(json.dumps({"config": bad}))
-    with pytest.raises(NotPortedError, match="serve.max_queue"):
+    with pytest.raises(NotPortedError, match="train.verify_fingerprint"):
         parse_cli([f"--config={jmeta}", "--train.ckpt_dir=x"])
     with pytest.raises(ValueError, match="auto"):
         parse_cli(["--resume=never"])

@@ -61,7 +61,8 @@ def test_every_module_imports_without_jax_or_tpu_dp():
               "tpu_dp_torch.resilience.preempt", "tpu_dp_torch.models.net",
               "tpu_dp_torch.resilience.elastic", "tpu_dp_torch.data.sampler",
               "tpu_dp_torch.train.hooks", "tpu_dp_torch.config",
-              *_TELEMETRY):
+              "tpu_dp_torch.serve.router", "tpu_dp_torch.serve.replica",
+              "tpu_dp_torch.analysis.recompile", *_TELEMETRY):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
@@ -111,7 +112,8 @@ def test_static_scan_finds_no_jax_or_tpu_dp_import():
         ROOT / "tools" / "port_nccl_abort_probe.py",
         ROOT / "tools" / "port_elastic_multicard.py",
         ROOT / "tools" / "port_commprof_multicard.py",
-        ROOT / "tools" / "port_nccl_world1_probe.py"]
+        ROOT / "tools" / "port_nccl_world1_probe.py",
+        ROOT / "tools" / "port_serve_multicard.py"]
     assert len(files) > 15
     bad = {
         str(f.relative_to(ROOT)): n
@@ -211,3 +213,16 @@ def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_cluster_and_cli_refuse_without_cuda(monkeypatch, capsys):
+    from tpu_dp_torch.models import build_model
+    from tpu_dp_torch.serve import ServeCluster
+    from tpu_dp_torch.serve.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError,
+                       match="2 replicas need at least 2 devices, have 0"):
+        ServeCluster(build_model("net"), replicas=2)
+    assert main(["--requests", "1", "--replicas", "2"]) == 2
+    assert "2 replicas need at least 2 devices" in capsys.readouterr().err

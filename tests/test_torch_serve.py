@@ -138,6 +138,7 @@ def test_start_warms_every_bucket_on_the_dispatch_thread():
     engine = InferenceEngine(model, device="cpu", buckets=(1, 2, 4),
                              registry=TCounters())
     threads = []
+    model = engine.model  # the replica's own copy
     real = model.forward
     model.forward = lambda x: (threads.append(
         threading.current_thread().name), real(x))[1]
@@ -156,7 +157,7 @@ def test_warmup_failure_raises_from_start():
     def broken(x):
         raise ValueError("boom")
 
-    model.forward = broken
+    engine.model.forward = broken  # the replica's own copy
     with pytest.raises(RuntimeError, match="warmup failed") as info:
         engine.start()
     assert isinstance(info.value.__cause__, ValueError)

@@ -181,17 +181,28 @@ def test_augmentation_statistics():
 
 @pytest.mark.parametrize("knob", [
     "--train.verify_fingerprint=true",
-    "--train.recompile_guard=raise",
-    "--serve.max_queue=8",
-    "--train.profile=t.json", "--serve.profile_batches=2:4",
-    "--serve.max_wait_ms=1",
+    "--train.profile=t.json",
     "--model.fused_block_b=4",
-    "--serve.replicas=2",
     "--profile=t.json",
     "--parallel.num_devices=2"])
 def test_cli_refuses_unported_knobs(knob):
     with pytest.raises(NotPortedError):
         parse_cli(["--preset=resnet18_cifar10", knob])
+
+
+@pytest.mark.parametrize("knob,field,value", [
+    ("--train.recompile_guard=raise", "train.recompile_guard", "raise"),
+    ("--train.recompile_guard=off", "train.recompile_guard", "off"),
+    ("--serve.max_queue=8", "serve.max_queue", 8),
+    ("--serve.profile_batches=2:4", "serve.profile_batches", "2:4"),
+    ("--serve.max_wait_ms=1", "serve.max_wait_ms", 1.0),
+    ("--serve.replicas=2", "serve.replicas", 2)])
+def test_cli_takes_the_serve_section_and_the_recompile_guard(knob, field,
+                                                            value):
+    cfg = parse_cli(["--preset=resnet18_cifar10", knob])
+    section, name = field.split(".")
+    assert getattr(getattr(cfg, section), name) == value
+    assert cfg.to_dict()[section][name] == value
 
 
 @pytest.mark.parametrize("knobs,message", [

@@ -3,8 +3,8 @@
     python3 tools/port_serve_warmup_ab.py [--requests 200] [--rounds 2]
 
 ``caller``: the replica's ``warmup()`` on the calling thread, then the
-replica's ``start(warmup=False)`` — the dispatch thread meets every bucket
-cold. ``dispatch``: `InferenceEngine.start()`, which warms every bucket on
+replica's ``start()``, which warms only a replica not yet warmed — the
+dispatch thread meets every bucket cold. ``dispatch``: `InferenceEngine.start()`, which warms every bucket on
 the dispatch thread itself (the only mode the engine offers). Both serve the full-width fused ResNet-18 (f32, seed 0) under the
 same 200 Poisson requests at 400/s, in turns (caller, dispatch, caller,
 dispatch, ...). Prints one JSON line per run — serve p50/p95 and device-span
@@ -34,8 +34,8 @@ def run(mode: str, requests: int) -> dict:
                         generator=torch.Generator().manual_seed(0))
     eng = InferenceEngine(model, device="cuda", registry=Counters())
     if mode == "caller":
-        eng.replica.warmup()
-        eng.replica.start(warmup=False)
+        eng.replica.warmup_ms = eng.replica.warmup()
+        eng.replica.start()
     else:
         eng.start()
     try:

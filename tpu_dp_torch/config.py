@@ -6,13 +6,14 @@ Training: the `ModelConfig` / `DataConfig` / `OptimConfig` /
 (``--preset=name`` or ``--config=file``, ``--resume``, then
 ``--section.field=value``), with the JAX package's defaults and preset
 values. Every other field the JAX package knows is listed in `NOT_PORTED`
-or `NOT_PORTED_SECTIONS` with its default: setting one away from its
-default raises `NotPortedError` — a knob is never silently ignored.
+with its default: setting one away from its default raises
+`NotPortedError` — a knob is never silently ignored.
 `Config.to_dict` writes every section of the JAX package's config (the
 unported fields at their defaults), so a checkpoint's ``meta.json`` loads
 in either package, and `Config.from_dict` reads one.
 
-Serving: the `ServeConfig` fields `InferenceEngine` takes and the two
+Serving: the `serve` section (`ServeConfig`, every field of the JAX
+package's, read by `InferenceEngine` and `ServeCluster`) and the two
 SLO-class parsers.
 """
 
@@ -89,6 +90,9 @@ class TrainConfig:
     # Updates per dispatch: on a card a replayed CUDA graph of K updates;
     # 0 = auto (min(24, steps per epoch) with data.drop_remainder, else 1).
     steps_per_call: int = 1
+    # RecompileGuard over the window programs: a capture after the first
+    # is a retrace, "warn"ed or "raise"d; "off" leaves them unwrapped.
+    recompile_guard: str = "warn"  # off | warn | raise
     ckpt_dir: str = "./checkpoints"
     ckpt_keep: int = 3  # retained epoch checkpoints (0 = keep all)
     ckpt_async: bool = True  # write checkpoints on a worker thread
@@ -284,6 +288,56 @@ class ObsConfig:
 
 
 @dataclass
+class ServeConfig:
+    """Batched-inference serving (`tpu_dp_torch.serve`): the JAX package's
+    fields, every one read by the port."""
+
+    # Padded batch-size ladder: every formed batch is zero-padded up to one
+    # of these sizes, each with its own serve program (on a card a CUDA
+    # graph captured at warmup) — fixed shapes, so the RecompileGuard
+    # stays silent.
+    buckets: str = "1,2,4,8,16,32"
+    # Dynamic-batching latency cap: dispatch when the pending work fills
+    # the largest bucket OR the oldest request has waited this long.
+    max_wait_ms: float = 5.0
+    # Queue bound (requests): past this depth `submit` sheds "queue_full",
+    # lowest SLO class first.
+    max_queue: int = 256
+    # Per-request latency target; attainment is reported from the spans.
+    slo_ms: float = 50.0
+    # A request whose deadline budget is already below this is shed at
+    # admission (reason "deadline").
+    shed_headroom_ms: float = 0.0
+    # Heartbeat directory ("" = disabled): per-batch heartbeats of the
+    # single engine land here. The multi-replica tier uses run_dir.
+    obs_dir: str = ""
+    # Replica fan-out (`tpu_dp_torch.serve.router.ServeCluster`): N
+    # replicas behind one shared admission queue, with heartbeat-derived
+    # health, failover, drain/rejoin and hot swap.
+    replicas: int = 1
+    # Serving artifact root ("" = disabled): heartbeats and the fleet
+    # streams under <run_dir>/obs, the serving membership ledger under
+    # <run_dir>/membership/serve.
+    run_dir: str = ""
+    # A replica whose heartbeat is older than this WHILE it holds an
+    # in-flight batch is quarantined until it beats again.
+    stale_after_s: float = 2.0
+    # Failover budget: retries of a dead replica's in-flight request on a
+    # survivor before it is shed "replica_failed".
+    max_retries: int = 1
+    # Per-SLO-class latency targets, class 0 first, e.g. "50,100,250".
+    class_slo_ms: str = ""
+    # Per-class attainment floors, "0:0.9,1:0.5": the serve CLI exits 1
+    # when a listed class completes below its floor.
+    class_floors: str = ""
+    # "START:END" batch indices traced by each replica with torch.profiler
+    # into profile_dir/r<sid>.
+    profile_batches: str = ""
+    # Trace root for profile_batches (required with it).
+    profile_dir: str = ""
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -293,6 +347,7 @@ class Config:
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     guard: GuardConfig = field(default_factory=GuardConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
     def override(self, dotted: str, value: str) -> None:
         """Apply one ``section.field=value`` override, coercing to the
@@ -301,10 +356,6 @@ class Config:
         section_name, _, field_name = dotted.partition(".")
         if not field_name:
             raise ValueError(f"override {dotted!r} must be section.field")
-        if section_name in NOT_PORTED_SECTIONS:
-            raise NotPortedError(
-                f"--{dotted}: the {section_name!r} section is not ported to "
-                f"tpu_dp_torch yet ({_roadmap(dotted)})")
         if dotted in NOT_PORTED:
             default = NOT_PORTED[dotted]
             if _coerce(value, default) != default:
@@ -328,8 +379,6 @@ class Config:
         for dotted, default in NOT_PORTED.items():
             section, _, name = dotted.partition(".")
             out[section][name] = default
-        for section, fields in NOT_PORTED_SECTIONS.items():
-            out[section] = dict(fields)
         return out
 
     @classmethod
@@ -343,15 +392,6 @@ class Config:
             if not isinstance(fields, dict):
                 raise ValueError(f"config section {section_name!r} must be "
                                  f"an object, got {type(fields).__name__}")
-            if section_name in NOT_PORTED_SECTIONS:
-                known = NOT_PORTED_SECTIONS[section_name]
-                for name, value in fields.items():
-                    if name not in known:
-                        raise ValueError(
-                            f"unknown field {name!r} in {section_name}")
-                    _require_default(f"{section_name}.{name}", value,
-                                     known[name])
-                continue
             if section_name not in _SECTIONS:
                 raise ValueError(f"unknown config section {section_name!r}")
             section = getattr(cfg, section_name)
@@ -369,19 +409,7 @@ class Config:
 
 
 _SECTIONS = ("model", "data", "optim", "train", "parallel", "resilience",
-             "guard", "obs")
-
-#: Sections of the JAX package's config the trainer does not read yet,
-#: with the JAX package's defaults (a meta.json carries them).
-NOT_PORTED_SECTIONS: dict[str, dict[str, Any]] = {
-    "serve": {
-        "buckets": "1,2,4,8,16,32", "max_wait_ms": 5.0, "max_queue": 256,
-        "slo_ms": 50.0, "shed_headroom_ms": 0.0, "obs_dir": "",
-        "replicas": 1, "run_dir": "", "stale_after_s": 2.0,
-        "max_retries": 1, "class_slo_ms": "", "class_floors": "",
-        "profile_batches": "", "profile_dir": "",
-    },
-}
+             "guard", "obs", "serve")
 
 #: Fields of the ported sections that the port does not implement yet,
 #: with the JAX package's defaults (the only values that run).
@@ -391,7 +419,6 @@ NOT_PORTED: dict[str, Any] = {
     # tile_of`), so there is no per-block knob to give it and only the
     # automatic default runs.
     "model.fused_block_b": 0,
-    "train.recompile_guard": "warn",
     "train.verify_fingerprint": False,
     "train.profile": "",
 }
@@ -399,9 +426,7 @@ NOT_PORTED: dict[str, Any] = {
 #: The ROADMAP Queue 1 item that ports each refused section or field
 #: (longest matching prefix); `model.fused_block_b` stays refused by design.
 _NOT_PORTED_ITEMS = {
-    "serve": "11",
-    "train.profile": "12",
-    "train.recompile_guard": "11", "train.verify_fingerprint": "13",
+    "train.profile": "12", "train.verify_fingerprint": "13",
 }
 
 
@@ -499,6 +524,10 @@ def check_ported(cfg: Config) -> Config:
     if cfg.optim.grad_accum_steps > 1 and not cfg.data.drop_remainder:
         raise ValueError("optim.grad_accum_steps > 1 requires "
                          "data.drop_remainder=true")
+    if cfg.train.recompile_guard not in ("off", "warn", "raise"):
+        raise ValueError(
+            f"train.recompile_guard must be off|warn|raise, "
+            f"got {cfg.train.recompile_guard!r}")
     if cfg.train.steps_per_call < 0:
         raise ValueError(f"train.steps_per_call must be >= 0 (0 = auto), "
                          f"got {cfg.train.steps_per_call}")
@@ -723,7 +752,8 @@ def parse_cli(argv: Sequence[str]) -> Config:
         if key in ("preset", "config") and cfg is not None:
             raise ValueError("give at most one of --preset / --config")
         if key == "profile":
-            raise NotPortedError(f"--{key}: not ported to tpu_dp_torch yet")
+            raise NotPortedError(f"--{key}: not ported to tpu_dp_torch yet "
+                                 f"({_roadmap('train.profile')})")
         if key == "preset":
             if value not in PRESETS:
                 raise ValueError(
@@ -755,28 +785,6 @@ def parse_cli(argv: Sequence[str]) -> Config:
     for key, value in overrides:
         cfg.override(key, value)
     return check_ported(cfg)
-
-
-@dataclass
-class ServeConfig:
-    """Batched-inference serving (`tpu_dp_torch.serve`)."""
-
-    # Padded batch-size ladder: every formed batch is zero-padded up to one
-    # of these sizes, so the forward only ever sees these shapes.
-    buckets: str = "1,2,4,8,16,32"
-    # Dynamic-batching latency cap: dispatch when the pending work fills
-    # the largest bucket OR the oldest request has waited this long.
-    max_wait_ms: float = 5.0
-    # Queue bound (requests): past this depth `submit` sheds "queue_full",
-    # lowest SLO class first.
-    max_queue: int = 256
-    # Per-request latency target; attainment is reported from the spans.
-    slo_ms: float = 50.0
-    # A request whose deadline budget is already below this is shed at
-    # admission (reason "deadline").
-    shed_headroom_ms: float = 0.0
-    # Per-SLO-class latency targets, class 0 first, e.g. "50,100,250".
-    class_slo_ms: str = ""
 
 
 def parse_class_slo_ms(spec: str) -> dict[int, float]:

@@ -189,6 +189,27 @@ class _KernelBlock(nn.Module):
             self._packed[name] = hit
         return hit[1]
 
+    @torch.inference_mode()
+    def refresh_packed(self) -> None:
+        """Repack every cached weight from its parameter INTO the cached
+        tensor: a CUDA graph that captured the kernel reads the packed
+        weight at its address, and a replay never runs `conv_weight`'s
+        version check (a serve replica's hot swap). Under inference mode:
+        the serve step made its packed weights there."""
+        for name, (_, packed) in list(self._packed.items()):
+            wt = getattr(self, name).weight
+            packed.copy_(pack_weight(wt.detach().permute(2, 3, 1, 0)))
+            self._packed[name] = ((wt.data_ptr(), wt._version, wt.device),
+                                  packed)
+
+
+def refresh_packed_weights(model: nn.Module) -> None:
+    """`_KernelBlock.refresh_packed` on every block of ``model`` (a no-op
+    for a model without the kernel)."""
+    for m in model.modules():
+        if isinstance(m, _KernelBlock):
+            m.refresh_packed()
+
 
 class BasicBlock(_KernelBlock):
     """Two 3x3 convs + identity/projection shortcut (ResNet-18/34)."""

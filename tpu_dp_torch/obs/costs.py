@@ -63,6 +63,13 @@ def train_flops_per_image(model_name: str) -> float | None:
     return MODEL_TRAIN_FLOPS_PER_IMAGE.get(str(model_name).lower())
 
 
+def serve_flops_per_image(model_name: str) -> float | None:
+    """Analytic forward-only FLOPs per image (~training/3: the backward
+    pass costs ~2 forwards; serving runs only the forward)."""
+    trained = train_flops_per_image(model_name)
+    return None if trained is None else trained / 3.0
+
+
 def resolve_flops_per_step(program_flops, step_flops, window, per_chip_batch,
                            flops_per_image):
     """Per-optimizer-step per-card FLOPs for MFU, with the JAX package's

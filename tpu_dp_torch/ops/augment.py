@@ -18,6 +18,7 @@ ops, not a Pallas kernel (``tpu_dp/data/augment.py:30-36``).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -26,11 +27,21 @@ from tpu_dp_torch.data import augment as plain
 #: kernel launches since import or the last `reset_launches` (CUDA only).
 launches = 0
 _fn = None
+#: serializes the book's increments across threads.
+_books_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _books_lock:
+        launches = 0
+
+
+def count_launch() -> None:
+    """Book one launch (exact under concurrent threads)."""
+    global launches
+    with _books_lock:
+        launches += 1
 
 
 def _kernel():
@@ -66,7 +77,6 @@ def crop_flip_draws(step: torch.Tensor, n: int, seed: int, row0: int = 0,
     if step.device.type != "cuda":
         raise ValueError(f"crop_flip_draws runs on cpu or cuda, got "
                          f"{step.device}")
-    global launches
     dev = step.device
     offsets = torch.empty((n, 2), dtype=torch.int64, device=dev)
     flips = torch.empty(n, dtype=torch.bool, device=dev)
@@ -78,5 +88,5 @@ def crop_flip_draws(step: torch.Tensor, n: int, seed: int, row0: int = 0,
                        offsets.data_ptr(), flips.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"crop/flip draw kernel launch failed: error {rc}")
-    launches += 1
+    count_launch()
     return offsets, flips

@@ -43,6 +43,7 @@ is one launch: there is no separate reduce.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +55,9 @@ from tpu_dp_torch.ops import _tickets
 launches = 0
 #: the same launches by role: "eval", "stats", "input_grad".
 launches_by_role = {"eval": 0, "stats": 0, "input_grad": 0}
+#: serializes the books' increments: serve replicas launch from their own
+#: dispatch threads.
+_books_lock = threading.Lock()
 #: blocks per level-1 group of the kernel's stats fold (`ordered_stats_sum`).
 STATS_GROUP = 32
 #: the smallest tile's pixels: the most partial rows a launch can write are
@@ -68,9 +72,18 @@ _lib = None
 
 def reset_launches() -> None:
     global launches
-    launches = 0
-    for role in launches_by_role:
-        launches_by_role[role] = 0
+    with _books_lock:
+        launches = 0
+        for role in launches_by_role:
+            launches_by_role[role] = 0
+
+
+def count_launch(role: str) -> None:
+    """Book one launch of ``role`` (exact under concurrent threads)."""
+    global launches
+    with _books_lock:
+        launches += 1
+        launches_by_role[role] += 1
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -218,7 +231,6 @@ def _check(name, t, dev, dtype=None, shape=None):
 
 def _launch(x, w, scale, shift, residual, activate, emit_z,
             emit_stats=False, role="eval"):
-    global launches
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4:
@@ -264,8 +276,7 @@ def _launch(x, w, scale, shift, residual, activate, emit_z,
             b, h, wd, c, rows, n_tick, STATS_GROUP, stream)
     if rc != 0:
         raise RuntimeError(f"conv_block kernel launch failed: error {rc}")
-    launches += 1
-    launches_by_role[role] += 1
+    count_launch(role)
     out = (y,) + ((z,) if emit_z else ()) + ((stats,) if emit_stats else ())
     return out if len(out) > 1 else y
 

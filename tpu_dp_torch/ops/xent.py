@@ -36,6 +36,7 @@ variant counts as a forward launch.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -56,9 +57,21 @@ ONE_CTA_MAX_CLASSES = 32
 _fns = None
 
 
+#: serializes the books' increments across threads.
+_books_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _books_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(direction: str) -> None:
+    """Book one launch of ``direction`` (exact under concurrent
+    threads)."""
+    with _books_lock:
+        launches[direction] += 1
 
 
 def _onehot(labels, c):
@@ -168,7 +181,7 @@ def _fwd(logits, labels, mean=False):
             stream)
     if rc != 0:
         raise RuntimeError(f"xent forward kernel launch failed: error {rc}")
-    launches["forward"] += 1
+    count_launch("forward")
     return out if mean else loss
 
 
@@ -197,7 +210,7 @@ def _bwd(logits, labels, ct, mean=False):
                            stream)
     if rc != 0:
         raise RuntimeError(f"xent backward kernel launch failed: error {rc}")
-    launches["backward"] += 1
+    count_launch("backward")
     return d
 
 

@@ -575,6 +575,7 @@ class MultiStep:
         self.warmup_windows = math.ceil(need / self.k)
         self.eager_windows = 0
         self.graph = None
+        self.captures = 0
         self.captured: dict[str, int] | None = None
         self.replays = 0
         self.replayed_books = dict.fromkeys(collectives.books(), 0)
@@ -630,6 +631,14 @@ class MultiStep:
         for k, v in self._captured_books.items():
             self.replayed_books[k] -= v
         self.graph = graph
+        self.captures += 1
+
+    def _cache_size(self) -> int | None:
+        """The captures so far, the retrace observable of
+        `tpu_dp_torch.analysis.recompile.RecompileGuard`; None on the
+        eager path and before the first capture (the eager warm-up
+        windows compile nothing)."""
+        return self.captures if self.graphed and self.captures else None
 
     def _replay(self, *inputs):
         for static, t in zip(self._static, inputs):
@@ -854,3 +863,74 @@ def make_serve_step(model, device, batch_size: int) -> Callable:
         return stats, out
 
     return step
+
+
+class ServeGraph:
+    """``program(stats, batch) -> (stats, out)``: one bucket's serve step
+    (`make_serve_step`) as a CUDA graph on a card — the port's counterpart
+    of the JAX package's pre-compiled per-bucket serve program.
+
+    The first call captures ``step(stats, batch)`` on ``stream`` (the
+    replica's own; ``thread_local`` capture mode, so another replica's
+    thread may allocate meanwhile; cuDNN's benchmark off, as
+    `MultiStep`'s capture) into ``pool``, then replays it; every later
+    call on the same ``stats`` and ``batch`` tensors replays it. The graph
+    reads the static input buffers and the books at their addresses and
+    writes static outputs, which stay valid until the next replay of any
+    graph in the pool, so the caller copies them out first. A call with
+    other tensors captures anew: ``_cache_size()``, the captures, is what
+    `tpu_dp_torch.analysis.recompile.RecompileGuard` counts. The caller
+    runs the step once eagerly on ``stream`` before the first call (the
+    kernels' ticket buffers and cuDNN's plans are made then, never inside
+    a capture). A capture that fails raises: there is no eager fallback.
+
+    The wrappers' counters tick at capture only: ``captured`` holds the
+    launch books (`launch_books`) of one capture and ``replays`` the
+    replays, so a bucket's launches that ran are ``captured × replays``.
+    On the CPU the step runs eagerly and ``_cache_size()`` is None.
+    """
+
+    def __init__(self, step: Callable, device, stream=None, pool=None):
+        self.step = step
+        self.device = torch.device(device)
+        self.graphed = self.device.type == "cuda"
+        self.stream, self.pool = stream, pool
+        self.graph = None
+        self.captures = 0
+        self.replays = 0
+        self.captured: dict[str, int] | None = None
+        self.capture_ms: float | None = None
+        self._key: tuple | None = None
+        self._out = None
+
+    def _cache_size(self) -> int | None:
+        return self.captures if self.graphed else None
+
+    def __call__(self, stats, batch):
+        if not self.graphed:
+            return self.step(stats, batch)
+        key = tuple(t.data_ptr() for t in (*stats.values(), *batch.values()))
+        if self.graph is None or key != self._key:
+            self._capture(stats, batch, key)
+        self.graph.replay()
+        self.replays += 1
+        return stats, self._out
+
+    def _capture(self, stats, batch, key) -> None:
+        stream = self.stream or torch.cuda.current_stream(self.device)
+        before = launch_books()
+        graph = torch.cuda.CUDAGraph()
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                _, out = self.step(stats, batch)
+        finally:
+            torch.backends.cudnn.benchmark = bench
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        after = launch_books()
+        self.captured = {k: after[k] - before[k] for k in after}
+        self.graph, self._out, self._key = graph, out, key
+        self.captures += 1

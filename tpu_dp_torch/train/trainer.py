@@ -657,8 +657,33 @@ class Trainer:
             make_window(self.step_body, self.steps_per_call,
                         stream=self.stream)
             if self.steps_per_call > 1 else None)
+        #: `multi_step`'s `RecompileGuard` (`_guarded`), rebuilt with it
+        #: at a regroup; None unguarded.
+        self._window_guard = self._guarded(
+            f"resident_loop[w{self.steps_per_call}]"
+            if self._resident_enabled else "multi_step", self.multi_step)
         # Eval runs the unwrapped module: no gradient, nothing to reduce.
         self.eval_step = make_eval_step(self.model, process_group=group)
+
+    def _guarded(self, name: str, program):
+        """A `RecompileGuard` over a window program
+        (``train.recompile_guard``), as the JAX package's trainer wraps
+        its steps; None when it runs unguarded.
+
+        warmup_calls=2, the JAX package's count; the guard's baseline is
+        the first capture in any case (a window's ``_cache_size`` is None
+        until then: its eager warm-up windows compile nothing). Without
+        ``data.drop_remainder`` the window runs unguarded, as the JAX
+        package's steps do there. On the CPU and under gloo the window is
+        eager and the guard inert."""
+        mode = self.cfg.train.recompile_guard
+        if (program is None or mode == "off"
+                or not self.cfg.data.drop_remainder):
+            return None
+        from tpu_dp_torch.analysis.recompile import RecompileGuard
+
+        return RecompileGuard(program, name=name, on_retrace=mode,
+                              warmup_calls=2)
 
     def _init_model(self, group=None) -> torch.nn.Module:
         """The model as a fresh run initializes it (on the CPU), from the
@@ -1587,7 +1612,7 @@ class Trainer:
             self._comm_profiler = None
         if self.multi_step is not None:
             self.multi_step.close()
-        self.multi_step = self.ddp = None
+        self.multi_step = self._window_guard = self.ddp = None
         self._resident_train = None
         self._elastic_tail = None
         if self.heartbeat is not None:
@@ -2056,9 +2081,9 @@ class Trainer:
                                     *guard)
                 c = m["correct"]
             else:
-                m = (self.multi_step(self.state, item, *guard)
-                     if table is None
-                     else self.multi_step(self.state, table, item, *guard))
+                window = self._window_guard or self.multi_step
+                m = (window(self.state, item, *guard) if table is None
+                     else window(self.state, table, item, *guard))
                 c = m["correct"].sum()
             if "quant_overflow" in m:
                 c8 = torch.stack([m["quant_overflow"].sum(),
